@@ -5,8 +5,10 @@ setup(
     name="yolov3-tpu",
     version="0.1.0",
     description="TPU-native YOLOv3 inference framework (JAX/XLA/Pallas)",
-    packages=find_packages(include=["yolov3_tpu", "yolov3_tpu.*"]),
-    package_data={"yolov3_tpu": ["py.typed"]},
+    packages=find_packages(include=["yolov3_tpu", "yolov3_tpu.*",
+                                    "yolov3_tpu_torch", "yolov3_tpu_torch.*"]),
+    package_data={"yolov3_tpu": ["py.typed"],
+                  "yolov3_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

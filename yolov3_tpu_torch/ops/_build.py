@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` compile with ``nvcc`` into ONE shared library with a plain C
+interface, loaded with ``ctypes``. The build runs at first use from the
+sources in the checkout and lands in ``build/kernels/`` at the repository
+root (git-ignored). The library's file name carries a hash of the sources
+and flags, so an edited source is rebuilt, never silently reused.
+
+There is no fallback: without ``nvcc``, or when it fails, or when the
+library does not load, :func:`build_kernels` / :func:`load_kernels` raise
+with the compiler's output. Only the wrappers' CPU branch (a tensor on the
+CPU) runs without this module.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Union
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("decode_packed.cu", "nms_suppress.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# -fmad=false and no --use_fast_math: the kernels' float results must
+# match their plain PyTorch versions (see the notes in each .cu file).
+# -Xptxas -v writes registers / shared memory / spills into the build log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def find_nvcc() -> Optional[str]:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME/bin`` or the toolkit's
+    default prefix; None when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    return None
+
+
+def library_path(build_dir: Union[str, Path, None] = None) -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    return Path(build_dir or BUILD_DIR) / f"libyolov3_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def build_kernels(build_dir: Union[str, Path, None] = None) -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists;
+    return its path. Raises RuntimeError when ``nvcc`` is missing or fails."""
+    lib = library_path(build_dir)
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+            "port's CUDA kernels are built from yolov3_tpu_torch/csrc at "
+            "first use and have no fallback for CUDA tensors")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+    lib.with_suffix(".log").write_text(log)
+    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernels() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every C entry's
+    argument and result types declared."""
+    lib = ctypes.CDLL(str(build_kernels()))
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    lib.yolo_decode_packed_head.argtypes = [
+        p, i64, i64, i64, i32, i32, i32, i32, i32,
+        ctypes.POINTER(ctypes.c_float), f32, f32, i32, i32, p, p]
+    lib.yolo_decode_packed_head.restype = i32
+    lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p]
+    lib.yolo_nms_suppress.restype = i32
+    return lib
+
+
+def check_launch(rc: int, kernel: str) -> None:
+    """Raise if a C entry reported a CUDA error for its launch."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")

@@ -1,35 +1,49 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch port's serving path (one CUDA device).
+"""On-card check of the PyTorch port's serving routes (one CUDA device).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,k1,k1c,k2,k4,k5,golden,main]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
-the CUDA toolkit. Phases, each of which raises on failure:
+the CUDA toolkit. With no arguments every phase runs, in this order, and
+each raises on failure:
 
-1. device and build: require CUDA, print the card's name and power limit,
-   build the kernels from ``yolov3_tpu_torch/csrc`` with nvcc;
-2. K1 (packed decode) against its plain PyTorch version on the card, at the
-   yolov3@416 head shapes, batch 8: tie-heavy logits, exp-clamped boxes,
-   scores exactly on the threshold;
-3. K2 (suppression) against its plain version, K = 512 and 256, batch 8;
-4. the golden fixtures (``tests/data/golden_{tiny,yolov3}.json``) replayed
-   through the port's Detector at precision="highest";
-5. the full-width main path: a 248,007,048-byte yolov3 ``.weights`` file
+1. build: require CUDA, print the card's name and power limit, build the
+   kernels from ``yolov3_tpu_torch/csrc`` with nvcc (one process per
+   source, in parallel);
+2. K1 (packed decode) against its plain version at the yolov3@416 and
+   tiny@416 head shapes, batch 8, on float32 and on bf16 maps: tie-heavy
+   logits, exp-clamped boxes, scores exactly on the threshold;
+3. K1c (compact decode) against its plain version, yolov3@416 B=8;
+4. K2 (suppression) against its plain version, K = 512 and 256, batch 8;
+5. K4 (head-fused decode) at the three yolov3@416 B=8 pre-head shapes,
+   float32 and bf16 operands;
+6. K5 (fused 3x3 conv) at every distinct eligible yolov3@416 B=8 layer
+   shape, float32 and bf16, leaky and linear;
+7. the golden fixtures (``tests/data/golden_{tiny,yolov3}.json``) replayed
+   at precision "highest" through the Detector's routes: K1, the plain
+   compact decode, K4, and K5 convs;
+8. the full-width main path: a 248,007,048-byte yolov3 ``.weights`` file
    through ``Darknet.load_weights``, then ``Detector.detect_batch`` at 416
-   on 8 frames of 480x640 for yolov3 and yolov3-tiny, with the kernels'
-   launch counts read around it.
+   on 8 frames of 480x640: yolov3 precision None (K1), bf16 (K1 on bf16
+   maps), bf16 with the fused head and fused convs (K4, K5), None on the
+   compact route, and yolov3-tiny; ``forward_compact`` through K1c against
+   the plain compact decode; and the bf16 parity bar against "highest".
+   Every kernel's launch count is read around this phase.
 
 The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Exits non-zero, and prints neither, when
-CUDA is unavailable or the port is not beside this script.
+``{"ok": true, "device": {...}}`` (printed only when every phase ran).
+Exits non-zero, and prints neither, when CUDA is unavailable or the port is
+not beside this script.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -38,11 +52,25 @@ REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 BATCH = 8
 SRC_HW = (480, 640)
-# float lanes of K1 against its plain version: both run the same float
-# operations in the same order (no FMA contraction, full-precision expf),
-# so they should agree to the bit; the bar allows 4 ulp relative, and an
-# absolute 1e-4 px for corners that cancel to near zero
+PHASES = ("build", "k1", "k1c", "k2", "k4", "k5", "golden", "main")
+YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights file
+# float lanes of K1 / K1c against their plain versions: both run the same
+# float operations in the same order (no FMA contraction, full-precision
+# expf), so they should agree to the bit; the bar allows 4 ulp relative,
+# and an absolute 1e-4 px for corners that cancel to near zero
 K1_RTOL, K1_ATOL = 4 * 2.0 ** -23, 1e-4
+# K4: the head projection sums Cin products in another order than the
+# plain matmul (the JAX package's fused-vs-unfused bars); the class lane is
+# exact wherever the top two class logits are further apart than K4_MARGIN
+K4_SCORE_ATOL, K4_SCORE_RTOL, K4_BOX_ATOL, K4_MARGIN = 1e-5, 1e-4, 5e-3, 1e-4
+# K5, float32: the JAX package's conv-kernel tolerance (float32 sums of
+# 9·Cin products in different orders). bf16: one bf16 ulp of the plain
+# version (rtol 2^-7), plus the float32 bar's atol for values near zero,
+# where a float32 summation-order difference moves the one rounding
+K5_ATOL, K5_RTOL, K5_BF16_RTOL = 5e-5, 1e-4, 2.0 ** -7
+# the DESIGN bf16 parity bar: IoU > 0.99 on >= 90% of the float32
+# detections scoring >= 0.45
+PARITY_IOU, PARITY_SHARE, PARITY_SCORE = 0.99, 0.9, 0.45
 
 
 def log(msg: str) -> None:
@@ -88,9 +116,15 @@ def phase_build():
             log(f"[build]   {line.strip()}")
 
 
+def head_spec(graph):
+    return ([n.anchors for n in graph.yolo_nodes], list(graph.head_strides()),
+            graph.yolo_nodes[0].classes)
+
+
 def k1_inputs(graph, seed: int):
     """Head maps at the graph's 416 shapes: class and objectness logits on
-    a 1/8 grid (exact ties), some tw/th past the clamp at 60."""
+    a 1/8 grid (exact ties, exact in bf16 too), some tw/th past the clamp
+    at 60."""
     rng = np.random.default_rng(seed)
     heads = []
     for node, stride in zip(graph.yolo_nodes, graph.head_strides()):
@@ -117,14 +151,31 @@ def decode_plain(feats, anchors, strides, num_classes, prob_thresh):
     return payload, payload[..., 4]
 
 
-def phase_k1(graph, name: str):
+def check_records(got, want, what: str) -> float:
+    """K1's bars on K1-style records: class / candidate / spare lanes exact,
+    the threshold's zero pattern exact, float lanes within 4 ulp + 1e-4 px."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got[..., 5:], want[..., 5:]):
+        raise AssertionError(f"{what}: class/cand lanes differ")
+    if not torch.equal(got[..., 4] == 0, want[..., 4] == 0):
+        n = int(((got[..., 4] == 0) != (want[..., 4] == 0)).sum())
+        raise AssertionError(f"{what}: threshold zero pattern differs in {n} records")
+    err = (got[..., :5] - want[..., :5]).abs()
+    bound = K1_ATOL + K1_RTOL * want[..., :5].abs()
+    if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: float lanes off, max |err| {float(err.max())}")
+    return float(err.max())
+
+
+def phase_k1(graph, name: str, dtype_name: str = "float32"):
     import torch
     from yolov3_tpu_torch.ops.cuda_decode import decode_packed
 
-    anchors = [n.anchors for n in graph.yolo_nodes]
-    strides = list(graph.head_strides())
-    ncls = graph.yolo_nodes[0].classes
-    feats = [torch.from_numpy(h).to(DEVICE) for h in k1_inputs(graph, seed=1)]
+    anchors, strides, ncls = head_spec(graph)
+    dtype = getattr(torch, dtype_name)
+    feats = [torch.from_numpy(h).to(DEVICE, dtype) for h in k1_inputs(graph, seed=1)]
     # a threshold that many scores land on exactly: the most common nonzero
     # score of the plain version (ties come from the 1/8 logit grid)
     _, s0 = decode_plain(feats, anchors, strides, ncls, 0.0)
@@ -133,28 +184,47 @@ def phase_k1(graph, name: str):
     n_on = int((s0 == vals[counts.argmax()]).sum())
     max_err = 0.0
     for prob in (0.0, thresh):
-        want, ws = decode_plain(feats, anchors, strides, ncls, prob)
-        got, gs = decode_packed(feats, anchors, strides, ncls, prob)
-        torch.cuda.synchronize()
-        if not torch.equal(got[..., 5:], want[..., 5:]):
-            raise AssertionError(f"K1 class/cand lanes differ at prob={prob}")
-        if not torch.equal(gs == 0, ws == 0):
-            n = int(((gs == 0) != (ws == 0)).sum())
-            raise AssertionError(f"K1 threshold zero pattern differs in {n} "
-                                 f"records at prob={prob}")
-        err = (got[..., :5] - want[..., :5]).abs()
-        bound = K1_ATOL + K1_RTOL * want[..., :5].abs()
-        if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"K1 float lanes off: max |err| "
-                                 f"{float(err.max())} at prob={prob}")
-        max_err = max(max_err, float(err.max()))
-    log(f"[K1] {name}@416 B={BATCH}: {tuple(got.shape)} records, class/cand "
-        f"exact, {n_on} scores exactly on prob_thresh={thresh!r} kept "
-        f"identically, max |err| {max_err!r} (bar {K1_RTOL:.3g} rel + "
-        f"{K1_ATOL} px)")
+        want, _ = decode_plain(feats, anchors, strides, ncls, prob)
+        got, _ = decode_packed(feats, anchors, strides, ncls, prob)
+        max_err = max(max_err, check_records(got, want, f"K1 {dtype_name} prob={prob}"))
+    log(f"[K1] {name}@416 B={BATCH} {dtype_name} maps: {tuple(got.shape)} "
+        f"records, class/cand exact, {n_on} scores exactly on "
+        f"prob_thresh={thresh!r} kept identically, max |err| {max_err!r} "
+        f"(bar {K1_RTOL:.3g} rel + {K1_ATOL} px)")
     ms = cuda_ms(lambda: decode_packed(feats, anchors, strides, ncls, 0.3))
     plain_ms = cuda_ms(lambda: decode_plain(feats, anchors, strides, ncls, 0.3))
-    log(f"[K1] {name}@416 B={BATCH} all heads: kernel {ms:.4f} ms, "
+    log(f"[K1] {name}@416 B={BATCH} {dtype_name} all heads: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return max_err, ms, plain_ms
+
+
+def phase_k1c(graph):
+    import torch
+    from yolov3_tpu_torch.ops.cuda_decode import (decode_compact,
+                                                  decode_compact_head_reference)
+
+    anchors, strides, ncls = head_spec(graph)
+    feats = [torch.from_numpy(h).to(DEVICE) for h in k1_inputs(graph, seed=2)]
+
+    def plain(prob):
+        parts = [decode_compact_head_reference(f, a, s, ncls, prob)
+                 for f, a, s in zip(feats, anchors, strides)]
+        return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+
+    max_err = 0.0
+    for prob in (0.0, 0.3):
+        got, want = decode_compact(feats, anchors, strides, ncls, prob), plain(prob)
+        # the same bars as K1, on the record rebuilt from the three outputs
+        as_rec = lambda o: torch.cat([o[0], o[1][..., None],  # noqa: E731
+                                      o[2].float()[..., None]], dim=-1)
+        if got[2].dtype != torch.int32:
+            raise AssertionError(f"K1c classes are {got[2].dtype}, not int32")
+        max_err = max(max_err, check_records(as_rec(got), as_rec(want),
+                                             f"K1c prob={prob}"))
+    ms = cuda_ms(lambda: decode_compact(feats, anchors, strides, ncls))
+    plain_ms = cuda_ms(lambda: plain(0.0))
+    log(f"[K1c] yolov3@416 B={BATCH}: boxes {tuple(got[0].shape)}, scores, "
+        f"int32 classes exact, max |err| {max_err!r}; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms")
     return max_err, ms, plain_ms
 
@@ -204,6 +274,171 @@ def phase_k2():
     return max_err, times
 
 
+def phase_k4(graph):
+    """K4 at yolov3@416 B=8's three pre-head shapes, float32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+    from yolov3_tpu_torch.ops.cuda_decode import (
+        decode_packed, decode_packed_fused, decode_packed_fused_head_reference)
+    from yolov3_tpu_torch.precision import tf32
+
+    anchors, strides, ncls = head_spec(graph)
+    rng = np.random.default_rng(4)
+    shapes, times, max_err = [], {}, 0.0
+    xs32, ws32, bs = [], [], []
+    for yn, s in zip(graph.yolo_nodes, strides):
+        hc = graph.nodes[yn.inputs[0]]
+        cin = graph.nodes[hc.inputs[0]].out_channels
+        g = 416 // s
+        shapes.append((g, cin, hc.filters))
+        xs32.append(torch.from_numpy(rng.normal(0, 1, (BATCH, g, g, cin))
+                                     .astype(np.float32)).to(DEVICE))
+        ws32.append(torch.from_numpy(rng.normal(0, 1 / np.sqrt(cin),
+                                                (hc.filters, cin))
+                                     .astype(np.float32)).to(DEVICE))
+        bs.append(torch.from_numpy(rng.normal(0, 0.5, hc.filters)
+                                   .astype(np.float32)).to(DEVICE))
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [x.to(dtype) for x in xs32]
+        ws = [w.to(dtype) for w in ws32]
+        got, _ = decode_packed_fused(xs, ws, bs, anchors, strides, ncls, 0.2)
+        off, parts, margins_in = 0, [], 0
+        for x, w, b, a, s in zip(xs, ws, bs, anchors, strides):
+            parts.append(decode_packed_fused_head_reference(x, w, b, a, s, ncls,
+                                                            0.2, off))
+            off += parts[-1].shape[1]
+            with tf32(False):  # the plain head map, for the class margins
+                h = x.reshape(-1, x.shape[3]).float() @ w.float().T + b
+            cls = h.reshape(-1, len(a), 5 + ncls)[..., 5:]
+            top2 = cls.topk(2, dim=-1).values
+            near = (top2[..., 0] - top2[..., 1]) <= K4_MARGIN   # (cells, a)
+            parts[-1] = (parts[-1], near.reshape(BATCH, -1, len(a))
+                         .permute(0, 2, 1).reshape(BATCH, -1))
+            margins_in += int(near.sum())
+        want = torch.cat([p[0] for p in parts], dim=1)
+        near = torch.cat([p[1] for p in parts], dim=1)
+        torch.cuda.synchronize()
+        what = f"K4 {str(dtype)[6:]}"
+        se, sw = got[..., 4], want[..., 4]
+        if not bool((torch.isfinite(got)).all()) or not bool(
+                ((se - sw).abs() <= K4_SCORE_ATOL + K4_SCORE_RTOL * sw.abs()).all()):
+            raise AssertionError(f"{what}: scores off, max |err| "
+                                 f"{float((se - sw).abs().max())}")
+        both = (se > 0) & (sw > 0)
+        box_err = (got[..., :4] - want[..., :4]).abs()[both]
+        if not bool((box_err <= K4_BOX_ATOL + K4_SCORE_RTOL
+                     * want[..., :4].abs()[both]).all()):
+            raise AssertionError(f"{what}: boxes off, max |err| {float(box_err.max())}")
+        if not torch.equal(got[..., 6], want[..., 6]):
+            raise AssertionError(f"{what}: candidate lane differs")
+        bad_cls = (got[..., 5] != want[..., 5]) & ~near
+        if bool(bad_cls.any()):
+            raise AssertionError(f"{what}: class lane differs in "
+                                 f"{int(bad_cls.sum())} records outside the margin")
+        err = max(float((se - sw).abs().max()), float(box_err.max()))
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: decode_packed_fused(xs, ws, bs, anchors, strides,
+                                                 ncls, 0.2))
+
+        def plain():
+            o = 0
+            for x, w, b, a, s in zip(xs, ws, bs, anchors, strides):
+                decode_packed_fused_head_reference(x, w, b, a, s, ncls, 0.2, o)
+                o += len(a) * x.shape[1] * x.shape[2]
+
+        convs = [w.reshape(*w.shape, 1, 1).contiguous(
+            memory_format=torch.channels_last) for w in ws]
+
+        def unfused():  # cuDNN 1x1 head conv in the working type, then K1
+            heads = [F.conv2d(x.permute(0, 3, 1, 2), cw, b.to(dtype))
+                     .permute(0, 2, 3, 1) for x, cw, b in zip(xs, convs, bs)]
+            decode_packed(heads, anchors, strides, ncls, 0.2)
+
+        plain_ms = cuda_ms(plain, iters=5, warmup=1)
+        with tf32(True):
+            unfused_ms = cuda_ms(unfused)
+        times[dtype] = (ms, plain_ms)
+        log(f"[K4] yolov3@416 B={BATCH} {str(dtype)[6:]} operands, pre-head "
+            f"(g, Cin, Cout) {shapes}: scores/boxes within bars, cand exact, "
+            f"class exact outside the {K4_MARGIN} logit margin "
+            f"({margins_in} cell-anchors inside it), max |err| {err!r}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN 1x1 head conv + K1 "
+            f"{unfused_ms:.4f} ms")
+    return max_err, times
+
+
+def k5_shapes(graph):
+    """Distinct (H, W, Cin, Cout) of the eligible 3x3/s1 convs at 416, with
+    their layer counts."""
+    from yolov3_tpu_torch.ops.cuda_conv import supported
+
+    shapes = Counter()
+    for n in graph.conv_nodes:
+        cin = (graph.nodes[n.inputs[0]].out_channels if n.inputs[0] >= 0
+               else graph.in_channels)
+        if n.pad and supported(n.size, n.stride, cin, n.activation):
+            hw = 416 // n.downsample
+            shapes[(hw, hw, cin, n.filters)] += 1
+    return shapes
+
+
+def phase_k5(graph):
+    import torch
+    import torch.nn.functional as F
+    from yolov3_tpu_torch.ops.cuda_conv import (conv3x3_fused,
+                                                conv3x3_fused_reference)
+
+    shapes = k5_shapes(graph)
+    rng = np.random.default_rng(5)
+    max_err, totals = 0.0, {}
+    for (h, w, cin, cout), count in sorted(shapes.items()):
+        x32 = torch.from_numpy(rng.normal(0, 1, (BATCH, h, w, cin))
+                               .astype(np.float32)).to(DEVICE)
+        w32 = torch.from_numpy(rng.normal(0, 0.1, (cout, cin, 3, 3)).astype(
+            np.float32)).to(DEVICE).contiguous(memory_format=torch.channels_last)
+        b = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)).to(DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, wt = x32.to(dtype), w32.to(dtype)
+            for act in ("leaky", "linear"):
+                got = conv3x3_fused(x, wt, b, act)
+                want = conv3x3_fused_reference(x, wt, b, act)
+                torch.cuda.synchronize()
+                g, wv = got.float(), want.float()
+                rtol = K5_RTOL if dtype == torch.float32 else K5_BF16_RTOL
+                err = (g - wv).abs()
+                if not (bool(torch.isfinite(g).all())
+                        and bool((err <= K5_ATOL + rtol * wv.abs()).all())):
+                    raise AssertionError(
+                        f"K5 {(h, w, cin, cout)} {dtype} {act}: max |err| "
+                        f"{float(err.max())}")
+                max_err = max(max_err, float(err.max()))
+            ms = cuda_ms(lambda: conv3x3_fused(x, wt, b), iters=5, warmup=1)
+            plain_ms = cuda_ms(lambda: conv3x3_fused_reference(x, wt, b),
+                               iters=5, warmup=1)
+            xc, bc = x.permute(0, 3, 1, 2), b.to(dtype)
+            # what the main path runs without K5: cuDNN in the working type
+            # (TF32 allowed for float32, as at precision None), then leaky
+            cudnn_ms = cuda_ms(lambda: F.leaky_relu(
+                F.conv2d(xc, wt, bc, padding=1), 0.1), iters=5, warmup=1)
+            tot = totals.setdefault(dtype, [0.0, 0.0, 0.0])
+            for i, t in enumerate((ms, plain_ms, cudnn_ms)):
+                tot[i] += count * t
+            flop = 2 * BATCH * h * w * cin * cout * 9
+            log(f"[K5] B={BATCH} {h}x{w} {cin}->{cout} x{count} layers, "
+                f"{str(dtype)[6:]}: leaky/linear within bars; kernel {ms:.4f} ms "
+                f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                f"cuDNN {cudnn_ms:.4f} ms")
+    for dtype, (ms, plain_ms, cudnn_ms) in totals.items():
+        log(f"[K5] yolov3@416 B={BATCH} all {sum(shapes.values())} eligible "
+            f"layers, {str(dtype)[6:]}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms")
+    return max_err, totals
+
+
+GOLDEN_ROUTES = (("pallas", "xla"), ("xla", "xla"), ("pallas-fused", "xla"),
+                 ("pallas", "pallas"))
+
+
 def phase_golden():
     import torch
     from yolov3_tpu_torch import Darknet, Detector
@@ -211,34 +446,40 @@ def phase_golden():
 
     for fixture in ("golden_tiny.json", "golden_yolov3.json"):
         golden = json.loads((REPO / "tests" / "data" / fixture).read_text())
-        net = Darknet(REPO / "models" / golden["cfg"], precision="highest",
-                      device=DEVICE)
-        net.set_params(fold_raw(random_raw(net.graph, seed=golden["seed"],
-                                           scale=golden.get("scale", 1.0))))
-        size = golden["net_size"]
-        det = Detector(net, prob_thresh=golden["prob_thresh"],
-                       iou_thresh=golden["iou_thresh"], top_k=golden["top_k"],
-                       net_hw=(size, size))
+        params = fold_raw(random_raw(
+            Darknet(REPO / "models" / golden["cfg"]).graph,
+            seed=golden["seed"], scale=golden.get("scale", 1.0)))
         frames = np.random.default_rng(golden["seed"]).integers(
             0, 256, (1, *SRC_HW, 3), dtype=np.uint8)
-        (got,) = det._unpack(det._run(det._stage(frames)), None)  # net px
-        if len(got.class_prob) != len(golden["scores"]):
-            raise AssertionError(f"{fixture}: {len(got.class_prob)} survivors "
-                                 f"vs golden {len(golden['scores'])}")
-        np.testing.assert_array_equal(got.class_idx, golden["classes"])
-        np.testing.assert_allclose(got.class_prob, golden["scores"], atol=5e-5)
-        np.testing.assert_allclose(got.bbox_tlbr, golden["boxes"], atol=0.1)
-        err = float(np.abs(got.bbox_tlbr - np.asarray(golden["boxes"])).max())
-        log(f"[golden] {fixture}: {len(got.class_prob)} survivors match "
-            f"(max box err {err:.2e} px) on {torch.cuda.get_device_name(0)}")
+        size = golden["net_size"]
+        for decode_impl, conv_impl in GOLDEN_ROUTES:
+            net = Darknet(REPO / "models" / golden["cfg"], precision="highest",
+                          device=DEVICE, conv_impl=conv_impl).set_params(params)
+            det = Detector(net, prob_thresh=golden["prob_thresh"],
+                           iou_thresh=golden["iou_thresh"],
+                           top_k=golden["top_k"], net_hw=(size, size),
+                           decode_impl=decode_impl)
+            if det.route != decode_impl:
+                raise AssertionError(f"{fixture}: route {det.route} run for "
+                                     f"decode_impl={decode_impl}")
+            (got,) = det._unpack(det._run(det._stage(frames)), None)  # net px
+            what = f"{fixture} decode_impl={decode_impl} conv_impl={conv_impl}"
+            if len(got.class_prob) != len(golden["scores"]):
+                raise AssertionError(f"{what}: {len(got.class_prob)} survivors "
+                                     f"vs golden {len(golden['scores'])}")
+            np.testing.assert_array_equal(got.class_idx, golden["classes"])
+            np.testing.assert_allclose(got.class_prob, golden["scores"], atol=5e-5)
+            np.testing.assert_allclose(got.bbox_tlbr, golden["boxes"], atol=0.1)
+            err = float(np.abs(got.bbox_tlbr - np.asarray(golden["boxes"])).max())
+            log(f"[golden] {what}: {len(got.class_prob)} survivors match "
+                f"(max box err {err:.2e} px) on {torch.cuda.get_device_name(0)}")
 
 
-def run_main_path(net, name: str, frames: np.ndarray, card: str,
+def run_main_path(det, name: str, frames: np.ndarray, card: str,
                   calls: int = 10):
     import torch
-    from yolov3_tpu_torch import Detector
 
-    det = Detector(net).warmup(BATCH, SRC_HW)
+    det.warmup(BATCH, SRC_HW)
     host, dev = [], []
     for _ in range(calls):
         start = torch.cuda.Event(enable_timing=True)
@@ -259,42 +500,154 @@ def run_main_path(net, name: str, frames: np.ndarray, card: str,
                 and (d.bbox_tlbr[:, [1, 3]] <= SRC_HW[0]).all()
                 and (d.bbox_tlbr >= 0).all()):
             raise AssertionError(f"{name}: implausible detections {d}")
+    net = det.net
     log(f"[main] {name}@416 detect_batch B={BATCH} {SRC_HW[0]}x{SRC_HW[1]} "
-        f"uint8, precision={net.precision}: per call median "
-        f"{np.median(dev):.3f} ms (CUDA events), {np.median(host):.3f} ms "
-        f"(host clock), {calls} calls, on {card}; survivors/image "
-        f"{[len(d.class_prob) for d in out]}")
+        f"uint8, precision={net.precision}, decode_impl={det.route}, "
+        f"conv_impl={net.conv_impl}: per call median {np.median(dev):.3f} ms "
+        f"(CUDA events), {np.median(host):.3f} ms (host clock), {calls} "
+        f"calls, on {card}; survivors/image {[len(d.class_prob) for d in out]}")
+    return out
+
+
+def _iou(a, b):
+    tl = np.maximum(a[:2], b[:2])
+    br = np.minimum(a[2:], b[2:])
+    wh = np.maximum(br - tl, 0)
+    inter = wh[0] * wh[1]
+    ua = (a[2] - a[0]) * (a[3] - a[1])
+    ub = (b[2] - b[0]) * (b[3] - b[1])
+    return inter / max(ua + ub - inter, 1e-9)
+
+
+def check_parity(ref, test, what: str, strict: bool = True) -> None:
+    """The DESIGN bf16 bar: same-class boxes at IoU > 0.99 for >= 90% of
+    the reference detections scoring >= 0.45. ``ref`` / ``test``: per image
+    (boxes, scores, classes) of the survivors. ``strict=False`` only
+    reports the share."""
+    matched = total = 0
+    for (rb, rs, rc), (tb, _, tc) in zip(ref, test):
+        for box, score, cls in zip(rb, rs, rc):
+            if score < PARITY_SCORE:
+                continue
+            total += 1
+            best = max((_iou(box, b) for b, c in zip(tb, tc) if c == cls),
+                       default=0.0)
+            matched += best > PARITY_IOU
+    if strict and (total == 0 or matched / total < PARITY_SHARE):
+        raise AssertionError(f"{what}: parity {matched}/{total}")
+    log(f"[main] {what}: {matched}/{total} reference detections scoring >= "
+        f"{PARITY_SCORE} matched at IoU > {PARITY_IOU} (bar {PARITY_SHARE:.0%})")
+
+
+def parity_survivors(net, x):
+    """tests/test_compact_path.py's parity pipeline on the card:
+    forward_compact, then batched_nms_compact at prob 0.35, top_k 64 →
+    per image (boxes, scores, classes) of the survivors."""
+    import torch
+    from yolov3_tpu_torch import forward_compact
+    from yolov3_tpu_torch.ops.nms import (batched_nms_compact, pack_results,
+                                          unpack_results)
+
+    with torch.inference_mode():
+        out = forward_compact(net.graph, net.params, x, precision=net.precision)
+        res = unpack_results(pack_results(batched_nms_compact(
+            *out, prob_thresh=0.35, top_k=64)).cpu().numpy())
+    return [(res.boxes[i][res.valid[i]], res.scores[i][res.valid[i]],
+             res.classes[i][res.valid[i]]) for i in range(x.shape[0])]
+
+
+def compact_sets(res):
+    from yolov3_tpu_torch.ops.nms import pack_results, unpack_results
+
+    arr = unpack_results(pack_results(res).cpu().numpy())
+    return [{(tuple(np.round(b, 3)), int(c), round(float(s), 5))
+             for b, s, c, v in zip(arr.boxes[i], arr.scores[i], arr.classes[i],
+                                   arr.valid[i]) if v}
+            for i in range(arr.scores.shape[0])]
 
 
 def phase_main(card: str):
     import torch
-    from yolov3_tpu_torch import Darknet
-    from yolov3_tpu_torch.ops import cuda_decode, cuda_nms
+    from yolov3_tpu_torch import Darknet, Detector, forward_compact
+    from yolov3_tpu_torch.ops import cuda_conv, cuda_decode, cuda_nms
+    from yolov3_tpu_torch.ops.nms import batched_nms_compact
+    from yolov3_tpu_torch.ops.preprocess import preprocess
     from yolov3_tpu_torch.weights import fold_raw, random_raw, write_weights
 
+    cfg = REPO / "models" / "yolov3.cfg"
+    nets = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "yolov3.weights"
-        yolo = Darknet(REPO / "models" / "yolov3.cfg", device=DEVICE)
-        write_weights(path, yolo.graph, random_raw(yolo.graph, seed=0))
+        graph = Darknet(cfg).graph
+        write_weights(path, graph, random_raw(graph, seed=0))
         size = path.stat().st_size
-        if size != 248_007_048:
+        if size != YOLOV3_WEIGHTS_BYTES:
             raise AssertionError(f"yolov3.weights is {size} bytes, "
-                                 f"published file is 248007048")
-        yolo.load_weights(path)
+                                 f"published file is {YOLOV3_WEIGHTS_BYTES}")
+        for key, prec, conv in (("none", None, "xla"), ("highest", "highest", "xla"),
+                                ("bf16", "bf16", "xla"), ("bf16-k5", "bf16", "pallas")):
+            nets[key] = Darknet(cfg, precision=prec, device=DEVICE,
+                                conv_impl=conv).load_weights(path)
     tiny = Darknet(REPO / "models" / "yolov3-tiny.cfg", device=DEVICE)
     tiny.set_params(fold_raw(random_raw(tiny.graph, seed=0)))
     frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3),
                                                dtype=np.uint8)
-    cuda_decode.decode_packed_head.launches = 0
-    cuda_nms.suppress.launches = 0
-    run_main_path(yolo, "yolov3", frames, card)
-    run_main_path(tiny, "yolov3-tiny", frames, card)
-    launches = {"decode_packed_head": cuda_decode.decode_packed_head.launches,
-                "nms_suppress": cuda_nms.suppress.launches}
+    kernels = {"decode_packed_head": cuda_decode.decode_packed_head,
+               "decode_compact_head": cuda_decode.decode_compact_head,
+               "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
+               "conv3x3_fused": cuda_conv.conv3x3_fused,
+               "nms_suppress": cuda_nms.suppress}
+    for k in kernels.values():
+        k.launches = 0
+    run_main_path(Detector(nets["none"]), "yolov3", frames, card)
+    run_main_path(Detector(nets["bf16"]), "yolov3", frames, card)
+    run_main_path(Detector(nets["bf16-k5"], decode_impl="pallas-fused"),
+                  "yolov3", frames, card, calls=5)
+    run_main_path(Detector(nets["none"], decode_impl="xla"), "yolov3", frames, card)
+    run_main_path(Detector(tiny), "yolov3-tiny", frames, card)
+    # forward_compact through K1c against the plain compact decode, on the
+    # same preprocessed frames
+    det = Detector(nets["none"])
+    x = preprocess(torch.from_numpy(frames).to(DEVICE).flip(-1), det.net_hw,
+                   interp=det._interp_for(SRC_HW))
+    net = nets["none"]
+    sets = {}
+    with torch.inference_mode():
+        for impl in ("xla", "pallas"):
+            out = forward_compact(net.graph, net.params, x, decode_impl=impl)
+            sets[impl] = compact_sets(batched_nms_compact(
+                *out, prob_thresh=det.prob_thresh, iou_thresh=det.iou_thresh,
+                top_k=det.top_k, max_results=det.max_results))
+    if sets["xla"] != sets["pallas"] or not all(sets["xla"]):
+        raise AssertionError("forward_compact: K1c and the plain compact "
+                             "decode give different detection sets")
+    log(f"[main] yolov3@416 forward_compact B={BATCH}: K1c and the plain "
+        f"compact decode give the same detection sets "
+        f"({[len(s) for s in sets['xla']]} per image)")
+
+    launches = {name: k.launches for name, k in kernels.items()}
     log(f"[main] kernel launches in the main-path run: {launches}")
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {kernel}")
+    # the bf16 bar where the reference holds it (tests/test_compact_path.py:
+    # tiny@416, random weights of seed 3, uniform inputs); at yolov3's depth
+    # random weights amplify rounding, so its shares are reported, not gated
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (BATCH, 416, 416, 3)).astype(np.float32)).to(DEVICE)
+    tiny_params = fold_raw(random_raw(tiny.graph, seed=3))
+    tiny_runs = {prec: parity_survivors(
+        Darknet(REPO / "models" / "yolov3-tiny.cfg", precision=prec,
+                device=DEVICE).set_params(tiny_params), x)
+        for prec in ("highest", "bf16")}
+    check_parity(tiny_runs["highest"], tiny_runs["bf16"],
+                 "yolov3-tiny@416 bf16 against \"highest\"")
+    runs = {key: parity_survivors(nets[key], x)
+            for key in ("highest", "bf16", "none")}
+    check_parity(runs["highest"], runs["bf16"],
+                 "yolov3@416 bf16 against \"highest\"", strict=False)
+    check_parity(runs["highest"], runs["none"], "yolov3@416 None (TF32) "
+                 "against \"highest\"", strict=False)
     return launches
 
 
@@ -303,6 +656,12 @@ def main() -> int:
         print("chip_smoke.py: yolov3_tpu_torch/ is not beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ",".join(PHASES))
+    phases = parser.parse_args().phases.split(",")
+    if set(phases) - set(PHASES):
+        parser.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     sys.path.insert(0, str(REPO))
     import torch
 
@@ -315,23 +674,60 @@ def main() -> int:
     phase_build()
     from yolov3_tpu_torch.graph import load_graph
 
-    k1_err, k1_ms, k1_plain = phase_k1(
-        load_graph(REPO / "models" / "yolov3.cfg"), "yolov3")
-    phase_k1(load_graph(REPO / "models" / "yolov3-tiny.cfg"), "yolov3-tiny")
-    k2_err, k2 = phase_k2()
-    phase_golden()
-    launches = phase_main(card)
+    yolo = load_graph(REPO / "models" / "yolov3.cfg")
+    res = {}
+    if "k1" in phases:
+        res["k1"] = phase_k1(yolo, "yolov3")
+        phase_k1(load_graph(REPO / "models" / "yolov3-tiny.cfg"), "yolov3-tiny")
+        res["k1_bf16"] = phase_k1(yolo, "yolov3", "bfloat16")
+    if "k1c" in phases:
+        res["k1c"] = phase_k1c(yolo)
+    if "k2" in phases:
+        res["k2"] = phase_k2()
+    if "k4" in phases:
+        res["k4"] = phase_k4(yolo)
+    if "k5" in phases:
+        res["k5"] = phase_k5(yolo)
+    if "golden" in phases:
+        phase_golden()
+    if "main" in phases:
+        res["main"] = phase_main(card)
+    if set(phases) != set(PHASES):
+        log(f"phases run: {phases}; no result printed for a partial run")
+        return 0
+    launches = res["main"]
+    k1_err = max(res["k1"][0], res["k1_bf16"][0])
+    k2_err, k2 = res["k2"]
+    k4_err, k4 = res["k4"]
+    k5_err, k5 = res["k5"]
+    bf16 = torch.bfloat16
     kernels = {"kernels": [
         {"name": "decode_packed_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_packed.cu",
          "replaces": "yolov3_tpu/ops/pallas_decode.py:626",
          "launches": launches["decode_packed_head"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": res["k1"][1], "plain_ms": res["k1"][2]},
         {"name": "nms_suppress", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolov3_tpu/ops/pallas_nms.py:65",
          "launches": launches["nms_suppress"], "max_abs_err": k2_err,
          "ms": k2[512][0], "plain_ms": k2[512][1]},
+        {"name": "decode_compact_head", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/decode_packed.cu",
+         "replaces": "yolov3_tpu/ops/pallas_decode.py:731",
+         "launches": launches["decode_compact_head"],
+         "max_abs_err": res["k1c"][0], "ms": res["k1c"][1],
+         "plain_ms": res["k1c"][2]},
+        {"name": "decode_packed_fused_head", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/decode_fused.cu",
+         "replaces": "yolov3_tpu/ops/pallas_decode.py:511",
+         "launches": launches["decode_packed_fused_head"],
+         "max_abs_err": k4_err, "ms": k4[bf16][0], "plain_ms": k4[bf16][1]},
+        {"name": "conv3x3_fused", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/conv3x3.cu",
+         "replaces": "yolov3_tpu/ops/pallas_conv.py:289",
+         "launches": launches["conv3x3_fused"], "max_abs_err": k5_err,
+         "ms": k5[bf16][0], "plain_ms": k5[bf16][1]},
     ]}
     log(card)
     log(json.dumps(kernels))

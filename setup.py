@@ -8,7 +8,7 @@ setup(
     packages=find_packages(include=["yolov3_tpu", "yolov3_tpu.*",
                                     "yolov3_tpu_torch", "yolov3_tpu_torch.*"]),
     package_data={"yolov3_tpu": ["py.typed"],
-                  "yolov3_tpu_torch": ["csrc/*.cu"]},
+                  "yolov3_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

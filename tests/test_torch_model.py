@@ -76,7 +76,7 @@ def test_darknet_load_weights_equals_set_params(tmp_path):
 
 def test_darknet_errors():
     with pytest.raises(ValueError, match="precision"):
-        tmodel.Darknet(SMALL_CFG, precision="bf16")
+        tmodel.Darknet(SMALL_CFG, precision="fp16")
     net = tmodel.Darknet(SMALL_CFG)
     with pytest.raises(RuntimeError, match="load_weights"):
         net(torch.zeros(1, 64, 64, 3))

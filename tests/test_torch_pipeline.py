@@ -12,8 +12,8 @@ import torch
 
 from yolov3_tpu.inference import Detector as JDetector
 from yolov3_tpu.model import Darknet as JDarknet
-from yolov3_tpu_torch import Darknet, Detector, inference
-from yolov3_tpu_torch.ops import _build, cuda_decode, cuda_nms
+from yolov3_tpu_torch import Darknet, Detector, forward_compact, inference
+from yolov3_tpu_torch.ops import _build, cuda_conv, cuda_decode, cuda_nms
 from yolov3_tpu_torch.weights import fold_raw, random_raw
 
 torch.set_num_threads(1)
@@ -21,6 +21,10 @@ torch.set_num_threads(1)
 DATA = Path(__file__).parent / "data"
 MODELS = Path(__file__).parent.parent / "models"
 SMALL_CFG = str(DATA / "port_small.cfg")
+WIDE_CFG = str(DATA / "port_wide.cfg")
+KERNELS = (cuda_decode.decode_packed_head, cuda_decode.decode_compact_head,
+           cuda_decode.decode_packed_fused_head, cuda_conv.conv3x3_fused,
+           cuda_nms.suppress)
 
 
 def _assert_same_detections(got, want):
@@ -85,6 +89,32 @@ def test_cpu_path_launches_no_kernel():
     assert cuda_nms.suppress.launches == 0
 
 
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+@pytest.mark.parametrize("decode_impl", ["pallas", "pallas-fused", "xla"])
+def test_cpu_routes_launch_no_kernel(decode_impl, precision):
+    """Every route on CPU tensors runs the plain versions only: with the
+    fused conv on, port_wide.cfg passes through every kernel's wrapper."""
+    for k in KERNELS:
+        k.launches = 0
+    net = Darknet(WIDE_CFG, precision=precision, conv_impl="pallas")
+    net.set_params(fold_raw(random_raw(net.graph, seed=1)))
+    det = Detector(net, prob_thresh=0.2, decode_impl=decode_impl)
+    assert det.route == decode_impl
+    out = det.detect_batch(np.zeros((2, 40, 50, 3), np.uint8))
+    forward_compact(net.graph, net.params, torch.zeros(1, 32, 32, 3),
+                    precision=precision, conv_impl="pallas", decode_impl="pallas")
+    assert len(out) == 2
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
+
+
+def test_build_hashes_every_source_and_header():
+    """Each kernel source and the shared decode header is built and hashed:
+    editing any of them names a new library."""
+    assert set(_build.SOURCES) | set(_build.HEADERS) == {
+        p.name for p in _build.CSRC.iterdir()}
+    assert _build.library_path().parent == _build.BUILD_DIR
+
+
 def test_detector_validation():
     net = Darknet(SMALL_CFG).set_params(
         fold_raw(random_raw(Darknet(SMALL_CFG).graph, seed=1)))
@@ -92,7 +122,8 @@ def test_detector_validation():
                       ({"net_hw": (60, 64)}, "multiples"),
                       ({"prob_thresh": 1.0}, "prob_thresh"),
                       ({"iou_thresh": 1.5}, "iou_thresh"),
-                      ({"resize_mode": "crop"}, "mode")]:
+                      ({"resize_mode": "crop"}, "mode"),
+                      ({"decode_impl": "triton"}, "decode_impl")]:
         with pytest.raises(ValueError, match=match):
             Detector(net, **kw)
     det = Detector(net)

@@ -6,17 +6,30 @@ Port of ``yolov3_tpu/inference.py`` (``Detection``, ``Detector.detect_batch``
 1. one host→device copy of the raw uint8 batch, BGR→RGB flip on the device;
 2. ``ops.preprocess.preprocess`` (letterbox or stretch, two fp32 matmuls with
    interpolation matrices cached per source shape);
-3. ``model.forward_packed``: the graph walk, then K1 (packed decode kernel);
-4. ``ops.nms.batched_nms_packed``: pair-max selection, K2 (suppression
+3. the forward pass and decode of the chosen route (``decode_impl``):
+   ``"pallas"`` (default) ``model.forward_packed``, the graph walk then K1;
+   ``"pallas-fused"`` ``model.forward_packed_fused``, the walk up to the
+   pre-head activations then K4 (head convs inside the decode kernel);
+   ``"xla"`` ``model.forward_compact``, the plain-tensor compact decode;
+   the net's ``conv_impl`` picks cuDNN or K5 for the eligible convs;
+4. ``ops.nms.batched_nms_packed`` (the packed routes) or
+   ``batched_nms_compact`` (the compact route): selection, K2 (suppression
    kernel), compaction to ``max_results``;
 5. ``pack_results`` and ONE device→host copy, then rescaling to source
    pixels on the host.
+
+The route gates are the JAX package's graph-shape rules: "pallas-fused" on
+a graph that ``fused_heads_eligible`` refuses runs "pallas", and heads with
+more than 4 anchors run "xla", each with the JAX package's warning. They are
+not a fallback from a failing kernel: a kernel that cannot build or launch
+raises.
 
 PyTorch runs eagerly, so there is nothing to compile per (batch, shape); the
 Detector caches only the interpolation matrices.
 """
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple, Union
@@ -24,12 +37,37 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .model import Darknet, forward_packed, resolve_device
-from .ops.nms import auto_top_k, batched_nms_packed, pack_results
+from .model import (Darknet, forward_compact, forward_packed,
+                    forward_packed_fused, fused_heads_eligible,
+                    resolve_device)
+from .ops.cuda_decode import supported as packed_decode_supported
+from .ops.nms import (auto_top_k, batched_nms_compact, batched_nms_packed,
+                      pack_results)
 from .ops.preprocess import Interp, interp_matrices, preprocess, resize_target
 from .utils.boxes import unletterbox_tlbr, unstretch_tlbr
 
+log = logging.getLogger("yolov3_tpu_torch")
+
 RESIZE_MODES = ("letterbox", "stretch")
+DECODE_IMPLS = ("pallas", "pallas-fused", "xla")
+
+
+def decode_route(graph, decode_impl: str) -> str:
+    """The route a Detector runs for ``decode_impl`` on ``graph``, by the
+    JAX package's gates (``yolov3_tpu/inference.py``), with its warnings."""
+    if decode_impl not in DECODE_IMPLS:
+        raise ValueError(f"decode_impl must be one of {DECODE_IMPLS}, got "
+                         f"{decode_impl!r}")
+    if decode_impl == "pallas-fused" and not fused_heads_eligible(graph):
+        log.warning("head-fused decode not applicable here (%s); "
+                    "falling back to decode_impl='pallas'", "graph shape")
+        decode_impl = "pallas"
+    if (decode_impl in ("pallas", "pallas-fused")
+            and not packed_decode_supported([n.anchors for n in graph.yolo_nodes])):
+        log.warning("pallas decode supports <=4 anchors/head; "
+                    "falling back to decode_impl='xla'")
+        decode_impl = "xla"
+    return decode_impl
 
 
 @dataclass
@@ -45,14 +83,16 @@ class Detector:
     """End-to-end detector over a :class:`~yolov3_tpu_torch.model.Darknet`
     on the net's device. ``device``, when given, must be that device (the
     Detector does not move weights); asking for CUDA without a card
-    raises."""
+    raises. ``decode_impl`` picks the route (module docstring); the route
+    actually run is ``self.route``."""
 
     def __init__(self, net: Darknet, prob_thresh: float = 0.05,
                  iou_thresh: float = 0.3, resize_mode: str = "letterbox",
                  top_k: Optional[int] = None, bgr: bool = True,
                  net_hw: Optional[Tuple[int, int]] = None,
                  max_results: int = 128, select_group: int = 2,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 decode_impl: str = "pallas"):
         self.device = net.device
         if device is not None and resolve_device(device) != self.device:
             raise ValueError(f"the net's weights live on {self.device}, not "
@@ -87,6 +127,8 @@ class Detector:
         if not 0.0 <= self.iou_thresh <= 1.0:
             raise ValueError(f"iou_thresh must be in [0, 1], got "
                              f"{iou_thresh}")
+        self.decode_impl = decode_impl
+        self.route = decode_route(net.graph, decode_impl)
         self._interp: Dict[Tuple[int, int], Interp] = {}
         # per-call stage split (seconds) of the last detect_batch:
         # h2d_s (host→device copy of the frames), enqueue_s (the device work
@@ -111,13 +153,27 @@ class Detector:
         src_hw = tuple(frames.shape[1:3])
         x = preprocess(frames, self.net_hw, mode=self.resize_mode,
                        interp=self._interp_for(src_hw))
-        payload, scores = forward_packed(self.net.graph, self.net.params, x,
-                                         prob_thresh=self.prob_thresh,
-                                         precision=self.net.precision)
-        res = batched_nms_packed(payload, scores, iou_thresh=self.iou_thresh,
-                                 top_k=self.top_k,
-                                 max_results=self.max_results,
-                                 select_group=self.select_group)
+        net = self.net
+        route = dict(precision=net.precision, conv_impl=net.conv_impl)
+        if self.route == "xla":
+            boxes, scores, classes = forward_compact(net.graph, net.params, x,
+                                                     **route)
+            res = batched_nms_compact(boxes, scores, classes,
+                                      prob_thresh=self.prob_thresh,
+                                      iou_thresh=self.iou_thresh,
+                                      top_k=self.top_k,
+                                      max_results=self.max_results,
+                                      select_group=self.select_group)
+        else:
+            fwd = (forward_packed_fused if self.route == "pallas-fused"
+                   else forward_packed)
+            payload, scores = fwd(net.graph, net.params, x,
+                                  prob_thresh=self.prob_thresh, **route)
+            res = batched_nms_packed(payload, scores,
+                                     iou_thresh=self.iou_thresh,
+                                     top_k=self.top_k,
+                                     max_results=self.max_results,
+                                     select_group=self.select_group)
         return pack_results(res)
 
     def _stage(self, frames: np.ndarray) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""Float forward pass over the lowered graph, and the ``Darknet`` module.
+"""Forward passes over the lowered graph, and the ``Darknet`` module.
 
-Port of ``yolov3_tpu/model.py`` (float tiers ``"highest"`` and ``None``).
-The lowered :class:`~yolov3_tpu_torch.graph.Graph` is walked by a plain
-function:
+Port of ``yolov3_tpu/model.py`` (float tiers ``"highest"``, ``None`` and
+``"bf16"``). The lowered :class:`~yolov3_tpu_torch.graph.Graph` is walked by
+a plain function:
 
 * convs are ``F.conv2d`` (cuDNN on the card) on NCHW tensors in
-  ``torch.channels_last`` memory, + folded-BN bias + LeakyReLU;
+  ``torch.channels_last`` memory, + folded-BN bias + LeakyReLU; with
+  ``conv_impl="pallas"`` each eligible 3×3/s1 conv runs the fused K5 kernel
+  instead (``ops/cuda_conv.py``);
 * darknet maxpool: ``-inf`` pad with ``lo = padding // 2``, ``hi = padding -
   lo``, then an unpadded ``F.max_pool2d`` (tiny's stride-1 size-2 pool pads
   ``lo=0, hi=1``);
@@ -13,15 +15,22 @@ function:
   activation applied after the add (darknet semantics);
 * only outputs on a skip edge are kept alive (``Graph.needed_outputs``).
 
+Entry points: :func:`forward` (decoded (B, N, 5+C), the reference
+``Darknet.forward`` contract), :func:`forward_packed` (K1 records),
+:func:`forward_packed_fused` (K4: head convs inside the decode kernel) and
+:func:`forward_compact` (boxes / scores / classes, plain decode or K1c).
+
 Public functions keep the JAX package's layout: input NHWC (B, H, W, C),
 heads NHWC (B, g, g, C) — a ``permute`` of the channels_last conv output,
-which is contiguous, so the decode kernel reads it with no copy. The TPU's
-128-lane head padding (``pad_head_params``) is not needed: the decode kernel
-takes the map's strides.
+which is contiguous, so the decode kernels read it with no copy. The TPU's
+128-lane head padding (``pad_head_params``) is not needed: the decode
+kernels take the map's strides.
 
 Precision: ``"highest"`` forbids TF32 in the convs (the parity tier, the
 analogue of ``lax.Precision.HIGHEST``); ``None`` allows it, the analogue of
-the TPU's default one-pass precision.
+the TPU's default one-pass precision; ``"bf16"`` runs the walk in bfloat16
+(weights, activations, convs, shortcut and route), the throughput tier.
+Head maps are decoded in float32 on every route.
 """
 from __future__ import annotations
 
@@ -33,11 +42,23 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .graph import Graph, Node, load_graph
-from .ops.cuda_decode import decode_packed
+from .ops import cuda_conv
+from .ops import decode as plain_decode
+from .ops.cuda_decode import (decode_compact, decode_packed,
+                              decode_packed_fused, fused_head_supported)
 from .precision import tf32
 from .weights import Params, TorchParams, load_weights, params_from_jax
 
-PRECISIONS = (None, "highest")
+PRECISIONS = (None, "highest", "bf16")
+CONV_IMPLS = ("xla", "pallas")
+COMPACT_DECODE_IMPLS = ("xla", "pallas")  # forward_compact's decode routes
+
+
+def _check_route(precision: Optional[str], conv_impl: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -63,11 +84,19 @@ def _activate(y: torch.Tensor, activation: str) -> torch.Tensor:
     return y
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-          node: Node) -> torch.Tensor:
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, node: Node,
+          conv_impl: str = "xla") -> torch.Tensor:
+    if (conv_impl == "pallas" and node.pad
+            and cuda_conv.supported(node.size, node.stride, w.shape[1],
+                                    node.activation)):
+        y = cuda_conv.conv3x3_fused(x.permute(0, 2, 3, 1), w, b,
+                                    activation=node.activation)
+        return y.permute(0, 3, 1, 2)
     pad = node.size // 2 if node.pad else 0
-    return _activate(F.conv2d(x, w, b, stride=node.stride, padding=pad),
-                     node.activation)
+    # weights follow the activations' type, as in the JAX package
+    y = F.conv2d(x, w.to(x.dtype), b.to(x.dtype), stride=node.stride,
+                 padding=pad)
+    return _activate(y, node.activation)
 
 
 def _maxpool(x: torch.Tensor, node: Node) -> torch.Tensor:
@@ -79,20 +108,33 @@ def _maxpool(x: torch.Tensor, node: Node) -> torch.Tensor:
 
 
 def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
-                     precision: Optional[str] = None) -> List[torch.Tensor]:
+                     precision: Optional[str] = None, conv_impl: str = "xla",
+                     stop_before_heads: bool = False) -> List[torch.Tensor]:
     """Walk the graph; return the raw NHWC feature map feeding each yolo
-    head. ``x``: (B, H, W, C) float32 input in [0, 1]."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    head. ``x``: (B, H, W, C) float input in [0, 1] (cast to bfloat16 at
+    precision "bf16"). ``stop_before_heads=True`` returns the PRE-head
+    activations instead and skips the 1×1 head convs (their projection runs
+    inside K4, :func:`forward_packed_fused`); callers gate on
+    :func:`fused_heads_eligible` first."""
+    _check_route(precision, conv_impl)
     needed = graph.needed_outputs
+    head_convs = ({yn.inputs[0] for yn in graph.yolo_nodes}
+                  if stop_before_heads else frozenset())
     cache: Dict[int, torch.Tensor] = {}
     heads: List[torch.Tensor] = []
     prev = x.permute(0, 3, 1, 2)  # NHWC memory = NCHW channels_last
+    if precision == "bf16":
+        prev = prev.to(torch.bfloat16)
     with tf32(precision is None):
         for node in graph.nodes:
-            if node.kind == "convolutional":
+            if node.index in head_convs:
+                # the head branch ends here; the skipped conv's only
+                # consumer is its yolo node (eligibility-gated)
+                heads.append(prev.permute(0, 2, 3, 1))
+                out = prev
+            elif node.kind == "convolutional":
                 p = params[node.index]
-                out = _conv(prev, p["w"], p["b"], node)
+                out = _conv(prev, p["w"], p["b"], node, conv_impl)
             elif node.kind == "maxpool":
                 out = _maxpool(prev, node)
             elif node.kind == "upsample":
@@ -104,7 +146,8 @@ def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
                         for i in node.inputs]
                 out = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
             elif node.kind == "yolo":
-                heads.append(prev.permute(0, 2, 3, 1))
+                if not stop_before_heads:
+                    heads.append(prev.permute(0, 2, 3, 1))
                 out = prev
             else:  # pragma: no cover - lower() already validates kinds
                 raise ValueError(node.kind)
@@ -114,36 +157,132 @@ def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
     return heads
 
 
+def _head_spec(graph: Graph):
+    yolo_nodes = graph.yolo_nodes
+    return ([n.anchors for n in yolo_nodes], list(graph.head_strides()),
+            yolo_nodes[0].classes)
+
+
+def forward(graph: Graph, params: TorchParams, x: torch.Tensor,
+            precision: Optional[str] = None, conv_impl: str = "xla"
+            ) -> torch.Tensor:
+    """Full decoded forward: (B, H, W, C) → (B, N, 5+C) net-pixel
+    detections, the reference ``Darknet.forward`` contract: center-xywh in
+    net-input pixels, sigmoid objectness and class scores, cell-major within
+    a head, heads in cfg order. The maps widen to float32 before decoding."""
+    heads = [h.float() for h in forward_features(graph, params, x, precision,
+                                                 conv_impl)]
+    return plain_decode.decode_all(heads, *_head_spec(graph))
+
+
+def forward_compact(graph: Graph, params: TorchParams, x: torch.Tensor,
+                    precision: Optional[str] = None, conv_impl: str = "xla",
+                    decode_impl: str = "xla"):
+    """Serving forward → (tlbr boxes (B, N, 4), scores (B, N), classes
+    (B, N) int32) without the (B, N, 5+C) tensor. ``decode_impl="xla"``:
+    the plain-tensor ``ops.decode.decode_compact`` (cell-major);
+    ``"pallas"``: K1c (anchor-major; the same detection sets)."""
+    if decode_impl not in COMPACT_DECODE_IMPLS:
+        raise ValueError(f"decode_impl must be one of {COMPACT_DECODE_IMPLS}, "
+                         f"got {decode_impl!r}")
+    heads = forward_features(graph, params, x, precision, conv_impl)
+    fn = decode_compact if decode_impl == "pallas" else plain_decode.decode_compact
+    return fn(heads, *_head_spec(graph))
+
+
 def forward_packed(graph: Graph, params: TorchParams, x: torch.Tensor,
-                   prob_thresh: float, precision: Optional[str] = None
+                   prob_thresh: float, precision: Optional[str] = None,
+                   conv_impl: str = "xla"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Serving forward → (payload (B, N, 8), scores (B, N)) for
     ``ops.nms.batched_nms_packed``: the decode kernel (K1) emits the
     thresholded candidate records. ``prob_thresh`` is the serving threshold
     (the NMS applies none on this path)."""
-    heads = forward_features(graph, params, x, precision)
-    yolo_nodes = graph.yolo_nodes
-    return decode_packed(heads, [n.anchors for n in yolo_nodes],
-                         list(graph.head_strides()), yolo_nodes[0].classes,
+    heads = forward_features(graph, params, x, precision, conv_impl)
+    anchors, strides, classes = _head_spec(graph)
+    return decode_packed(heads, anchors, strides, classes,
                          prob_thresh=prob_thresh)
 
 
-class Darknet(nn.Module):
-    """A cfg's network with folded float32 weights on one device.
+def _consumer_counts(graph: Graph) -> Dict[int, int]:
+    """node index → number of graph nodes consuming its output."""
+    consumers: Dict[int, int] = {}
+    for n in graph.nodes:
+        for i in n.inputs:
+            if i >= 0:
+                consumers[i] = consumers.get(i, 0) + 1
+    return consumers
 
-    ``Darknet(cfg_path, precision, device)``, then ``load_weights(path)`` (a
-    darknet ``.weights`` file) or ``set_params(params_np)`` (the folded HWIO
-    numpy form of ``weights.fold_raw``); calling it on an NHWC batch returns
-    the NHWC head maps. Weights are buffers, so ``.to(device)`` moves them."""
+
+def fused_heads_eligible(graph: Graph) -> bool:
+    """Gate for :func:`forward_packed_fused`, the JAX package's: every head
+    branch ends in a 1×1/s1 linear conv whose ONLY consumer is its yolo
+    node, whose yolo node feeds nothing, and whose input channel count and
+    anchor count pass K4's shape gate (``fused_head_supported``: Cin % 128
+    == 0, ≤ 4 anchors). True for yolov3 / tiny / spp."""
+    consumers = _consumer_counts(graph)
+    for yn in graph.yolo_nodes:
+        hc = yn.inputs[0]
+        node = graph.nodes[hc]
+        cin = (graph.nodes[node.inputs[0]].out_channels
+               if node.inputs[0] >= 0 else graph.in_channels)
+        if not (node.kind == "convolutional" and node.size == 1
+                and node.stride == 1 and node.activation == "linear"
+                and consumers.get(hc, 0) == 1
+                and consumers.get(yn.index, 0) == 0
+                and fused_head_supported(cin, yn.anchors)):
+            return False
+    return True
+
+
+def forward_packed_fused(graph: Graph, params: TorchParams, x: torch.Tensor,
+                         prob_thresh: float, precision: Optional[str] = None,
+                         conv_impl: str = "xla"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward_packed` with the 1×1 head convs inside the decode
+    kernel (K4): the walk stops at each pre-head activation and the head
+    maps never reach device memory. Same record contract and candidate
+    order; the head projection accumulates in float32 at every precision.
+    Raises unless :func:`fused_heads_eligible`."""
+    if not fused_heads_eligible(graph):
+        raise ValueError("graph is not eligible for the head-fused decode "
+                         "(fused_heads_eligible)")
+    pre = forward_features(graph, params, x, precision, conv_impl,
+                           stop_before_heads=True)
+    ws, bs = [], []
+    for yn in graph.yolo_nodes:
+        p = params[yn.inputs[0]]
+        w = p["w"]  # (Cout, Cin, 1, 1), channels_last: a (Cout, Cin) view
+        ws.append(w.reshape(w.shape[0], w.shape[1]))
+        bs.append(p["b"])
+    anchors, strides, classes = _head_spec(graph)
+    return decode_packed_fused(pre, ws, bs, anchors, strides, classes,
+                               prob_thresh=prob_thresh)
+
+
+class Darknet(nn.Module):
+    """A cfg's network with folded weights on one device.
+
+    ``Darknet(cfg_path, precision, device, param_dtype, conv_impl)``, then
+    ``load_weights(path)`` (a darknet ``.weights`` file) or
+    ``set_params(params_np)`` (the folded HWIO numpy form of
+    ``weights.fold_raw``); calling it on an NHWC batch returns the decoded
+    (B, N, 5+C) tensor of :func:`forward`. Weights are buffers, so
+    ``.to(device)`` moves them; they are bfloat16 at precision "bf16" and
+    float32 otherwise unless ``param_dtype`` says."""
 
     def __init__(self, cfg_path: Union[str, Path], precision: Optional[str] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 param_dtype: Optional[torch.dtype] = None,
+                 conv_impl: str = "xla"):
         super().__init__()
-        if precision not in PRECISIONS:
-            raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                             f"{precision!r}")
+        _check_route(precision, conv_impl)
         self.graph = load_graph(cfg_path)
         self.precision = precision
+        self.conv_impl = conv_impl
+        if param_dtype is None:
+            param_dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+        self.param_dtype = param_dtype
         self._device = resolve_device(device)
         self._loaded = False
 
@@ -171,8 +310,9 @@ class Darknet(nn.Module):
         if missing:
             raise ValueError(f"params missing conv layers {missing}")
         for idx, p in params_from_jax(params_np, self.device).items():
-            self.register_buffer(f"w{idx}", p["w"])
-            self.register_buffer(f"b{idx}", p["b"])
+            # .to keeps the weights' channels_last memory
+            self.register_buffer(f"w{idx}", p["w"].to(self.param_dtype))
+            self.register_buffer(f"b{idx}", p["b"].to(self.param_dtype))
         self._loaded = True
         return self
 
@@ -181,7 +321,8 @@ class Darknet(nn.Module):
         return self.set_params(load_weights(weights_path, self.graph))
 
     @torch.inference_mode()
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self._loaded:
             raise RuntimeError("call load_weights()/set_params() first")
-        return forward_features(self.graph, self.params, x, self.precision)
+        return forward(self.graph, self.params, x, self.precision,
+                       self.conv_impl)

@@ -3,7 +3,8 @@
 ``csrc/*.cu`` compile with ``nvcc`` into ONE shared library with a plain C
 interface, loaded with ``ctypes``. The build runs at first use from the
 sources in the checkout and lands in ``build/kernels/`` at the repository
-root (git-ignored). The library's file name carries a hash of the sources
+root (git-ignored): one ``nvcc -c`` per source, all started together, then
+one link. The library's file name carries a hash of the sources, headers
 and flags, so an edited source is rebuilt, never silently reused.
 
 There is no fallback: without ``nvcc``, or when it fails, or when the
@@ -23,14 +24,17 @@ from pathlib import Path
 from typing import Optional, Union
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("decode_packed.cu", "nms_suppress.cu")
+SOURCES = ("decode_packed.cu", "decode_fused.cu", "conv3x3.cu",
+           "nms_suppress.cu")
+HEADERS = ("decode_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# -fmad=false and no --use_fast_math: the kernels' float results must
-# match their plain PyTorch versions (see the notes in each .cu file).
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# -fmad=false and no --use_fast_math: the decode and suppression epilogues
+# must match their plain PyTorch versions bit for bit (see the notes in each
+# .cu file); the conv / head-projection loops use __fmaf_rn explicitly.
 # -Xptxas -v writes registers / shared memory / spills into the build log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> Optional[str]:
@@ -48,7 +52,7 @@ def find_nvcc() -> Optional[str]:
 def library_path(build_dir: Union[str, Path, None] = None) -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return Path(build_dir or BUILD_DIR) / f"libyolov3_kernels-{digest.hexdigest()[:16]}.so"
 
@@ -67,12 +71,27 @@ def build_kernels(build_dir: Union[str, Path, None] = None) -> Path:
             "first use and have no fallback for CUDA tensors")
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    logs, rc = [], 0
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        rc = rc or proc.returncode
+    if rc == 0:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        rc = proc.returncode
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(logs)
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+        raise RuntimeError(f"nvcc failed with exit code {rc}:\n{log}")
     lib.with_suffix(".log").write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
     return lib
@@ -85,12 +104,23 @@ def load_kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_kernels()))
     p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
+    anchors = ctypes.POINTER(ctypes.c_float)
     lib.yolo_decode_packed_head.argtypes = [
-        p, i64, i64, i64, i32, i32, i32, i32, i32,
-        ctypes.POINTER(ctypes.c_float), f32, f32, i32, i32, p, p]
-    lib.yolo_decode_packed_head.restype = i32
+        p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, f32,
+        i32, i32, p, p]
+    lib.yolo_decode_compact_head.argtypes = [
+        p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, f32,
+        i32, i32, p, p, p, p]
+    lib.yolo_decode_packed_fused_head.argtypes = [
+        p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, anchors,
+        f32, f32, i32, i32, p, p]
+    lib.yolo_conv3x3_fused.argtypes = [
+        p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, p, p]
     lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p]
-    lib.yolo_nms_suppress.restype = i32
+    for fn in (lib.yolo_decode_packed_head, lib.yolo_decode_compact_head,
+               lib.yolo_decode_packed_fused_head, lib.yolo_conv3x3_fused,
+               lib.yolo_nms_suppress):
+        fn.restype = i32
     return lib
 
 

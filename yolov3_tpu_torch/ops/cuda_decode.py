@@ -1,22 +1,33 @@
-"""K1: packed YOLO head decode — CUDA kernel wrapper and its plain version.
+"""K1, K1c, K4: YOLO head decode kernels — CUDA wrappers and plain versions.
 
-Port of ``yolov3_tpu/ops/pallas_decode.py :: decode_packed_head_pallas`` /
-``decode_packed_pallas``. Each head map (B, gy, gx, C ≥ A·(5+C_cls)) in
-channels-last order becomes candidate records
+Ports of ``yolov3_tpu/ops/pallas_decode.py``:
 
-    payload[b, head_offset + a·gy·gx + cell] =
-        [x0, y0, x1, y1, score·[score ≥ prob_thresh], first-argmax class,
-         cand = head_offset + a·gy·gx + cell, 0]
+* K1 ``decode_packed_head`` (``decode_packed_head_pallas``): each head map
+  (B, gy, gx, C ≥ A·(5+C_cls)), float32 or bf16, channels-last, becomes
+  candidate records
 
-(anchor-major within a head, heads in cfg order), the input that
-``ops.nms.batched_nms_packed`` selects from. ``scores`` is the view
-``payload[..., 4]``.
+      payload[b, head_offset + a·gy·gx + cell] =
+          [x0, y0, x1, y1, score·[score ≥ prob_thresh], first-argmax class,
+           cand = head_offset + a·gy·gx + cell, 0]
 
-:func:`decode_packed_head` launches ``csrc/decode_packed.cu`` for a CUDA
-tensor and raises when it cannot; for a CPU tensor it runs
-:func:`decode_packed_head_reference`, the same math in tensor ops (the CPU
-tests and ``chip_smoke.py``'s comparison use it). Channel padding needs no
-copy: the kernel takes the map's element strides.
+  (anchor-major within a head, heads in cfg order), the input that
+  ``ops.nms.batched_nms_packed`` selects from. ``scores`` is the view
+  ``payload[..., 4]``.
+* K1c ``decode_compact_head`` (``decode_compact_head_pallas``): the same
+  records split into boxes (B, n, 4), scores (B, n) and int32 classes
+  (B, n), with no candidate lane; ``forward_compact(decode_impl="pallas")``.
+* K4 ``decode_packed_fused_head`` (``decode_packed_head_fused_pallas``): K1's
+  records computed from the PRE-head activation (B, gy, gx, Cin) and the 1×1
+  head conv's weights (Cout, Cin) + bias, float32 accumulation; the head
+  map never reaches device memory. ``forward_packed_fused``.
+
+All three share one decode body (``csrc/decode_common.cuh``). For a CUDA
+tensor each wrapper launches its kernel on the current stream (counted in
+``<wrapper>.launches``) or raises; for a CPU tensor, and only then, it runs
+its plain PyTorch version (``*_reference``), which the CPU tests and
+``chip_smoke.py``'s comparison use. Head maps decode in float32 whatever
+their type: a bf16 map widens exactly. Channel padding needs no copy: the
+kernels take the map's element strides.
 """
 from __future__ import annotations
 
@@ -25,21 +36,60 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..precision import tf32
 from ._build import check_launch, load_kernels
 
 Anchors = Sequence[Tuple[float, float]]
-MAX_ANCHORS = 64  # K1_MAX_ANCHORS in csrc/decode_packed.cu: the kernel's parameter block
+MAX_ANCHORS = 64  # K1_MAX_ANCHORS in csrc/decode_common.cuh: the kernels' parameter block
+# the JAX package's route gate (``pallas_decode.MAX_ANCHORS``): the Detector
+# sends heads with more anchors to the plain-tensor decode, as the reference
+# does, so a graph takes the same route in both packages
+GATE_ANCHORS = 4
+FUSED_CIN_MULTIPLE = 128  # ``fused_head_supported``'s lane boundary
+K4_MAX_CHANNELS = 1024  # 4 * K4_THREADS in csrc/decode_fused.cu
+MAP_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def supported(anchors_per_head: Sequence[Anchors]) -> bool:
+    """The packed / compact kernel route's gate: ≤ 4 anchors per head
+    (``pallas_decode.supported``; every published yolov3 variant has 3)."""
+    return all(len(a) <= GATE_ANCHORS for a in anchors_per_head)
+
+
+def fused_head_supported(cin: int, anchors: Anchors) -> bool:
+    """K4's shape gate, the JAX package's ``fused_head_supported``: the
+    pre-head channel count on the 128 boundary and ≤ 4 anchors."""
+    return cin % FUSED_CIN_MULTIPLE == 0 and len(anchors) <= GATE_ANCHORS
 
 
 def _check_head(feat: torch.Tensor, anchors: Anchors, num_classes: int) -> None:
     if feat.dim() != 4:
         raise ValueError(f"head map must be (B, gy, gx, C), got {tuple(feat.shape)}")
-    if feat.dtype != torch.float32:
-        raise TypeError(f"head map must be float32, got {feat.dtype}")
+    if feat.dtype not in MAP_DTYPES:
+        raise TypeError(f"head map must be float32 or bfloat16, got {feat.dtype}")
     need = len(anchors) * (5 + num_classes)
     if not anchors or num_classes < 1 or feat.shape[3] < need:
         raise ValueError(f"head map has {feat.shape[3]} channels, needs "
                          f"{len(anchors)}*(5+{num_classes}) = {need}")
+
+
+def _check_device(t: torch.Tensor, kernel: str) -> bool:
+    """True for a CPU tensor (plain version), False for CUDA (the kernel);
+    raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {t.device}")
+    return False
+
+
+def _anchors_c(anchors: Anchors):
+    flat = [float(v) for wh in anchors for v in wh]
+    return (ctypes.c_float * len(flat))(*flat)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def decode_packed_head_reference(feat: torch.Tensor, anchors: Anchors,
@@ -51,7 +101,7 @@ def decode_packed_head_reference(feat: torch.Tensor, anchors: Anchors,
     b, gy, gx, _ = feat.shape
     a, per = len(anchors), 5 + num_classes
     cells = gy * gx
-    f = feat[..., :a * per].reshape(b, cells, a, per)
+    f = feat[..., :a * per].float().reshape(b, cells, a, per)
     cell = torch.arange(cells, device=feat.device)
     col = (cell % gx).to(torch.float32)[:, None]        # (cells, 1)
     row = (cell // gx).to(torch.float32)[:, None]
@@ -78,11 +128,37 @@ def decode_packed_head_reference(feat: torch.Tensor, anchors: Anchors,
     return rec.permute(0, 2, 1, 3).reshape(b, a * cells, 8)
 
 
+def _payload_out(out: Optional[torch.Tensor], b: int, n_end: int,
+                 device: torch.device) -> torch.Tensor:
+    """The (B, N, 8) float32 payload a head writes records [.., n_end) of."""
+    if out is None:
+        out = torch.empty((b, n_end, 8), dtype=torch.float32, device=device)
+    if (out.dim() != 3 or out.shape[0] != b or out.shape[2] != 8
+            or out.shape[1] < n_end or out.dtype != torch.float32
+            or out.device != device):
+        raise ValueError(f"payload {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} cannot take head records up to "
+                         f"{n_end} of batch {b}")
+    return out
+
+
+def _check_kernel_io(feat: torch.Tensor, outs: Sequence[torch.Tensor],
+                     a: int, kernel: str) -> None:
+    if feat.stride(3) != 1 or not all(o.is_contiguous() for o in outs):
+        raise ValueError(f"{kernel} needs a channels-last input (channel "
+                         f"stride 1) and contiguous outputs")
+    if a > MAX_ANCHORS:
+        raise ValueError(f"{kernel} takes at most {MAX_ANCHORS} anchors per "
+                         f"head, got {a}")
+    if outs[0].shape[1] >= 2 ** 24:
+        raise ValueError("candidate indices must stay below 2^24 to be exact in f32")
+
+
 def decode_packed_head(feat: torch.Tensor, anchors: Anchors, stride: int,
                        num_classes: int, prob_thresh: float = 0.0,
                        head_offset: int = 0,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Decode one head into ``out[:, head_offset : head_offset + a·gy·gx]``
+    """K1: decode one head into ``out[:, head_offset : head_offset + a·gy·gx]``
     of a (B, N, 8) float32 payload (allocated when ``out`` is None, with
     N = head_offset + a·gy·gx); returns the payload.
 
@@ -93,38 +169,19 @@ def decode_packed_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     b, gy, gx, _ = feat.shape
     a = len(anchors)
     n_head = a * gy * gx
-    if out is None:
-        out = torch.empty((b, head_offset + n_head, 8), dtype=torch.float32,
-                          device=feat.device)
-    if (out.dim() != 3 or out.shape[0] != b or out.shape[2] != 8
-            or out.shape[1] < head_offset + n_head
-            or out.dtype != torch.float32 or out.device != feat.device):
-        raise ValueError(f"payload {tuple(out.shape)} {out.dtype} on "
-                         f"{out.device} cannot take head records "
-                         f"[{head_offset}, {head_offset + n_head}) of batch {b}")
-    if feat.device.type == "cpu":
+    out = _payload_out(out, b, head_offset + n_head, feat.device)
+    if _check_device(feat, "K1"):
         out[:, head_offset:head_offset + n_head] = decode_packed_head_reference(
             feat, anchors, stride, num_classes, prob_thresh, head_offset)
         return out
-    if feat.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {feat.device}")
-    if feat.stride(3) != 1 or not out.is_contiguous():
-        raise ValueError("K1 needs a channels-last head map (channel stride 1) "
-                         "and a contiguous payload")
-    if a > MAX_ANCHORS:
-        raise ValueError(f"K1 takes at most {MAX_ANCHORS} anchors per head, got {a}")
-    if out.shape[1] >= 2 ** 24:
-        raise ValueError("candidate indices must stay below 2^24 to be exact in f32")
+    _check_kernel_io(feat, [out], a, "K1")
     lib = load_kernels()
-    flat = [float(v) for wh in anchors for v in wh]
-    anchors_c = (ctypes.c_float * len(flat))(*flat)
     with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
         rc = lib.yolo_decode_packed_head(
             feat.data_ptr(), feat.stride(0), feat.stride(1), feat.stride(2),
-            b, gy, gx, a, num_classes, anchors_c, float(stride),
-            float(prob_thresh), head_offset, out.shape[1], out.data_ptr(),
-            stream)
+            int(feat.dtype == torch.bfloat16), b, gy, gx, a, num_classes,
+            _anchors_c(anchors), float(stride), float(prob_thresh),
+            head_offset, out.shape[1], out.data_ptr(), _stream(feat.device))
     check_launch(rc, "decode_packed_head")
     decode_packed_head.launches += 1
     return out
@@ -137,9 +194,9 @@ def decode_packed(feats: Sequence[torch.Tensor], anchors_per_head: Sequence[Anch
                   strides: Sequence[int], num_classes: int,
                   prob_thresh: float = 0.0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Packed decode of every head → (payload (B, N, 8), scores (B, N)).
-    One payload allocation; each head writes its slice in place, so no
-    concat follows. ``scores`` is the view ``payload[..., 4]``."""
+    """K1 over every head → (payload (B, N, 8), scores (B, N)). One payload
+    allocation; each head writes its slice in place, so no concat follows.
+    ``scores`` is the view ``payload[..., 4]``."""
     sizes: List[int] = [len(a) * f.shape[1] * f.shape[2]
                         for f, a in zip(feats, anchors_per_head)]
     payload = torch.empty((feats[0].shape[0], sum(sizes), 8),
@@ -148,5 +205,210 @@ def decode_packed(feats: Sequence[torch.Tensor], anchors_per_head: Sequence[Anch
     for f, a, s, n in zip(feats, anchors_per_head, strides, sizes):
         decode_packed_head(f, a, s, num_classes, prob_thresh=prob_thresh,
                            head_offset=off, out=payload)
+        off += n
+    return payload, payload[..., 4]
+
+
+# ---------------------------------------------------------------- K1c
+
+
+CompactOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def decode_compact_head_reference(feat: torch.Tensor, anchors: Anchors,
+                                  stride: int, num_classes: int,
+                                  prob_thresh: float = 0.0) -> CompactOut:
+    """Plain PyTorch K1c for one head: K1's records split three ways →
+    (boxes (B, n, 4), scores (B, n), classes (B, n) int32), anchor-major."""
+    rec = decode_packed_head_reference(feat, anchors, stride, num_classes,
+                                       prob_thresh)
+    return rec[..., :4], rec[..., 4], rec[..., 5].to(torch.int32)
+
+
+def _compact_out(out: Optional[CompactOut], b: int, n_end: int,
+                 device: torch.device) -> CompactOut:
+    if out is None:
+        return (torch.empty((b, n_end, 4), dtype=torch.float32, device=device),
+                torch.empty((b, n_end), dtype=torch.float32, device=device),
+                torch.empty((b, n_end), dtype=torch.int32, device=device))
+    boxes, scores, classes = out
+    n = boxes.shape[1] if boxes.dim() == 3 else -1
+    if (boxes.shape != (b, n, 4) or scores.shape != (b, n)
+            or classes.shape != (b, n) or n < n_end
+            or boxes.dtype != torch.float32 or scores.dtype != torch.float32
+            or classes.dtype != torch.int32
+            or not boxes.device == scores.device == classes.device == device):
+        raise ValueError(f"compact outputs {tuple(boxes.shape)} "
+                         f"{tuple(scores.shape)} {tuple(classes.shape)} cannot "
+                         f"take head records up to {n_end} of batch {b}")
+    return out
+
+
+def decode_compact_head(feat: torch.Tensor, anchors: Anchors, stride: int,
+                        num_classes: int, prob_thresh: float = 0.0,
+                        head_offset: int = 0,
+                        out: Optional[CompactOut] = None) -> CompactOut:
+    """K1c: decode one head into slots ``[head_offset, head_offset + a·gy·gx)``
+    of (boxes (B, N, 4), scores (B, N), classes (B, N) int32) (allocated
+    when ``out`` is None); returns the three.
+
+    CUDA tensor: launches the K1c kernel on the current stream (counted in
+    ``decode_compact_head.launches``) or raises. CPU tensor: the plain
+    version."""
+    _check_head(feat, anchors, num_classes)
+    b, gy, gx, _ = feat.shape
+    a = len(anchors)
+    n_head = a * gy * gx
+    boxes, scores, classes = _compact_out(out, b, head_offset + n_head,
+                                          feat.device)
+    if _check_device(feat, "K1c"):
+        sl = slice(head_offset, head_offset + n_head)
+        boxes[:, sl], scores[:, sl], classes[:, sl] = (
+            decode_compact_head_reference(feat, anchors, stride, num_classes,
+                                          prob_thresh))
+        return boxes, scores, classes
+    _check_kernel_io(feat, [boxes, scores, classes], a, "K1c")
+    lib = load_kernels()
+    with torch.cuda.device(feat.device):
+        rc = lib.yolo_decode_compact_head(
+            feat.data_ptr(), feat.stride(0), feat.stride(1), feat.stride(2),
+            int(feat.dtype == torch.bfloat16), b, gy, gx, a, num_classes,
+            _anchors_c(anchors), float(stride), float(prob_thresh),
+            head_offset, boxes.shape[1], boxes.data_ptr(), scores.data_ptr(),
+            classes.data_ptr(), _stream(feat.device))
+    check_launch(rc, "decode_compact_head")
+    decode_compact_head.launches += 1
+    return boxes, scores, classes
+
+
+decode_compact_head.launches = 0
+
+
+def decode_compact(feats: Sequence[torch.Tensor],
+                   anchors_per_head: Sequence[Anchors],
+                   strides: Sequence[int], num_classes: int,
+                   prob_thresh: float = 0.0) -> CompactOut:
+    """K1c over every head → (boxes (B, N, 4), scores (B, N), classes (B, N)
+    int32), anchor-major within each head, heads in cfg order: the same
+    detection sets as ``ops.decode.decode_compact`` (cell-major)."""
+    sizes = [len(a) * f.shape[1] * f.shape[2]
+             for f, a in zip(feats, anchors_per_head)]
+    out = _compact_out(None, feats[0].shape[0], sum(sizes), feats[0].device)
+    off = 0
+    for f, a, s, n in zip(feats, anchors_per_head, strides, sizes):
+        decode_compact_head(f, a, s, num_classes, prob_thresh=prob_thresh,
+                            head_offset=off, out=out)
+        off += n
+    return out
+
+
+# ---------------------------------------------------------------- K4
+
+
+def _check_fused(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 anchors: Anchors, num_classes: int) -> int:
+    """Validate K4's operands; return the head's channel count A·(5+C)."""
+    if x.dim() != 4 or x.dtype not in MAP_DTYPES:
+        raise ValueError(f"pre-head map must be (B, gy, gx, Cin) float32 or "
+                         f"bfloat16, got {tuple(x.shape)} {x.dtype}")
+    cin = x.shape[3]
+    if not fused_head_supported(cin, anchors):
+        raise ValueError(f"fused packed decode needs Cin % "
+                         f"{FUSED_CIN_MULTIPLE} == 0 and <= {GATE_ANCHORS} "
+                         f"anchors/head, got Cin={cin}, {len(anchors)} anchors")
+    need = len(anchors) * (5 + num_classes)
+    if (w.dim() != 2 or w.shape[1] != cin or w.shape[0] < need
+            or bias.dim() != 1 or bias.shape[0] < need):
+        raise ValueError(f"head weights {tuple(w.shape)} / bias "
+                         f"{tuple(bias.shape)} do not fit Cin={cin} and "
+                         f"{need} head channels")
+    return need
+
+
+def decode_packed_fused_head_reference(x: torch.Tensor, w: torch.Tensor,
+                                       bias: torch.Tensor, anchors: Anchors,
+                                       stride: int, num_classes: int,
+                                       prob_thresh: float = 0.0,
+                                       head_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K4: the 1×1 head conv as one float32 matmul (TF32 off)
+    plus the bias, then :func:`decode_packed_head_reference` → records
+    (B, a·gy·gx, 8)."""
+    need = _check_fused(x, w, bias, anchors, num_classes)
+    b, gy, gx, cin = x.shape
+    with tf32(False):
+        h = x.reshape(-1, cin).float() @ w[:need].float().T + bias[:need].float()
+    return decode_packed_head_reference(h.reshape(b, gy, gx, need), anchors,
+                                        stride, num_classes, prob_thresh,
+                                        head_offset)
+
+
+def decode_packed_fused_head(x: torch.Tensor, w: torch.Tensor,
+                             bias: torch.Tensor, anchors: Anchors, stride: int,
+                             num_classes: int, prob_thresh: float = 0.0,
+                             head_offset: int = 0,
+                             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4: one head's K1 records from its pre-head activation ``x``
+    (B, gy, gx, Cin), Cin % 128 == 0, and head conv ``w`` (≥A·(5+C), Cin),
+    ``bias`` (≥A·(5+C),), written into ``out`` like
+    :func:`decode_packed_head`. ``w`` is cast to ``x``'s type (bf16 operands
+    stay bf16); products accumulate in float32 at every precision.
+
+    CUDA tensor: launches the K4 kernel on the current stream (counted in
+    ``decode_packed_fused_head.launches``) or raises. CPU tensor: the plain
+    version."""
+    need = _check_fused(x, w, bias, anchors, num_classes)
+    b, gy, gx, cin = x.shape
+    a = len(anchors)
+    n_head = a * gy * gx
+    out = _payload_out(out, b, head_offset + n_head, x.device)
+    if _check_device(x, "K4"):
+        out[:, head_offset:head_offset + n_head] = (
+            decode_packed_fused_head_reference(x, w, bias, anchors, stride,
+                                               num_classes, prob_thresh,
+                                               head_offset))
+        return out
+    if need > K4_MAX_CHANNELS:
+        raise ValueError(f"K4 takes at most {K4_MAX_CHANNELS} head channels, "
+                         f"got {need}")
+    w = w[:need].to(x.dtype).contiguous()
+    bias = bias[:need].float().contiguous()
+    if w.device != x.device or bias.device != x.device:
+        raise ValueError("K4 needs x, w and bias on one device")
+    _check_kernel_io(x, [out], a, "K4")
+    lib = load_kernels()
+    with torch.cuda.device(x.device):
+        rc = lib.yolo_decode_packed_fused_head(
+            x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
+            int(x.dtype == torch.bfloat16), w.data_ptr(), bias.data_ptr(),
+            b, gy, gx, cin, a, num_classes, _anchors_c(anchors), float(stride),
+            float(prob_thresh), head_offset, out.shape[1], out.data_ptr(),
+            _stream(x.device))
+    check_launch(rc, "decode_packed_fused_head")
+    decode_packed_fused_head.launches += 1
+    return out
+
+
+decode_packed_fused_head.launches = 0
+
+
+def decode_packed_fused(pre_heads: Sequence[torch.Tensor],
+                        head_weights: Sequence[torch.Tensor],
+                        head_biases: Sequence[torch.Tensor],
+                        anchors_per_head: Sequence[Anchors],
+                        strides: Sequence[int], num_classes: int,
+                        prob_thresh: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 over every head → (payload (B, N, 8), scores (B, N)); candidate
+    order identical to :func:`decode_packed`."""
+    sizes = [len(a) * x.shape[1] * x.shape[2]
+             for x, a in zip(pre_heads, anchors_per_head)]
+    payload = torch.empty((pre_heads[0].shape[0], sum(sizes), 8),
+                          dtype=torch.float32, device=pre_heads[0].device)
+    off = 0
+    for x, w, bias, a, s, n in zip(pre_heads, head_weights, head_biases,
+                                   anchors_per_head, strides, sizes):
+        decode_packed_fused_head(x, w, bias, a, s, num_classes,
+                                 prob_thresh=prob_thresh, head_offset=off,
+                                 out=payload)
         off += n
     return payload, payload[..., 4]

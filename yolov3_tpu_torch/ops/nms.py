@@ -1,10 +1,14 @@
-"""Batched, static-shape, class-aware NMS over packed decode records.
+"""Batched, static-shape, class-aware NMS.
 
-Port of the serving half of ``yolov3_tpu/ops/nms.py``: candidate selection
-(``_select_pairmax_payload``) → greedy suppression (K2,
-``ops.cuda_nms.suppress``) → optional compaction (``compact_results``) →
-``pack_results`` for one device→host copy. Results are bit-identical to the
-JAX package's ``batched_nms_packed`` on the same payload.
+Port of ``yolov3_tpu/ops/nms.py``: candidate selection → greedy suppression
+(K2, ``ops.cuda_nms.suppress``) → optional compaction (``compact_results``)
+→ ``pack_results`` for one device→host copy. Three entry points, each
+bit-identical to the JAX function of the same name on the same inputs:
+
+* ``batched_nms_packed``: K1 / K4 payload records (the packed routes);
+* ``batched_nms_compact``: K1c or ``ops.decode.decode_compact`` outputs
+  (the compact route), pair-max or direct top-k selection;
+* ``batched_nms``: decoded (B, N, 5+C) rows (``forward()``'s contract).
 
 Tie order is the hazard: ``torch.topk`` promises no order among equal
 values, while ``lax.top_k`` puts the lower index first. Every selection here
@@ -21,6 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_nms import suppress
+
+
+# candidate indices ride in float32 lanes: exact below 2^24
+EXACT_INDEX_LIMIT = 2 ** 24
 
 
 class NMSResult(NamedTuple):
@@ -75,7 +83,7 @@ def _select_pairmax_payload(payload: torch.Tensor, masked: torch.Tensor,
     ``group·k`` survivors are then ordered exactly. CONTRACT: lane 4 equals
     ``masked`` (already thresholded, ≥ 0)."""
     b, n = masked.shape
-    if n >= 2 ** 24:
+    if n >= EXACT_INDEX_LIMIT:
         raise ValueError(f"pair-max selection needs N < 2^24 for exact f32 "
                          f"candidate indices, got N={n}")
     if group < 2:
@@ -101,6 +109,61 @@ def _select_pairmax_payload(payload: torch.Tensor, masked: torch.Tensor,
             top[:, :, 5].to(torch.int32), top_scores > 0.0)
 
 
+def _select_topk(boxes: torch.Tensor, masked: torch.Tensor,
+                 classes: torch.Tensor, k: int):
+    """Direct top-k selection (``lax.top_k`` + gathers): the k highest
+    ``masked`` scores, ties → lower index first → (boxes, scores, classes,
+    valid)."""
+    top_i = _sort_desc(masked)[:, :k]
+    top_scores = torch.gather(masked, 1, top_i)
+    return (torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4)),
+            top_scores, torch.gather(classes, 1, top_i), top_scores > 0.0)
+
+
+def _select_pairmax(boxes: torch.Tensor, masked: torch.Tensor,
+                    classes: torch.Tensor, k: int, group: int = 2):
+    """Exact top-k selection via group-max over compact-decode outputs:
+    build the packed payload (candidate index in lane 6, exact in f32 below
+    2^24) and run :func:`_select_pairmax_payload`. At N ≥ 2^24 the index
+    would not be exact, so the direct top-k form runs instead (the same
+    results)."""
+    b, n = masked.shape
+    if n >= EXACT_INDEX_LIMIT:
+        return _select_topk(boxes, masked, classes, k)
+    iota = torch.arange(n, dtype=torch.float32, device=masked.device)
+    payload = torch.cat([boxes, masked[..., None],
+                         classes.to(torch.float32)[..., None],
+                         iota.expand(b, n)[..., None],
+                         torch.zeros_like(masked)[..., None]], dim=-1)
+    return _select_pairmax_payload(payload, masked, k, group=group)
+
+
+def _candidates(det: torch.Tensor, prob_thresh: float, top_k: int):
+    """Per image of (B, N, 5+C) decoded rows: score = obj × max class prob,
+    first-argmax class, threshold, top-k (ties → lower index) → (tlbr boxes,
+    scores, classes int32, valid)."""
+    class_prob, class_idx = det[..., 5:].max(dim=-1)  # first index among ties
+    score = det[..., 4] * class_prob
+    masked = torch.where(score >= prob_thresh, score, torch.zeros_like(score))
+    half = det[..., 2:4] * 0.5
+    boxes = torch.cat([det[..., :2] - half, det[..., :2] + half], dim=-1)
+    return _select_topk(boxes, masked, class_idx.to(torch.int32),
+                        min(top_k, det.shape[1]))
+
+
+def _suppress_batch(boxes: torch.Tensor, scores: torch.Tensor,
+                    classes: torch.Tensor, valid: torch.Tensor,
+                    iou_thresh: float) -> NMSResult:
+    """K2 over the selected candidates; suppressed slots zeroed (class -1)."""
+    keep = suppress(boxes, classes, valid, iou_thresh)
+    return NMSResult(
+        boxes=torch.where(keep[..., None], boxes, torch.zeros_like(boxes)),
+        scores=torch.where(keep, scores, torch.zeros_like(scores)),
+        classes=torch.where(keep, classes, torch.full_like(classes, -1)),
+        valid=keep,
+    )
+
+
 def compact_results(res: NMSResult, max_results: int) -> NMSResult:
     """Gather the top ``max_results`` survivors per image (score desc, ties
     → lower slot first), shrinking the buffers that leave the device."""
@@ -120,25 +183,52 @@ def compact_results(res: NMSResult, max_results: int) -> NMSResult:
     )
 
 
+def batched_nms(detections: torch.Tensor, prob_thresh: float = 0.05,
+                iou_thresh: float = 0.3, top_k: int = 512) -> NMSResult:
+    """Class-aware NMS over decoded detections (B, N, 5+C) (``forward()``'s
+    output). Exactly the ``top_k`` highest-scoring candidates above
+    ``prob_thresh`` enter suppression (the >K truncation contract)."""
+    return _suppress_batch(*_candidates(detections, prob_thresh, top_k),
+                           iou_thresh)
+
+
+def batched_nms_compact(boxes: torch.Tensor, scores: torch.Tensor,
+                        classes: torch.Tensor, prob_thresh: float = 0.05,
+                        iou_thresh: float = 0.3, top_k: int = 512,
+                        max_results: int = 0, select_impl: str = "pairmax",
+                        select_group: int = 2) -> NMSResult:
+    """NMS over compact-decode outputs: tlbr boxes (B, N, 4), scores (B, N),
+    classes (B, N) int32 → threshold → top-k → K2. The same results as
+    :func:`batched_nms` on the same data. ``select_impl``: "pairmax"
+    (group-max, :func:`_select_pairmax`) or "topk" (direct); the results are
+    bit-identical. ``max_results > 0`` compacts the output."""
+    masked = torch.where(scores >= prob_thresh, scores, torch.zeros_like(scores))
+    k = min(top_k, scores.shape[1])
+    if select_impl == "pairmax":
+        sel = _select_pairmax(boxes, masked, classes, k, group=select_group)
+    elif select_impl == "topk":
+        sel = _select_topk(boxes, masked, classes, k)
+    else:
+        raise ValueError(f"unknown select_impl {select_impl!r}")
+    res = _suppress_batch(*sel, iou_thresh)
+    if max_results and max_results < k:
+        res = compact_results(res, max_results)
+    return res
+
+
 def batched_nms_packed(payload: torch.Tensor, scores: torch.Tensor,
                        iou_thresh: float = 0.3, top_k: int = 512,
                        max_results: int = 0, select_group: int = 2
                        ) -> NMSResult:
     """NMS over the packed decode output (serving path): ``payload``
     (B, N, 8) candidate records and ``scores`` (B, N) from
-    ``ops.cuda_decode.decode_packed`` — already thresholded by the decode
-    (pass the serving ``prob_thresh`` there; this applies none).
-    ``max_results > 0`` compacts the output to that many top survivors."""
+    ``ops.cuda_decode.decode_packed`` / ``decode_packed_fused`` — already
+    thresholded by the decode (pass the serving ``prob_thresh`` there; this
+    applies none). ``max_results > 0`` compacts the output to that many top
+    survivors."""
     k = min(top_k, scores.shape[1])
-    boxes, top_scores, classes, valid = _select_pairmax_payload(
-        payload, scores, k, group=select_group)
-    keep = suppress(boxes, classes, valid, iou_thresh)
-    res = NMSResult(
-        boxes=torch.where(keep[..., None], boxes, torch.zeros_like(boxes)),
-        scores=torch.where(keep, top_scores, torch.zeros_like(top_scores)),
-        classes=torch.where(keep, classes, torch.full_like(classes, -1)),
-        valid=keep,
-    )
+    res = _suppress_batch(*_select_pairmax_payload(
+        payload, scores, k, group=select_group), iou_thresh)
     if max_results and max_results < k:
         res = compact_results(res, max_results)
     return res

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port's serving routes (one CUDA device).
 
-    python3 chip_smoke.py [--phases build,k1,k1c,k2,k4,k5,golden,main]
+    python3 chip_smoke.py [--phases k1,k1c,k2,k3,k4,k5,int8conv,k6,golden,main,int8]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. With no arguments every phase runs, in this order, and
-each raises on failure:
+each raises on failure (the build always runs):
 
 1. build: require CUDA, print the card's name and power limit, build the
    kernels from ``yolov3_tpu_torch/csrc`` with nvcc (one process per
@@ -15,25 +15,41 @@ each raises on failure:
    logits, exp-clamped boxes, scores exactly on the threshold;
 3. K1c (compact decode) against its plain version, yolov3@416 B=8;
 4. K2 (suppression) against its plain version, K = 512 and 256, batch 8;
-5. K4 (head-fused decode) at the three yolov3@416 B=8 pre-head shapes,
+5. K3 (full decode) against the plain decode on the three yolov3@416 B=8
+   heads, float32 and bf16 maps: exact;
+6. K4 (head-fused decode) at the three yolov3@416 B=8 pre-head shapes,
    float32 and bf16 operands;
-6. K5 (fused 3x3 conv) at every distinct eligible yolov3@416 B=8 layer
+7. K5 (fused 3x3 conv) at every distinct eligible yolov3@416 B=8 layer
    shape, float32 and bf16, leaky and linear;
-7. the golden fixtures (``tests/data/golden_{tiny,yolov3}.json``) replayed
-   at precision "highest" through the Detector's routes: K1, the plain
-   compact decode, K4, and K5 convs;
-8. the full-width main path: a 248,007,048-byte yolov3 ``.weights`` file
-   through ``Darknet.load_weights``, then ``Detector.detect_batch`` at 416
-   on 8 frames of 480x640: yolov3 precision None (K1), bf16 (K1 on bf16
-   maps), bf16 with the fused head and fused convs (K4, K5), None on the
-   compact route, and yolov3-tiny; ``forward_compact`` through K1c against
-   the plain compact decode; and the bf16 parity bar against "highest".
-   Every kernel's launch count is read around this phase.
+8. int8conv: the card's im2col + ``torch._int_mm`` int8 conv against the
+   CPU's int32 ``F.conv2d``: 1x1, 3x3 at stride 1 and 2, asymmetric
+   zero-points, a padded N and a short M, the exact-u8 stem;
+9. K6 (fused int8 residual block) against its plain version, exact, at
+   both yolov3@416 B=8 block shapes and two odd geometries, int8, bf16 and
+   float32 outputs;
+10. the golden fixtures (``tests/data/golden_{tiny,yolov3}.json``) replayed
+    at precision "highest" through the Detector's routes: K1, the plain
+    compact decode, K4, and K5 convs;
+11. main, the full-width float path: a 248,007,048-byte yolov3 ``.weights``
+    file through ``Darknet.load_weights``, then ``Detector.detect_batch``
+    at 416 on 8 frames of 480x640: yolov3 precision None (K1), bf16 (K1 on
+    bf16 maps), bf16 with the fused head and fused convs (K4, K5), None on
+    the compact route, and yolov3-tiny; ``forward_compact`` through K1c
+    against the plain compact decode; ``Darknet(x)`` through K3; and the
+    bf16 parity bar against "highest";
+12. int8, the full-width int8 tier: ``quantize_int8`` of yolov3 on 8 seeded
+    frames on the card, then ``detect_batch`` through the int8 carrier with
+    K6 blocks (K1 and K4 decode), with unfused blocks, the asymmetric
+    scheme and the bf16 carrier, each with its stage split; K6's launches
+    per forward against ``fused_block_plan``; identical detections for
+    fused and unfused blocks; the state file's round trip; the DESIGN int8
+    bar against float32 on tiny@416.
 
-The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}`` (printed only when every phase ran).
-Exits non-zero, and prints neither, when CUDA is unavailable or the port is
-not beside this script.
+Every kernel's launch count is zeroed just before phases 11 and 12 and read
+just after. The last two lines of standard output are the kernels' JSON
+record and ``{"ok": true, "device": {...}}`` (printed only when every phase
+ran). Exits non-zero, and prints neither, when CUDA is unavailable or the
+port is not beside this script.
 """
 from __future__ import annotations
 
@@ -52,7 +68,8 @@ REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 BATCH = 8
 SRC_HW = (480, 640)
-PHASES = ("build", "k1", "k1c", "k2", "k4", "k5", "golden", "main")
+PHASES = ("build", "k1", "k1c", "k2", "k3", "k4", "k5", "int8conv", "k6",
+          "golden", "main", "int8")
 YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights file
 # float lanes of K1 / K1c against their plain versions: both run the same
 # float operations in the same order (no FMA contraction, full-precision
@@ -71,6 +88,15 @@ K5_ATOL, K5_RTOL, K5_BF16_RTOL = 5e-5, 1e-4, 2.0 ** -7
 # the DESIGN bf16 parity bar: IoU > 0.99 on >= 90% of the float32
 # detections scoring >= 0.45
 PARITY_IOU, PARITY_SHARE, PARITY_SCORE = 0.99, 0.9, 0.45
+# the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
+# the DESIGN int8 bar (tests/test_quant.py): pre-NMS, the float32 forward's
+# top-200 candidates per image
+INT8_BAR_TOP, INT8_BAR_SCORE, INT8_BAR_BOX = 200, 0.01, 0.5
+K6_BLOCKS_YOLOV3 = 10  # fused_block_plan on models/yolov3.cfg (the JAX plan's count)
 
 
 def log(msg: str) -> None:
@@ -357,7 +383,7 @@ def phase_k4(graph):
         plain_ms = cuda_ms(plain, iters=5, warmup=1)
         with tf32(True):
             unfused_ms = cuda_ms(unfused)
-        times[dtype] = (ms, plain_ms)
+        times[dtype] = (ms, plain_ms, unfused_ms)
         log(f"[K4] yolov3@416 B={BATCH} {str(dtype)[6:]} operands, pre-head "
             f"(g, Cin, Cout) {shapes}: scores/boxes within bars, cand exact, "
             f"class exact outside the {K4_MARGIN} logit margin "
@@ -433,6 +459,182 @@ def phase_k5(graph):
             f"layers, {str(dtype)[6:]}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms")
     return max_err, totals
+
+
+
+def phase_k3(graph):
+    """K3 (full decode) against its plain version on the three yolov3@416
+    B=8 heads: exact."""
+    import torch
+    from yolov3_tpu_torch.ops import decode as plain_decode
+    from yolov3_tpu_torch.ops.cuda_decode import decode_all
+
+    anchors, strides, ncls = head_spec(graph)
+    feats = [torch.from_numpy(h).to(DEVICE) for h in k1_inputs(graph, seed=3)]
+    got = decode_all(feats, anchors, strides, ncls)
+    want = plain_decode.decode_all(feats, anchors, strides, ncls)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"K3: shape {tuple(got.shape)} vs {tuple(want.shape)} "
+                             f"or non-finite values")
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"K3 differs from its plain version, max |err| {err}")
+    got16 = decode_all([f.bfloat16() for f in feats], anchors, strides, ncls)
+    want16 = plain_decode.decode_all([f.bfloat16().float() for f in feats],
+                                     anchors, strides, ncls)
+    if not torch.equal(got16, want16):
+        raise AssertionError("K3 on bf16 maps differs from its plain version")
+    ms = cuda_ms(lambda: decode_all(feats, anchors, strides, ncls))
+    plain_ms = cuda_ms(lambda: plain_decode.decode_all(feats, anchors, strides, ncls))
+    nbytes = 2 * 4 * sum(f.numel() for f in feats)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[K3] yolov3@416 B={BATCH}: {tuple(got.shape)} float32 exact against "
+        f"the plain decode (float32 and bf16 maps); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+        f"3.35 TB/s, {bound_ms / ms:.0%} of the bound reached)")
+    return err, ms, plain_ms, bound_ms
+
+
+def _int8_qp(rng, k: int, cin: int, cout: int, device):
+    import torch
+
+    return {"wq": torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout),
+                                                dtype=np.int8)).to(device),
+            "sw": torch.from_numpy(rng.uniform(1e-4, 2e-4, cout)
+                                   .astype(np.float32)).to(device),
+            "b": torch.from_numpy(rng.normal(0, 0.1, cout)
+                                  .astype(np.float32)).to(device)}
+
+
+def phase_int8conv():
+    """The card's im2col + ``torch._int_mm`` route against the CPU's int32
+    ``F.conv2d``: the integer sums exactly, the float32 epilogue (symmetric,
+    asymmetric with its border-deficit map, stem) within 1 ulp."""
+    import torch
+    from yolov3_tpu_torch import quant
+    from yolov3_tpu_torch.graph import Node
+    from yolov3_tpu_torch.ops import int8_conv
+
+    rng = np.random.default_rng(7)
+    cases = [("1x1", 1, 1, 256, 128, 52, 0), ("3x3 s1", 3, 1, 128, 256, 52, 0),
+             ("3x3 s2", 3, 2, 64, 128, 104, 0), ("3x3 s1 zx=-37", 3, 1, 64, 128, 37, -37),
+             ("3x3 s2 zx=21", 3, 2, 32, 64, 52, 21), ("1x1 head N=255", 1, 1, 256, 255, 13, 0),
+             ("1x1 M=8", 1, 1, 64, 32, 2, 0)]
+    for name, k, stride, cin, cout, hw, zx in cases:
+        xq = torch.from_numpy(rng.integers(-127, 128, (2, hw, hw, cin), dtype=np.int8))
+        qp = _int8_qp(rng, k, cin, cout, "cpu")
+        qp_d = {key: v.to(DEVICE) for key, v in qp.items()}
+        want = int8_conv.conv_int8(xq, int8_conv.weight_operand(qp["wq"]),
+                                   stride, k // 2)
+        got = int8_conv.conv_int8(xq.to(DEVICE), int8_conv.weight_operand(qp_d["wq"]),
+                                  stride, k // 2)
+        if got.dtype != torch.int32 or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"int8 conv {name}: integer sums differ")
+        node = Node(index=1, kind="convolutional", inputs=(0,), out_channels=cout,
+                    downsample=1, filters=cout,
+                    size=k, stride=stride, pad=1, activation="leaky",
+                    batch_normalize=True)
+        y_c = quant._conv_int8_core(xq, node, qp, 0.031, True, zx)
+        y_d = quant._conv_int8_core(xq.to(DEVICE), node, qp_d, 0.031, True, zx).cpu()
+        ulp = float(((y_d - y_c).abs() / (y_c.abs() * 2.0 ** -23 + 1e-30)).max())
+        if not ulp <= 1.0:
+            raise AssertionError(f"int8 conv {name}: epilogue off by {ulp} ulp")
+        log(f"[int8conv] {name} {cin}->{cout} at {hw}x{hw}: int32 sums exact "
+            f"against the CPU int32 conv, epilogue max {ulp:.2f} ulp"
+            f"{' (bit-equal)' if torch.equal(y_d, y_c) else ''}")
+    # the stem: exact-u8 input, q = -128 padding, K = 27 padded to 32
+    x = torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3)).astype(np.float32) / 255.0)
+    qp = _int8_qp(rng, 3, 3, 32, "cpu")
+    qp_d = {key: v.to(DEVICE) for key, v in qp.items()}
+    node = Node(index=0, kind="convolutional", inputs=(-1,), out_channels=32,
+                downsample=1, filters=32, size=3,
+                stride=1, pad=1, activation="leaky", batch_normalize=True)
+    y_c = quant._conv_stem_int8(x, node, qp)
+    y_d = quant._conv_stem_int8(x.to(DEVICE), node, qp_d).cpu()
+    ulp = float(((y_d - y_c).abs() / (y_c.abs() * 2.0 ** -23 + 1e-30)).max())
+    if not ulp <= 1.0:
+        raise AssertionError(f"int8 stem conv: off by {ulp} ulp")
+    log(f"[int8conv] stem 3->32 at 64x64 (K=27 padded, q=-128 border): max "
+        f"{ulp:.2f} ulp against the CPU")
+    # cost of one quantized conv at a yolov3 shape, for orientation
+    xq = torch.from_numpy(rng.integers(-127, 128, (BATCH, 52, 52, 128),
+                                       dtype=np.int8)).to(DEVICE)
+    op = int8_conv.weight_operand(_int8_qp(rng, 3, 128, 256, DEVICE)["wq"])
+    ms = cuda_ms(lambda: int8_conv.conv_int8(xq, op, 1, 1))
+    cols = int8_conv.im2col(torch.nn.functional.pad(xq, (0, 0, 1, 1, 1, 1)), 3, 1)
+    mm_ms = cuda_ms(lambda: torch._int_mm(cols, op["mm"]))
+    log(f"[int8conv] B={BATCH} 52x52 128->256 3x3: pad + im2col + _int_mm "
+        f"{ms:.4f} ms, of which _int_mm {mm_ms:.4f} ms")
+
+
+K6_SHAPES = ((BATCH, 104, 104, 128, 64), (BATCH, 52, 52, 256, 128))
+
+
+def k6_case(rng, b: int, h: int, w: int, c: int, cmid: int):
+    """A residual block with int8 inputs over the full range and scales
+    that spread the quantized intermediates over theirs (with clipping)."""
+    import torch
+    from yolov3_tpu_torch.ops.cuda_block import prepare_block_params
+
+    x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8)).to(DEVICE)
+    s_in, s_mid, s_mid2, s_out = 0.05, 3.0 / 127, 2.5 / 127, 8.0 / 127
+    qp1, qp2 = _int8_qp(rng, 1, c, cmid, DEVICE), _int8_qp(rng, 3, cmid, c, DEVICE)
+    # |m1| ~ 73 * 73 * sqrt(c); |mid| ~ 40; |m2| ~ 73 * 40 * sqrt(9 * cmid)
+    qp1["sw"] = qp1["sw"] / 1.5e-4 / (73 * 73 * np.sqrt(c) * s_in)
+    qp2["sw"] = qp2["sw"] / 1.5e-4 / (73 * 40 * np.sqrt(9 * cmid) * s_mid)
+    bp = prepare_block_params(qp1, qp2, s_in, s_mid)
+    kw = dict(s_in=s_in, s_mid=s_mid, s_mid2=s_mid2, s_out=s_out)
+    return x, bp, kw
+
+
+def phase_k6():
+    """K6 (fused int8 residual block) against its plain version: exact, at
+    both yolov3@416 B=8 block shapes and an odd geometry, int8 and carrier
+    outputs."""
+    import torch
+    from yolov3_tpu_torch.ops.cuda_block import (residual_block_int8,
+                                                 residual_block_int8_reference)
+
+    rng = np.random.default_rng(6)
+    times, max_err = {}, 0.0
+    for shape in K6_SHAPES + ((2, 37, 53, 128, 64), (1, 5, 3, 128, 128)):
+        b, h, w, c, cmid = shape
+        x, bp, kw = k6_case(rng, *shape)
+        for emit_q, carrier in ((True, torch.bfloat16), (False, torch.bfloat16),
+                                (False, torch.float32)):
+            got = residual_block_int8(x, bp, emit_q=emit_q, carrier_dtype=carrier, **kw)
+            want = residual_block_int8_reference(x, bp, emit_q=emit_q,
+                                                 carrier_dtype=carrier, **kw)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            max_err = max(max_err, float(d.max()))
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(
+                    f"K6 {shape} emit_q={emit_q} {carrier}: {int((d > 0).sum())} "
+                    f"of {d.numel()} elements differ, max {float(d.max())}")
+        q = residual_block_int8(x, bp, emit_q=True, **kw)
+        spread = [float((q == v).float().mean()) for v in (-127, 0, 127)]
+        log(f"[K6] B={b} {h}x{w} C={c} cmid={cmid}: int8, bf16 and float32 "
+            f"outputs exact against the plain version (share of outputs at "
+            f"-127/0/127: {spread[0]:.3f}/{spread[1]:.3f}/{spread[2]:.3f})")
+        if shape in K6_SHAPES:
+            ms = cuda_ms(lambda: residual_block_int8(x, bp, emit_q=True, **kw),
+                         iters=10, warmup=2)
+            plain_ms = cuda_ms(lambda: residual_block_int8_reference(
+                x, bp, emit_q=True, **kw), iters=5, warmup=1)
+            ops = 2 * b * h * w * (c * cmid + 9 * cmid * c)
+            nbytes = 2 * x.numel() + c * cmid + 9 * cmid * c + 8 * (c + cmid)
+            t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            times[shape] = (ms, plain_ms, bound_ms,
+                            "operations" if t_ops >= t_bytes else "bytes")
+            log(f"[K6] B={b} {h}x{w} C={c}: kernel {ms:.4f} ms "
+                f"({ops / ms / 1e9:.1f} TOP/s int8), plain (unfused ops) "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({ops / 1e9:.1f} G "
+                f"operations at 1,979 TOP/s against {nbytes / 1e6:.1f} MB at "
+                f"3.35 TB/s; {bound_ms / ms:.1%} of the bound reached)")
+    return max_err, times
 
 
 GOLDEN_ROUTES = (("pallas", "xla"), ("xla", "xla"), ("pallas-fused", "xla"),
@@ -596,6 +798,7 @@ def phase_main(card: str):
                "decode_compact_head": cuda_decode.decode_compact_head,
                "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
                "conv3x3_fused": cuda_conv.conv3x3_fused,
+               "decode_head": cuda_decode.decode_head,
                "nms_suppress": cuda_nms.suppress}
     for k in kernels.values():
         k.launches = 0
@@ -625,6 +828,22 @@ def phase_main(card: str):
         f"compact decode give the same detection sets "
         f"({[len(s) for s in sets['xla']]} per image)")
 
+    # Darknet(x): the decoded (B, N, 5+C) tensor through K3, against the
+    # plain decode of the same head maps
+    from yolov3_tpu_torch import forward_features
+    from yolov3_tpu_torch.ops import decode as plain_decode
+
+    with torch.inference_mode():
+        full = net(x)
+        want = plain_decode.decode_all(
+            [h.float() for h in forward_features(net.graph, net.params, x)],
+            *head_spec(net.graph))
+    if full.shape != (BATCH, 10647, 85) or not torch.equal(full, want):
+        raise AssertionError(f"Darknet(x): {tuple(full.shape)} differs from the "
+                             f"plain decode of its head maps")
+    log(f"[main] yolov3@416 Darknet(x) B={BATCH}: {tuple(full.shape)} through K3, "
+        f"equal to the plain decode of the same head maps")
+
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"[main] kernel launches in the main-path run: {launches}")
     for kernel, n in launches.items():
@@ -648,6 +867,236 @@ def phase_main(card: str):
                  "yolov3@416 bf16 against \"highest\"", strict=False)
     check_parity(runs["highest"], runs["none"], "yolov3@416 None (TF32) "
                  "against \"highest\"", strict=False)
+    return launches
+
+
+def prenms_bar(ref, test, what: str, strict: bool = True) -> None:
+    """The DESIGN int8 bar, pre-NMS: on the reference's top-200 candidates
+    per image, the same class, |Δscore| <= 0.01 and |Δbox| <= 0.5 px.
+    ``ref`` / ``test``: (boxes, scores, classes) of ``forward_compact``."""
+    (rb, rs, rc), (tb, ts, tc) = ([t.float().cpu().numpy() for t in out]
+                                  for out in (ref, test))
+    ds = db = flips = 0.0
+    for i in range(rs.shape[0]):
+        top = np.argsort(rs[i])[::-1][:INT8_BAR_TOP]
+        ds = max(ds, float(np.abs(rs[i][top] - ts[i][top]).max()))
+        db = max(db, float(np.abs(rb[i][top] - tb[i][top]).max()))
+        flips += int((rc[i][top] != tc[i][top]).sum())
+    ok = ds <= INT8_BAR_SCORE and db <= INT8_BAR_BOX and flips == 0
+    log(f"[int8] {what}: top-{INT8_BAR_TOP} pre-NMS max |dscore| {ds:.5f} (bar "
+        f"{INT8_BAR_SCORE}), max |dbox| {db:.4f} px (bar {INT8_BAR_BOX}), "
+        f"{int(flips)} class flips: {'holds' if ok else 'MISSED'}")
+    if strict and not ok:
+        raise AssertionError(f"{what}: the int8 parity bar is missed")
+
+
+def device_busy_ms(fn):
+    """Sum of the kernels' device time in one call of ``fn``
+    (torch.profiler), or None when the profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        # device-side events only: an operator's row repeats its kernels' time
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+    return total / 1e3 if total > 0 else None
+
+
+def int8_stage_split(det, frames: np.ndarray, calls: int = 5):
+    """Median device ms (CUDA events) of the stages of one quantized
+    ``detect_batch``: H2D, flip + preprocess, the int8 walk, the decode,
+    selection + K2 + compaction + pack."""
+    import torch
+    from yolov3_tpu_torch import quant
+    from yolov3_tpu_torch.ops.cuda_decode import decode_packed, decode_packed_fused
+    from yolov3_tpu_torch.ops.nms import batched_nms_packed, pack_results
+    from yolov3_tpu_torch.ops.preprocess import preprocess
+
+    net = det.net
+    names = ("h2d", "preprocess", "walk", "decode", "nms+pack")
+    rows = []
+    anchors, strides, ncls = head_spec(net.graph)
+    fused = det.route == "pallas-fused"
+    with torch.inference_mode():
+        for _ in range(calls + 1):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            marks[0].record()
+            dev = det._stage(frames)
+            marks[1].record()
+            x = preprocess(dev.flip(-1), det.net_hw, mode=det.resize_mode,
+                           interp=det._interp_for(SRC_HW))
+            marks[2].record()
+            kw = dict(block_impl=det.block_impl, tensor_zeros=net.act_zeros,
+                      operands=net.qoperands)
+            if net.qcarrier == "int8":
+                heads = quant.forward_features_int8_carrier(
+                    net.graph, net.qparams, net.act_scales, x,
+                    net.precision or "bf16", stop_before_heads=fused, **kw)
+            else:
+                heads = quant.forward_features_int8(
+                    net.graph, net.qparams, net.act_scales, x,
+                    net.precision or "bf16", operands=net.qoperands)
+            marks[3].record()
+            if fused:
+                ws = [net.qparams[yn.inputs[0]]["w"] for yn in net.graph.yolo_nodes]
+                ws = [w.reshape(w.shape[2], w.shape[3]).t() for w in ws]
+                bs = [net.qparams[yn.inputs[0]]["b"] for yn in net.graph.yolo_nodes]
+                payload, scores = decode_packed_fused(heads, ws, bs, anchors, strides,
+                                                      ncls, det.prob_thresh)
+            else:
+                payload, scores = decode_packed(heads, anchors, strides, ncls,
+                                                det.prob_thresh)
+            marks[4].record()
+            pack_results(batched_nms_packed(
+                payload, scores, iou_thresh=det.iou_thresh, top_k=det.top_k,
+                max_results=det.max_results, select_group=det.select_group))
+            marks[5].record()
+            marks[5].synchronize()
+            rows.append([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
+    med = np.median(np.asarray(rows[1:]), axis=0)
+    return dict(zip(names, (float(v) for v in med)))
+
+
+def same_detections(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x.bbox_tlbr, y.bbox_tlbr)
+        and np.array_equal(x.class_prob, y.class_prob)
+        and np.array_equal(x.class_idx, y.class_idx) for x, y in zip(a, b))
+
+
+def phase_int8(card: str):
+    """The int8 tier at full width: quantize yolov3 on the card, then
+    ``detect_batch`` through the quantized routes; K6's launch count per
+    forward, "pallas" against "xla" blocks, the parity bar, the state file."""
+    import torch
+    from yolov3_tpu_torch import Darknet, Detector, forward_compact, quant
+    from yolov3_tpu_torch.ops import cuda_block, cuda_decode, cuda_nms
+    from yolov3_tpu_torch.weights import fold_raw, random_raw
+
+    cfg = REPO / "models" / "yolov3.cfg"
+    graph = Darknet(cfg).graph
+    params = fold_raw(random_raw(graph, seed=0))
+    frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3),
+                                               dtype=np.uint8)
+    calib = np.random.default_rng(1).integers(0, 256, (BATCH, *SRC_HW, 3),
+                                              dtype=np.uint8)
+
+    def quantized(**kw):
+        net = Darknet(cfg, precision="bf16", device=DEVICE).set_params(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.quantize_int8(calib, **kw)
+        torch.cuda.synchronize()
+        n_q = sum("wq" in qp for qp in net.qparams.values())
+        log(f"[int8] yolov3@416 quantize_int8({kw or ''}) on {BATCH} seeded "
+            f"frames: {time.perf_counter() - t0:.2f} s, {n_q} of "
+            f"{len(net.qparams)} convs int8, {len(net.act_scales)} scales")
+        return net
+
+    nets = {"sym": quantized(), "asym": quantized(act_scheme="asymmetric"),
+            "bf16c": quantized(carrier="bf16")}
+    plan = cuda_block.fused_block_plan(graph, nets["sym"].qparams,
+                                       nets["sym"].act_scales)
+    shapes = Counter((416 // graph.nodes[a].downsample, v["cin"])
+                     for a, v in plan.items())
+    log(f"[int8] fused_block_plan: {len(plan)} blocks {dict(shapes)} "
+        f"((grid, C): count)")
+    if len(plan) != K6_BLOCKS_YOLOV3:
+        raise AssertionError(f"fused_block_plan found {len(plan)} blocks on "
+                             f"yolov3.cfg, expected {K6_BLOCKS_YOLOV3}")
+    kernels = {"decode_packed_head": cuda_decode.decode_packed_head,
+               "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
+               "residual_block_int8": cuda_block.residual_block_int8,
+               "nms_suppress": cuda_nms.suppress}
+    for k in kernels.values():
+        k.launches = 0
+    routes = (("int8 carrier, K6 blocks, K1", "sym", dict(block_impl="pallas")),
+              ("int8 carrier, K6 blocks, K4", "sym",
+               dict(block_impl="pallas", decode_impl="pallas-fused")),
+              ("int8 carrier, unfused blocks, K1", "sym", {}),
+              ("asymmetric int8 carrier, K1", "asym", {}),
+              ("bf16 carrier, K1", "bf16c", {}))
+    calls, outs, dets, per_forwards = 5, {}, {}, {}
+    k6 = cuda_block.residual_block_int8
+    for name, key, kw in routes:
+        det = dets[name] = Detector(nets[key], **kw)
+        before = k6.launches
+        outs[name] = run_main_path(det, f"yolov3 [{name}]", frames, card,
+                                   calls=calls)
+        per_forward = (k6.launches - before) / (calls + 1)  # + the warmup
+        want = len(plan) if kw.get("block_impl") == "pallas" else 0
+        if per_forward != want:
+            raise AssertionError(f"{name}: K6 launched {per_forward} times per "
+                                 f"forward, expected {want}")
+        per_forwards[name] = per_forward
+    # the counts of the detect_batch calls alone: the stage split below
+    # rebuilds a call out of its stages and would add its own launches
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"[int8] kernel launches in the int8 main-path runs ({calls} timed "
+        f"calls + 1 warmup of detect_batch on each of {len(routes)} routes): "
+        f"{launches}")
+    for kernel, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the int8 main path never launched {kernel}")
+    for name, det in dets.items():
+        per_forward = per_forwards[name]
+        split = int8_stage_split(det, frames)
+        busy = device_busy_ms(lambda: det.detect_batch(frames))
+        log(f"[int8] {name}: K6 launches per forward {per_forward:.0f}; stage "
+            f"ms (CUDA events, median of 5) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f", sum {sum(split.values()):.3f}; kernel time of one profiled "
+            f"call " + (f"{busy:.3f} ms" if busy else "not measured"))
+    if not same_detections(outs[routes[0][0]], outs[routes[2][0]]):
+        raise AssertionError("block_impl='pallas' and 'xla' give different "
+                             "detections (K6 is exact on the card)")
+    log("[int8] block_impl='pallas' and 'xla': identical detections "
+        f"({[len(d.class_prob) for d in outs[routes[0][0]]]} per image)")
+
+    # the state file: save, load into a fresh net, identical detections
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "yolov3_int8.npz"
+        nets["sym"].save_quantized(path)
+        fresh = Darknet(cfg, precision="bf16", device=DEVICE).set_params(params)
+        fresh.load_quantized(path)
+        size = path.stat().st_size
+    again = Detector(fresh, block_impl="pallas").detect_batch(frames)
+    if not same_detections(again, outs[routes[0][0]]):
+        raise AssertionError("a reloaded quantization state gives other detections")
+    log(f"[int8] save_quantized -> load_quantized ({size / 1e6:.1f} MB npz): "
+        f"identical detections")
+
+    # the DESIGN int8 bar where the reference holds it (tests/test_quant.py:
+    # tiny@416, random weights of seed 3, uniform inputs, scales calibrated
+    # on them), against the float32 forward; reported for yolov3
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (2, 416, 416, 3)).astype(np.float32)).to(DEVICE)
+    tiny_cfg = REPO / "models" / "yolov3-tiny.cfg"
+    tiny = Darknet(tiny_cfg, precision="highest", device=DEVICE)
+    tiny.set_params(fold_raw(random_raw(tiny.graph, seed=3)))
+    with torch.inference_mode():
+        ref = forward_compact(tiny.graph, tiny.params, x, precision="highest")
+        scales = quant.calibrate_tensors(tiny.graph, tiny.params, [x], precision=None)
+        qp = quant.quantize_weights(tiny.graph, tiny.params)
+        test = quant.forward_compact_int8(tiny.graph, qp, scales, x, precision=None,
+                                          carrier="int8")
+        prenms_bar(ref, test, "yolov3-tiny@416 int8 carrier against float32")
+        big = Darknet(cfg, precision="highest", device=DEVICE).set_params(params)
+        ref = forward_compact(big.graph, big.params, x, precision="highest")
+        scales = quant.calibrate_tensors(big.graph, big.params, [x], precision=None)
+        qp = quant.quantize_weights(big.graph, big.params)
+        for impl in ("xla", "pallas"):
+            test = quant.forward_compact_int8(big.graph, qp, scales, x,
+                                              precision=None, carrier="int8",
+                                              block_impl=impl)
+            prenms_bar(ref, test, f"yolov3@416 int8 carrier (block_impl={impl}) "
+                       f"against float32, random weights", strict=False)
     return launches
 
 
@@ -684,14 +1133,22 @@ def main() -> int:
         res["k1c"] = phase_k1c(yolo)
     if "k2" in phases:
         res["k2"] = phase_k2()
+    if "k3" in phases:
+        res["k3"] = phase_k3(yolo)
     if "k4" in phases:
         res["k4"] = phase_k4(yolo)
     if "k5" in phases:
         res["k5"] = phase_k5(yolo)
+    if "int8conv" in phases:
+        phase_int8conv()
+    if "k6" in phases:
+        res["k6"] = phase_k6()
     if "golden" in phases:
         phase_golden()
     if "main" in phases:
         res["main"] = phase_main(card)
+    if "int8" in phases:
+        res["int8"] = phase_int8(card)
     if set(phases) != set(PHASES):
         log(f"phases run: {phases}; no result printed for a partial run")
         return 0
@@ -700,34 +1157,94 @@ def main() -> int:
     k2_err, k2 = res["k2"]
     k4_err, k4 = res["k4"]
     k5_err, k5 = res["k5"]
+    k6_err, k6 = res["k6"]
     bf16 = torch.bfloat16
+    # bounds: the larger of bytes over the memory rate (each input read
+    # once, each output written once) and operations over the unit's peak
+    grids = [416 // s for s in yolo.head_strides()]
+    per = 5 + yolo.yolo_nodes[0].classes
+    n_cand = sum(len(n.anchors) * g * g for n, g in zip(yolo.yolo_nodes, grids))
+    map_elems = BATCH * sum(len(n.anchors) * per * g * g
+                            for n, g in zip(yolo.yolo_nodes, grids))
+
+    def bound(nbytes: float, ops: float = 0.0, peak: float = FP32_FLOPS_PER_S):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    pre_elems = k4_flop = 0
+    for yn, g in zip(yolo.yolo_nodes, grids):
+        hc = yolo.nodes[yn.inputs[0]]
+        cin = yolo.nodes[hc.inputs[0]].out_channels
+        pre_elems += BATCH * g * g * cin + cin * hc.filters
+        k4_flop += 2 * BATCH * g * g * cin * hc.filters
+    k5_bytes = k5_flop = 0
+    for (h, w, cin, cout), count in k5_shapes(yolo).items():
+        k5_bytes += count * 2 * (BATCH * h * w * (cin + cout) + 9 * cin * cout)
+        k5_flop += count * 2 * BATCH * h * w * 9 * cin * cout
+    k6_forward = [sum(n * k6[shape][i] for n, shape in zip((2, 8), K6_SHAPES))
+                  for i in range(3)]
     kernels = {"kernels": [
         {"name": "decode_packed_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_packed.cu",
          "replaces": "yolov3_tpu/ops/pallas_decode.py:626",
-         "launches": launches["decode_packed_head"], "max_abs_err": k1_err,
-         "ms": res["k1"][1], "plain_ms": res["k1"][2]},
+         "launches": launches["decode_packed_head"],
+         "launches_int8_path": res["int8"]["decode_packed_head"],
+         "max_abs_err": k1_err,
+         "ms": res["k1"][1], "plain_ms": res["k1"][2],
+         **bound(4 * map_elems + 32 * BATCH * n_cand), "library_ms": None},
         {"name": "nms_suppress", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolov3_tpu/ops/pallas_nms.py:65",
-         "launches": launches["nms_suppress"], "max_abs_err": k2_err,
-         "ms": k2[512][0], "plain_ms": k2[512][1]},
+         "launches": launches["nms_suppress"],
+         "launches_int8_path": res["int8"]["nms_suppress"],
+         "max_abs_err": k2_err,
+         "ms": k2[512][0], "plain_ms": k2[512][1],
+         # K = 512: every pair's IoU once (about 20 float32 operations)
+         **bound(BATCH * 512 * 22, BATCH * 512 * 511 / 2 * 20),
+         "library_ms": None},
         {"name": "decode_compact_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_packed.cu",
          "replaces": "yolov3_tpu/ops/pallas_decode.py:731",
          "launches": launches["decode_compact_head"],
          "max_abs_err": res["k1c"][0], "ms": res["k1c"][1],
-         "plain_ms": res["k1c"][2]},
+         "plain_ms": res["k1c"][2],
+         **bound(4 * map_elems + 24 * BATCH * n_cand), "library_ms": None},
+        {"name": "decode_head", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/decode_full.cu",
+         "replaces": "yolov3_tpu/ops/pallas_decode.py:121",
+         "launches": launches["decode_head"], "max_abs_err": res["k3"][0],
+         "ms": res["k3"][1], "plain_ms": res["k3"][2],
+         "bound_ms": res["k3"][3], "bound_by": "bytes", "library_ms": None},
         {"name": "decode_packed_fused_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_fused.cu",
          "replaces": "yolov3_tpu/ops/pallas_decode.py:511",
          "launches": launches["decode_packed_fused_head"],
-         "max_abs_err": k4_err, "ms": k4[bf16][0], "plain_ms": k4[bf16][1]},
+         "launches_int8_path": res["int8"]["decode_packed_fused_head"],
+         "max_abs_err": k4_err, "ms": k4[bf16][0], "plain_ms": k4[bf16][1],
+         **bound(2 * pre_elems + 32 * BATCH * n_cand, k4_flop, BF16_FLOPS_PER_S),
+         # no single call: the cuDNN 1x1 head conv followed by K1
+         "library_ms": k4[bf16][2]},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/conv3x3.cu",
          "replaces": "yolov3_tpu/ops/pallas_conv.py:289",
          "launches": launches["conv3x3_fused"], "max_abs_err": k5_err,
-         "ms": k5[bf16][0], "plain_ms": k5[bf16][1]},
+         "ms": k5[bf16][0], "plain_ms": k5[bf16][1],
+         **bound(k5_bytes, k5_flop, BF16_FLOPS_PER_S),
+         "library_ms": k5[bf16][2]},
+        {"name": "residual_block_int8", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/block_int8.cu",
+         "replaces": "yolov3_tpu/ops/pallas_block.py:222",
+         "launches": res["int8"]["residual_block_int8"], "max_abs_err": k6_err,
+         # one forward's ten launches (2 at 104x104 C=128, 8 at 52x52 C=256):
+         # each time is 2 x the first shape's + 8 x the second's, as the k6
+         # phase measured them one launch at a time
+         "ms": k6_forward[0], "plain_ms": k6_forward[1],
+         "bound_ms": k6_forward[2],
+         "ms_of": "one forward: 2 launches at 104x104 C=128 + 8 at 52x52 C=256",
+         "bound_by": ("operations" if all(k6[shape][3] == "operations"
+                                          for shape in K6_SHAPES) else "bytes"),
+         "library_ms": None},
     ]}
     log(card)
     log(json.dumps(kernels))

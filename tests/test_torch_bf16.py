@@ -24,14 +24,14 @@ ANCHORS = ((10.0, 13.0), (33.0, 23.0), (116.0, 90.0))
 
 
 def test_darknet_bf16_holds_bf16_buffers():
-    net = tmodel.Darknet(DATA / "port_wide.cfg", precision="bf16")
+    net = tmodel.Darknet(DATA / "port_wide.cfg", precision="bf16", device="cpu")
     assert net.param_dtype == torch.bfloat16
     net.set_params(fold_raw(random_raw(net.graph, seed=1)))
     for p in net.params.values():
         assert p["w"].dtype == p["b"].dtype == torch.bfloat16
         assert p["w"].is_contiguous(memory_format=torch.channels_last)
     f32 = tmodel.Darknet(DATA / "port_wide.cfg", precision="bf16",
-                         param_dtype=torch.float32)
+                         param_dtype=torch.float32, device="cpu")
     f32.set_params(fold_raw(random_raw(net.graph, seed=1)))
     assert all(p["w"].dtype == torch.float32 for p in f32.params.values())
     out = net(torch.rand(1, 32, 32, 3))
@@ -52,7 +52,7 @@ def test_forward_features_bf16_matches_jax(cfg, hw):
     jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params_np)
     want = jmodel.forward_features(jload_graph(path), jp, jnp.asarray(x),
                                    precision="bf16")
-    net = tmodel.Darknet(path, precision="bf16").set_params(params_np)
+    net = tmodel.Darknet(path, precision="bf16", device="cpu").set_params(params_np)
     got = tmodel.forward_features(net.graph, net.params, torch.from_numpy(x),
                                   precision="bf16")
     for gh, wh in zip(got, want):
@@ -81,7 +81,7 @@ def test_bf16_box_parity_with_fp32(cfg_paths):
         0, 1, (2, 416, 416, 3)).astype(np.float32))
     res = {}
     for prec in ("highest", "bf16"):
-        net = tmodel.Darknet(cfg_paths["yolov3-tiny"], precision=prec)
+        net = tmodel.Darknet(cfg_paths["yolov3-tiny"], precision=prec, device="cpu")
         net.set_params(params_np)
         out = tmodel.forward_compact(net.graph, net.params, x, precision=prec)
         res[prec] = batched_nms_compact(*out, prob_thresh=0.35, top_k=64)

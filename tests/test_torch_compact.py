@@ -159,7 +159,7 @@ def test_k1c_wrapper_rejects_what_the_kernel_does_not_take():
                                         (str(MODELS / "yolov3-tiny.cfg"), (160, 160))],
                          ids=["small@64", "tiny@160"])
 def test_detector_xla_route_matches_jax(cfg, net_hw):
-    net = Darknet(cfg, precision="highest")
+    net = Darknet(cfg, precision="highest", device="cpu")
     params = fold_raw(random_raw(net.graph, seed=12))
     net.set_params(params)
     frames = np.random.default_rng(4).integers(0, 256, (2, 90, 120, 3),
@@ -181,7 +181,7 @@ def test_detector_xla_route_matches_jax(cfg, net_hw):
 def test_compact_routes_same_detection_sets(cfg_paths):
     """forward_compact through the plain decode (cell-major) and through
     K1c (anchor-major) give the same detection sets after NMS."""
-    net = Darknet(cfg_paths["yolov3-tiny"])
+    net = Darknet(cfg_paths["yolov3-tiny"], device="cpu")
     net.set_params(fold_raw(random_raw(net.graph, seed=12)))
     x = torch.from_numpy(np.random.default_rng(5).uniform(
         0, 1, (2, 160, 160, 3)).astype(np.float32))

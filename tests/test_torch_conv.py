@@ -92,7 +92,7 @@ def test_forward_features_fused_conv_matches_jax(precision):
     jp = {k: {n: jnp.asarray(v) for n, v in p.items()} for k, p in params_np.items()}
     want = jmodel.forward_features(jload_graph(WIDE_CFG), jp, jnp.asarray(x),
                                    precision="highest", conv_impl="xla")
-    got = tmodel.forward_features(g, params_from_jax(params_np),
+    got = tmodel.forward_features(g, params_from_jax(params_np, device="cpu"),
                                   torch.from_numpy(x), precision=precision,
                                   conv_impl="pallas")
     assert len(got) == len(want) == 2

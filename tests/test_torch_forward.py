@@ -88,7 +88,7 @@ def test_forward_matches_jax(hw):
     x = np.random.default_rng(1).uniform(0, 1, (2, *hw, 3)).astype(np.float32)
     want = np.asarray(jmodel.forward(jload_graph(SMALL_CFG), _jparams(params_np),
                                      jnp.asarray(x), precision="highest"))
-    got = tmodel.forward(load_graph(SMALL_CFG), params_from_jax(params_np),
+    got = tmodel.forward(load_graph(SMALL_CFG), params_from_jax(params_np, device="cpu"),
                          torch.from_numpy(x), precision="highest").numpy()
     assert got.shape == want.shape
     _assert_float_lanes(got, want)
@@ -102,7 +102,7 @@ def test_darknet_call_returns_decoded_detections():
     x = np.random.default_rng(2).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
     want = np.asarray(jmodel.Darknet(SMALL_CFG, precision="highest")
                       .set_params(params_np)(jnp.asarray(x)))
-    net = tmodel.Darknet(SMALL_CFG, precision="highest").set_params(params_np)
+    net = tmodel.Darknet(SMALL_CFG, precision="highest", device="cpu").set_params(params_np)
     got = net(torch.from_numpy(x))
     assert isinstance(got, torch.Tensor)
     assert tuple(got.shape) == want.shape == (2, 3 * (8 * 8 + 16 * 16), 8)

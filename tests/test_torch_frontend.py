@@ -87,7 +87,7 @@ def test_weights_errors_kept(cfg_paths, tmp_path):
 def test_params_from_jax_layout(cfg_paths):
     g = tgraph.load_graph(cfg_paths["yolov3-tiny"])
     folded = tweights.fold_raw(tweights.random_raw(g, seed=2))
-    tp = tweights.params_from_jax(folded)
+    tp = tweights.params_from_jax(folded, device="cpu")
     for idx, p in folded.items():
         w = tp[idx]["w"]
         assert w.dtype == torch.float32 and w.is_contiguous(

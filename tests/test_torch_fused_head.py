@@ -71,7 +71,7 @@ def test_forward_packed_fused_matches_jax():
     want_p, _ = jmodel.forward_packed_fused(jload_graph(WIDE_CFG), jp,
                                             jnp.asarray(x), prob_thresh=0.2,
                                             precision="highest")
-    got_p, got_s = forward_packed_fused(g, params_from_jax(params_np),
+    got_p, got_s = forward_packed_fused(g, params_from_jax(params_np, device="cpu"),
                                         torch.from_numpy(x), prob_thresh=0.2,
                                         precision="highest")
     assert torch.equal(got_s, got_p[..., 4])
@@ -103,7 +103,7 @@ def test_detector_fused_route_matches_pallas_route(cfg_paths):
     """yolov3 at 128x128: "pallas-fused" (K4) against "pallas" (head conv
     then K1) — same counts and classes, scores and boxes within the fused
     projection's summation-order bars (the JAX package's e2e test)."""
-    net = Darknet(cfg_paths["yolov3"], precision="highest")
+    net = Darknet(cfg_paths["yolov3"], precision="highest", device="cpu")
     net.set_params(fold_raw(random_raw(net.graph, seed=13)))
     frames = np.random.default_rng(6).integers(0, 256, (2, 240, 320, 3),
                                                dtype=np.uint8)

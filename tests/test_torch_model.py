@@ -11,7 +11,8 @@ from yolov3_tpu import model as jmodel
 from yolov3_tpu.graph import load_graph as jload_graph
 from yolov3_tpu_torch import model as tmodel
 from yolov3_tpu_torch.graph import load_graph
-from yolov3_tpu_torch.weights import (fold_raw, params_from_jax, random_raw,
+from yolov3_tpu_torch.weights import (fold_raw, params_from_jax,
+                                      quant_state_from_jax, random_raw,
                                       write_weights)
 
 torch.set_num_threads(1)
@@ -33,7 +34,7 @@ def test_forward_features_matches_jax(hw):
         jload_graph(SMALL_CFG),
         {k: {n: jnp.asarray(v) for n, v in p.items()} for k, p in params_np.items()},
         jnp.asarray(x), precision="highest")
-    got = tmodel.forward_features(g, params_from_jax(params_np),
+    got = tmodel.forward_features(g, params_from_jax(params_np, device="cpu"),
                                   torch.from_numpy(x), precision="highest")
     assert len(got) == len(want) == 2
     for gh, wh in zip(got, want):
@@ -52,7 +53,7 @@ def test_forward_features_tiny_maxpool_padding(cfg_paths):
         jload_graph(cfg_paths["yolov3-tiny"]),
         {k: {n: jnp.asarray(v) for n, v in p.items()} for k, p in params_np.items()},
         jnp.asarray(x), precision="highest")
-    got = tmodel.forward_features(g, params_from_jax(params_np),
+    got = tmodel.forward_features(g, params_from_jax(params_np, device="cpu"),
                                   torch.from_numpy(x), precision="highest")
     for gh, wh in zip(got, want):
         np.testing.assert_allclose(gh.numpy(), np.asarray(wh),
@@ -64,8 +65,8 @@ def test_darknet_load_weights_equals_set_params(tmp_path):
     raw = random_raw(g, seed=6)
     path = tmp_path / "small.weights"
     write_weights(path, g, raw)
-    a = tmodel.Darknet(SMALL_CFG, precision="highest").load_weights(path)
-    b = tmodel.Darknet(SMALL_CFG, precision="highest").set_params(fold_raw(raw))
+    a = tmodel.Darknet(SMALL_CFG, precision="highest", device="cpu").load_weights(path)
+    b = tmodel.Darknet(SMALL_CFG, precision="highest", device="cpu").set_params(fold_raw(raw))
     for idx in a.params:
         for key in ("w", "b"):
             assert torch.equal(a.params[idx][key], b.params[idx][key])
@@ -76,8 +77,8 @@ def test_darknet_load_weights_equals_set_params(tmp_path):
 
 def test_darknet_errors():
     with pytest.raises(ValueError, match="precision"):
-        tmodel.Darknet(SMALL_CFG, precision="fp16")
-    net = tmodel.Darknet(SMALL_CFG)
+        tmodel.Darknet(SMALL_CFG, precision="fp16", device="cpu")
+    net = tmodel.Darknet(SMALL_CFG, device="cpu")
     with pytest.raises(RuntimeError, match="load_weights"):
         net(torch.zeros(1, 64, 64, 3))
     with pytest.raises(ValueError, match="missing"):
@@ -89,3 +90,16 @@ def test_cuda_device_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tmodel.Darknet(SMALL_CFG, device="cuda")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no ``device`` the net, and the weight converters beside it, go
+    to the card; without one they raise rather than land on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params_np = fold_raw(random_raw(load_graph(SMALL_CFG), seed=0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        tmodel.Darknet(SMALL_CFG)
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_jax(params_np)
+    with pytest.raises(RuntimeError, match="cuda"):
+        quant_state_from_jax({0: {"w": params_np[0]["w"], "b": params_np[0]["b"]}})

@@ -41,7 +41,7 @@ def _assert_same_detections(got, want):
     (str(MODELS / "yolov3-tiny.cfg"), (416, 416), (240, 320), 0.3),
 ], ids=["small@64", "tiny@416"])
 def test_detect_batch_matches_jax(cfg, net_hw, src_hw, prob):
-    net = Darknet(cfg, precision="highest")
+    net = Darknet(cfg, precision="highest", device="cpu")
     params = fold_raw(random_raw(net.graph, seed=12))
     net.set_params(params)
     frames = np.random.default_rng(3).integers(0, 256, (2, *src_hw, 3),
@@ -59,7 +59,7 @@ def test_golden_replay(fixture):
     """The JAX package's frozen detections, replayed through the port's
     Detector at precision="highest" and compared in net-input pixels."""
     golden = json.loads((DATA / fixture).read_text())
-    net = Darknet(MODELS / golden["cfg"], precision="highest")
+    net = Darknet(MODELS / golden["cfg"], precision="highest", device="cpu")
     net.set_params(fold_raw(random_raw(net.graph, seed=golden["seed"],
                                        scale=golden.get("scale", 1.0))))
     size = golden["net_size"]
@@ -80,7 +80,7 @@ def test_golden_replay(fixture):
 def test_cpu_path_launches_no_kernel():
     cuda_decode.decode_packed_head.launches = 0
     cuda_nms.suppress.launches = 0
-    net = Darknet(SMALL_CFG, precision="highest")
+    net = Darknet(SMALL_CFG, precision="highest", device="cpu")
     net.set_params(fold_raw(random_raw(net.graph, seed=1)))
     frames = np.zeros((2, 64, 64, 3), np.uint8)
     out = inference(net, frames, prob_thresh=0.05)
@@ -96,7 +96,7 @@ def test_cpu_routes_launch_no_kernel(decode_impl, precision):
     fused conv on, port_wide.cfg passes through every kernel's wrapper."""
     for k in KERNELS:
         k.launches = 0
-    net = Darknet(WIDE_CFG, precision=precision, conv_impl="pallas")
+    net = Darknet(WIDE_CFG, precision=precision, conv_impl="pallas", device="cpu")
     net.set_params(fold_raw(random_raw(net.graph, seed=1)))
     det = Detector(net, prob_thresh=0.2, decode_impl=decode_impl)
     assert det.route == decode_impl
@@ -116,8 +116,8 @@ def test_build_hashes_every_source_and_header():
 
 
 def test_detector_validation():
-    net = Darknet(SMALL_CFG).set_params(
-        fold_raw(random_raw(Darknet(SMALL_CFG).graph, seed=1)))
+    net = Darknet(SMALL_CFG, device="cpu").set_params(
+        fold_raw(random_raw(Darknet(SMALL_CFG, device="cpu").graph, seed=1)))
     for kw, match in [({"top_k": 0}, "top_k"), ({"select_group": 1}, "select_group"),
                       ({"net_hw": (60, 64)}, "multiples"),
                       ({"prob_thresh": 1.0}, "prob_thresh"),
@@ -137,7 +137,7 @@ def test_detector_device(monkeypatch):
     """The Detector runs where the net's weights are: a different device is
     an error (weights are not moved behind the caller's back), and CUDA
     without a card raises instead of running on the CPU."""
-    net = Darknet(SMALL_CFG)
+    net = Darknet(SMALL_CFG, device="cpu")
     assert Detector(net, device="cpu").device == torch.device("cpu")
     with pytest.raises(ValueError, match="live on cpu"):
         Detector(net, device="meta")

@@ -11,7 +11,12 @@ Port of ``yolov3_tpu/inference.py`` (``Detection``, ``Detector.detect_batch``
    ``"pallas-fused"`` ``model.forward_packed_fused``, the walk up to the
    pre-head activations then K4 (head convs inside the decode kernel);
    ``"xla"`` ``model.forward_compact``, the plain-tensor compact decode;
-   the net's ``conv_impl`` picks cuDNN or K5 for the eligible convs;
+   the net's ``conv_impl`` picks cuDNN or K5 for the eligible convs. A
+   quantized net (``Darknet.quantize_int8`` / ``load_quantized``) runs the
+   int8 tier's walk instead (``quant.forward_packed_int8``,
+   ``forward_packed_fused_int8``, ``forward_compact_int8``), with
+   ``block_impl="pallas"`` sending its eligible residual blocks through the
+   fused kernel K6;
 4. ``ops.nms.batched_nms_packed`` (the packed routes) or
    ``batched_nms_compact`` (the compact route): selection, K2 (suppression
    kernel), compaction to ``max_results``;
@@ -19,8 +24,11 @@ Port of ``yolov3_tpu/inference.py`` (``Detection``, ``Detector.detect_batch``
    pixels on the host.
 
 The route gates are the JAX package's graph-shape rules: "pallas-fused" on
-a graph that ``fused_heads_eligible`` refuses runs "pallas", and heads with
-more than 4 anchors run "xla", each with the JAX package's warning. They are
+a graph that ``fused_heads_eligible`` refuses, or on a net quantized with
+the bf16 carrier, runs "pallas", and heads with more than 4 anchors run
+"xla", each with the JAX package's warning; ``block_impl="pallas"`` on a
+net with nonzero zero-points (the asymmetric scheme) runs its blocks
+unfused, with a warning. The multi-device routes wait for ``parallel/``. They are
 not a fallback from a failing kernel: a kernel that cannot build or launch
 raises.
 
@@ -50,17 +58,22 @@ log = logging.getLogger("yolov3_tpu_torch")
 
 RESIZE_MODES = ("letterbox", "stretch")
 DECODE_IMPLS = ("pallas", "pallas-fused", "xla")
+BLOCK_IMPLS = ("xla", "pallas")
 
 
-def decode_route(graph, decode_impl: str) -> str:
+def decode_route(graph, decode_impl: str, q_ok: bool = True) -> str:
     """The route a Detector runs for ``decode_impl`` on ``graph``, by the
-    JAX package's gates (``yolov3_tpu/inference.py``), with its warnings."""
+    JAX package's gates (``yolov3_tpu/inference.py``), with its warnings.
+    ``q_ok`` is False for a net quantized with the bf16 carrier, whose walk
+    has no head-fused form."""
     if decode_impl not in DECODE_IMPLS:
         raise ValueError(f"decode_impl must be one of {DECODE_IMPLS}, got "
                          f"{decode_impl!r}")
-    if decode_impl == "pallas-fused" and not fused_heads_eligible(graph):
+    if decode_impl == "pallas-fused" and not (
+            q_ok and fused_heads_eligible(graph)):
         log.warning("head-fused decode not applicable here (%s); "
-                    "falling back to decode_impl='pallas'", "graph shape")
+                    "falling back to decode_impl='pallas'",
+                    "bf16-carrier int8" if not q_ok else "graph shape")
         decode_impl = "pallas"
     if (decode_impl in ("pallas", "pallas-fused")
             and not packed_decode_supported([n.anchors for n in graph.yolo_nodes])):
@@ -84,7 +97,9 @@ class Detector:
     on the net's device. ``device``, when given, must be that device (the
     Detector does not move weights); asking for CUDA without a card
     raises. ``decode_impl`` picks the route (module docstring); the route
-    actually run is ``self.route``."""
+    actually run is ``self.route``. ``block_impl="pallas"`` runs a quantized
+    net's eligible residual blocks through K6 (no effect on a float net or
+    on the bf16-carrier walk)."""
 
     def __init__(self, net: Darknet, prob_thresh: float = 0.05,
                  iou_thresh: float = 0.3, resize_mode: str = "letterbox",
@@ -92,7 +107,7 @@ class Detector:
                  net_hw: Optional[Tuple[int, int]] = None,
                  max_results: int = 128, select_group: int = 2,
                  device: Union[str, torch.device, None] = None,
-                 decode_impl: str = "pallas"):
+                 decode_impl: str = "pallas", block_impl: str = "xla"):
         self.device = net.device
         if device is not None and resolve_device(device) != self.device:
             raise ValueError(f"the net's weights live on {self.device}, not "
@@ -127,13 +142,35 @@ class Detector:
         if not 0.0 <= self.iou_thresh <= 1.0:
             raise ValueError(f"iou_thresh must be in [0, 1], got "
                              f"{iou_thresh}")
+        if block_impl not in BLOCK_IMPLS:
+            raise ValueError(f"unknown block_impl {block_impl!r} "
+                             "(expected 'xla' or 'pallas')")
+        self.block_impl = block_impl
         self.decode_impl = decode_impl
-        self.route = decode_route(net.graph, decode_impl)
+        # the gates depend on the quantization state, which may change
+        # after construction: resolved (and warned about) once per state
+        self._route_state: object = self
+        self._resolve_route()
         self._interp: Dict[Tuple[int, int], Interp] = {}
         # per-call stage split (seconds) of the last detect_batch:
         # h2d_s (host→device copy of the frames), enqueue_s (the device work
         # queued, not finished), device_fetch_s (wait + the one D2H copy)
         self.last_stage_s: Optional[Dict[str, float]] = None
+
+    def _resolve_route(self) -> str:
+        """``self.route`` for the net's current quantization state."""
+        net = self.net
+        state = net.qparams
+        if state is not self._route_state:
+            self._route_state = state
+            q_ok = not net.quantized or net.qcarrier == "int8"
+            self.route = decode_route(net.graph, self.decode_impl, q_ok)
+            if (net.quantized and self.block_impl == "pallas"
+                    and net.act_zeros and any(net.act_zeros.values())):
+                log.warning("fused residual blocks implement the symmetric "
+                            "quantization contract only; asymmetric "
+                            "activations fall back to block_impl='xla'")
+        return self.route
 
     def _interp_for(self, src_hw: Tuple[int, int]) -> Interp:
         """Interpolation matrices for one source shape, built once."""
@@ -154,8 +191,11 @@ class Detector:
         x = preprocess(frames, self.net_hw, mode=self.resize_mode,
                        interp=self._interp_for(src_hw))
         net = self.net
+        decode = self._resolve_route()
+        if net.quantized:
+            return pack_results(self._run_quantized(x, decode))
         route = dict(precision=net.precision, conv_impl=net.conv_impl)
-        if self.route == "xla":
+        if decode == "xla":
             boxes, scores, classes = forward_compact(net.graph, net.params, x,
                                                      **route)
             res = batched_nms_compact(boxes, scores, classes,
@@ -165,7 +205,7 @@ class Detector:
                                       max_results=self.max_results,
                                       select_group=self.select_group)
         else:
-            fwd = (forward_packed_fused if self.route == "pallas-fused"
+            fwd = (forward_packed_fused if decode == "pallas-fused"
                    else forward_packed)
             payload, scores = fwd(net.graph, net.params, x,
                                   prob_thresh=self.prob_thresh, **route)
@@ -175,6 +215,31 @@ class Detector:
                                      max_results=self.max_results,
                                      select_group=self.select_group)
         return pack_results(res)
+
+    def _run_quantized(self, x: torch.Tensor, decode: str):
+        """The int8 tier: the quantized walk of the net's carrier, then the
+        decode and NMS of the route."""
+        from .quant import (forward_compact_int8, forward_packed_fused_int8,
+                            forward_packed_int8)
+
+        net = self.net
+        kw = dict(precision=net.precision or "bf16", carrier=net.qcarrier,
+                  block_impl=self.block_impl, zeros=net.act_zeros,
+                  operands=net.qoperands)
+        nms = dict(iou_thresh=self.iou_thresh, top_k=self.top_k,
+                   max_results=self.max_results,
+                   select_group=self.select_group)
+        if decode == "xla":
+            boxes, scores, classes = forward_compact_int8(
+                net.graph, net.qparams, net.act_scales, x, decode_impl="xla",
+                **kw)
+            return batched_nms_compact(boxes, scores, classes,
+                                       prob_thresh=self.prob_thresh, **nms)
+        fwd = (forward_packed_fused_int8 if decode == "pallas-fused"
+               else forward_packed_int8)
+        payload, scores = fwd(net.graph, net.qparams, net.act_scales, x,
+                              prob_thresh=self.prob_thresh, **kw)
+        return batched_nms_packed(payload, scores, **nms)
 
     def _stage(self, frames: np.ndarray) -> torch.Tensor:
         if frames.dtype != np.uint8:

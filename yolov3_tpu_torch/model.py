@@ -1,7 +1,9 @@
 """Forward passes over the lowered graph, and the ``Darknet`` module.
 
 Port of ``yolov3_tpu/model.py`` (float tiers ``"highest"``, ``None`` and
-``"bf16"``). The lowered :class:`~yolov3_tpu_torch.graph.Graph` is walked by
+``"bf16"``; the int8 tier's walks live in ``quant.py`` and ``Darknet``
+carries their state: ``quantize_int8``, ``save_quantized``,
+``load_quantized``). The lowered :class:`~yolov3_tpu_torch.graph.Graph` is walked by
 a plain function:
 
 * convs are ``F.conv2d`` (cuDNN on the card) on NCHW tensors in
@@ -44,10 +46,12 @@ import torch.nn.functional as F
 from .graph import Graph, Node, load_graph
 from .ops import cuda_conv
 from .ops import decode as plain_decode
-from .ops.cuda_decode import (decode_compact, decode_packed,
+from .ops.cuda_decode import (decode_all, decode_compact, decode_packed,
                               decode_packed_fused, fused_head_supported)
 from .precision import tf32
-from .weights import Params, TorchParams, load_weights, params_from_jax
+from .weights import (Params, TorchParams, load_weights, param_count,
+                      params_from_jax, quant_state_from_jax,
+                      resolve_device)
 
 PRECISIONS = (None, "highest", "bf16")
 CONV_IMPLS = ("xla", "pallas")
@@ -59,19 +63,6 @@ def _check_route(precision: Optional[str], conv_impl: str) -> None:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
-
-
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``device`` as a torch.device with an explicit CUDA index; raises for
-    CUDA when there is no card (no silent fall back to the CPU)."""
-    dev = torch.device(device if device is not None else "cpu")
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but "
-                               "torch.cuda.is_available() is False")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _activate(y: torch.Tensor, activation: str) -> torch.Tensor:
@@ -169,10 +160,10 @@ def forward(graph: Graph, params: TorchParams, x: torch.Tensor,
     """Full decoded forward: (B, H, W, C) → (B, N, 5+C) net-pixel
     detections, the reference ``Darknet.forward`` contract: center-xywh in
     net-input pixels, sigmoid objectness and class scores, cell-major within
-    a head, heads in cfg order. The maps widen to float32 before decoding."""
-    heads = [h.float() for h in forward_features(graph, params, x, precision,
-                                                 conv_impl)]
-    return plain_decode.decode_all(heads, *_head_spec(graph))
+    a head, heads in cfg order. The full decode is K3 (``ops.cuda_decode.
+    decode_all``); the maps widen to float32 before any math."""
+    heads = forward_features(graph, params, x, precision, conv_impl)
+    return decode_all(heads, *_head_spec(graph))
 
 
 def forward_compact(graph: Graph, params: TorchParams, x: torch.Tensor,
@@ -269,7 +260,10 @@ class Darknet(nn.Module):
     ``weights.fold_raw``); calling it on an NHWC batch returns the decoded
     (B, N, 5+C) tensor of :func:`forward`. Weights are buffers, so
     ``.to(device)`` moves them; they are bfloat16 at precision "bf16" and
-    float32 otherwise unless ``param_dtype`` says."""
+    float32 otherwise unless ``param_dtype`` says. ``device=None`` is the
+    card (it raises when there is none); the CPU has to be asked for, and
+    everything made from the net (``quantize_int8``, ``load_quantized``,
+    ``set_quantized``, a ``Detector``) lives where the net does."""
 
     def __init__(self, cfg_path: Union[str, Path], precision: Optional[str] = None,
                  device: Union[str, torch.device, None] = None,
@@ -285,6 +279,12 @@ class Darknet(nn.Module):
         self.param_dtype = param_dtype
         self._device = resolve_device(device)
         self._loaded = False
+        # the int8 tier's state (quantize_int8 / load_quantized)
+        self.qparams = None
+        self.act_scales: Optional[Dict[int, float]] = None
+        self.act_zeros: Optional[Dict[int, int]] = None  # asymmetric scheme
+        self.qcarrier = "int8"  # activation carrier of the int8 path
+        self._qoperands = None
 
     @property
     def device(self) -> torch.device:
@@ -326,3 +326,195 @@ class Darknet(nn.Module):
             raise RuntimeError("call load_weights()/set_params() first")
         return forward(self.graph, self.params, x, self.precision,
                        self.conv_impl)
+
+    # ------------------------------------------------------ the int8 tier
+
+    @property
+    def quantized(self) -> bool:
+        return self.qparams is not None
+
+    @property
+    def qoperands(self):
+        """The run-time operands of the current ``qparams``
+        (``quant.Operands``), rebuilt when the quantization state changes."""
+        from .quant import Operands
+
+        if self._qoperands is None or self._qoperands.qparams is not self.qparams:
+            self._qoperands = Operands(self.qparams)
+        return self._qoperands
+
+    @torch.inference_mode()
+    def quantize_int8(self, calibration_frames, net_hw=None,
+                      mode: str = "letterbox", carrier: str = "int8",
+                      quantize_heads: bool = False,
+                      quantize_stem: bool = False,
+                      calib_method: str = "absmax",
+                      calib_percentile: float = 99.9,
+                      bias_correct: bool = True,
+                      act_scheme: str = "symmetric") -> "Darknet":
+        """Post-training int8 quantization (``quant.py``).
+
+        ``calibration_frames``: (N, H, W, 3) uint8 RGB frames, or a list of
+        frames of different sizes; they are preprocessed to the net input
+        size as the serving path does and calibrate the activation scales.
+        ``carrier="int8"`` (default) keeps activations int8 BETWEEN ops
+        (``quant.forward_features_int8_carrier``); ``carrier="bf16"``
+        quantizes at each conv input. ``quantize_heads`` also quantizes the
+        no-BN head projections, ``quantize_stem`` the Cin=3 stem conv through
+        the exact-u8 input scheme (``quant.eligible``). ``calib_method``:
+        ``"absmax"`` or ``"percentile"`` with ``calib_percentile``
+        (``quant._make_stat_fn``). ``bias_correct`` folds the expected
+        per-channel pre-activation shift of the rounding, measured on the
+        same batches, into each quantized conv's bias
+        (``quant.bias_correct``). ``act_scheme="asymmetric"`` (int8 carrier
+        only) gives every tensor a zero-point
+        (``quant.calibrate_tensors_affine``); ``calib_method`` then maps to
+        the affine calibrator: absmax → the exact min/max range, percentile
+        → the two-sided (100−q, q) range."""
+        import numpy as np
+
+        from .ops.preprocess import preprocess
+        from .quant import (bias_correct as _bias_correct, calibrate,
+                            calibrate_tensors, calibrate_tensors_affine,
+                            quantize_weights)
+
+        if not self._loaded:
+            raise RuntimeError("load_weights() before quantize_int8()")
+        net_hw = tuple(net_hw) if net_hw else self.net_size
+        if len(calibration_frames) == 0:
+            # an empty calibration set would produce an empty scale dict
+            # that breaks every later detect with a KeyError
+            raise ValueError("quantize_int8 needs at least one calibration "
+                             "frame (a few dozen representative images)")
+
+        def _u8(f) -> torch.Tensor:
+            # same contract as the detect entry points: a float frame is a
+            # different image, not an error, without this check
+            a = np.ascontiguousarray(f)
+            if a.dtype != np.uint8:
+                raise TypeError(f"calibration frames must be uint8 (got "
+                                f"{a.dtype}); pass raw cv2/camera frames")
+            return torch.from_numpy(a).to(self.device)
+
+        if isinstance(calibration_frames, (list, tuple)):
+            # variable-size calibration images: preprocess each on its own
+            batches = [preprocess(_u8(f)[None], net_hw, mode=mode)
+                       for f in calibration_frames]
+        else:
+            frames = _u8(calibration_frames)
+            batches = [preprocess(frames[i:i + 8], net_hw, mode=mode)
+                       for i in range(0, frames.shape[0], 8)]
+        if act_scheme not in ("symmetric", "asymmetric"):
+            raise ValueError(f"unknown act_scheme {act_scheme!r} "
+                             "(expected 'symmetric' or 'asymmetric')")
+        if act_scheme == "asymmetric" and carrier != "int8":
+            raise ValueError("act_scheme='asymmetric' needs the int8 "
+                             "activation carrier (carrier='int8')")
+        precision = self.precision or "bf16"
+        self.act_zeros = None
+        if act_scheme == "asymmetric":
+            self.act_scales, self.act_zeros = calibrate_tensors_affine(
+                self.graph, self.params, batches, precision=precision,
+                method={"absmax": "minmax"}.get(calib_method, calib_method),
+                percentile=calib_percentile)
+        elif carrier == "int8":
+            self.act_scales = calibrate_tensors(
+                self.graph, self.params, batches, precision=precision,
+                method=calib_method, percentile=calib_percentile)
+        else:
+            self.act_scales = calibrate(
+                self.graph, self.params, batches, precision=precision,
+                include_heads=quantize_heads, method=calib_method,
+                percentile=calib_percentile)
+        self.qcarrier = carrier
+        self.qparams = quantize_weights(self.graph, self.params,
+                                        include_heads=quantize_heads,
+                                        include_stem=quantize_stem)
+        if bias_correct:
+            self.qparams = _bias_correct(
+                self.graph, self.params, self.qparams, self.act_scales,
+                batches, carrier=carrier, precision=precision,
+                zeros=self.act_zeros)
+        return self
+
+    def set_quantized(self, qparams_np, act_scales, act_zeros=None,
+                      carrier: str = "int8") -> "Darknet":
+        """Install a quantization state given as numpy arrays in the JAX
+        package's form (``weights.quant_state_from_jax``), on this net's
+        device."""
+        self.qparams = quant_state_from_jax(qparams_np, self.device)
+        self.act_scales = {int(i): float(s) for i, s in act_scales.items()}
+        self.act_zeros = (None if act_zeros is None else
+                          {int(i): int(z) for i, z in act_zeros.items()})
+        self.qcarrier = carrier
+        return self
+
+    def save_quantized(self, path) -> "Darknet":
+        """Persist the int8 quantization state (qparams + activation scales
+        + carrier) as one npz, so a serving restart skips calibration
+        (:meth:`load_quantized`). The file has the JAX package's keys and
+        layout (``wq`` / ``w`` HWIO, ``__meta__.*``, bfloat16 as tagged
+        uint16 bits), so either package loads the other's. It is keyed to
+        the architecture (graph name + param count), not to the weight
+        file: qparams fully determine the int8 forward."""
+        import numpy as np
+
+        if not self.quantized:
+            raise RuntimeError("quantize_int8() before save_quantized()")
+        flat = {
+            "__meta__.graph": np.asarray(self.graph.name),
+            "__meta__.nparams": np.asarray(param_count(self.graph)),
+            "__meta__.carrier": np.asarray(self.qcarrier),
+            "__meta__.scale_idx": np.asarray(sorted(self.act_scales), np.int64),
+            "__meta__.scale_val": np.asarray(
+                [self.act_scales[i] for i in sorted(self.act_scales)],
+                np.float64),
+        }
+        if self.act_zeros is not None:  # asymmetric activation scheme
+            flat["__meta__.zero_idx"] = np.asarray(sorted(self.act_zeros),
+                                                   np.int64)
+            flat["__meta__.zero_val"] = np.asarray(
+                [self.act_zeros[i] for i in sorted(self.act_zeros)], np.int64)
+        for i, qp in self.qparams.items():
+            for name, t in qp.items():
+                t = t.detach().cpu().contiguous()
+                if t.dtype == torch.bfloat16:
+                    # numpy has no bfloat16: persist the raw bits with a
+                    # dtype tag (exact round trip)
+                    flat[f"{i}.{name}:bf16"] = t.view(torch.int16).numpy().view(
+                        np.uint16)
+                else:
+                    flat[f"{i}.{name}"] = t.numpy()
+        path = Path(path)
+        tmp = path.with_suffix(path.suffix + ".tmp")
+        with open(tmp, "wb") as f:  # a file handle: savez appends no .npz
+            np.savez(f, **flat)
+        tmp.replace(path)
+        return self
+
+    def load_quantized(self, path) -> "Darknet":
+        """Restore a quantization state saved by :meth:`save_quantized` of
+        either package. Validates the architecture key (graph name + param
+        count), so a state file of another cfg fails loudly."""
+        import numpy as np
+
+        with np.load(path) as z:
+            name = str(z["__meta__.graph"])
+            nparams = int(z["__meta__.nparams"])
+            if (name, nparams) != (self.graph.name, param_count(self.graph)):
+                raise ValueError(
+                    f"quantized state {path} was saved for graph "
+                    f"{name!r} ({nparams} params); this net is "
+                    f"{self.graph.name!r} ({param_count(self.graph)})")
+            carrier = str(z["__meta__.carrier"])
+            scales = dict(zip(z["__meta__.scale_idx"], z["__meta__.scale_val"]))
+            zeros = None
+            if "__meta__.zero_idx" in z.files:
+                zeros = dict(zip(z["__meta__.zero_idx"], z["__meta__.zero_val"]))
+            qparams_np: Dict[int, Dict[str, object]] = {}
+            for file in z.files:
+                if file.startswith("__meta__"):
+                    continue
+                i, field = file.split(".", 1)
+                qparams_np.setdefault(int(i), {})[field] = z[file]
+        return self.set_quantized(qparams_np, scales, zeros, carrier)

@@ -24,8 +24,8 @@ from pathlib import Path
 from typing import Optional, Union
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("decode_packed.cu", "decode_fused.cu", "conv3x3.cu",
-           "nms_suppress.cu")
+SOURCES = ("decode_packed.cu", "decode_fused.cu", "decode_full.cu",
+           "conv3x3.cu", "block_int8.cu", "nms_suppress.cu")
 HEADERS = ("decode_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -117,9 +117,15 @@ def load_kernels() -> ctypes.CDLL:
     lib.yolo_conv3x3_fused.argtypes = [
         p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, p, p]
     lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p]
+    lib.yolo_decode_full_head.argtypes = [
+        p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, p, p]
+    lib.yolo_residual_block_int8.argtypes = [
+        p, p, p, p, p, p, p, i32, i32, i32, i32, i32, f32, f32, f32, f32, f32,
+        i32, p, p]
     for fn in (lib.yolo_decode_packed_head, lib.yolo_decode_compact_head,
                lib.yolo_decode_packed_fused_head, lib.yolo_conv3x3_fused,
-               lib.yolo_nms_suppress):
+               lib.yolo_nms_suppress, lib.yolo_decode_full_head,
+               lib.yolo_residual_block_int8):
         fn.restype = i32
     return lib
 

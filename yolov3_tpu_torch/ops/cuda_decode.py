@@ -1,4 +1,4 @@
-"""K1, K1c, K4: YOLO head decode kernels — CUDA wrappers and plain versions.
+"""K1, K1c, K3, K4: YOLO head decode kernels — CUDA wrappers and plain versions.
 
 Ports of ``yolov3_tpu/ops/pallas_decode.py``:
 
@@ -20,8 +20,13 @@ Ports of ``yolov3_tpu/ops/pallas_decode.py``:
   records computed from the PRE-head activation (B, gy, gx, Cin) and the 1×1
   head conv's weights (Cout, Cin) + bias, float32 accumulation; the head
   map never reaches device memory. ``forward_packed_fused``.
+* K3 ``decode_head`` (``decode_head_pallas``): the full decode, one head map
+  → the reference ``Darknet.forward`` tensor (B, gy·gx·A, 5+C), cell-major
+  (``csrc/decode_full.cu``; plain version ``ops.decode.decode_head``).
+  ``model.forward``.
 
-All three share one decode body (``csrc/decode_common.cuh``). For a CUDA
+K1, K1c and K4 share one decode body (``csrc/decode_common.cuh``), and K3
+takes its sigmoid, clamp and exp from the same header. For a CUDA
 tensor each wrapper launches its kernel on the current stream (counted in
 ``<wrapper>.launches``) or raises; for a CPU tensor, and only then, it runs
 its plain PyTorch version (``*_reference``), which the CPU tests and
@@ -37,6 +42,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..precision import tf32
+from . import decode as plain_decode
 from ._build import check_launch, load_kernels
 
 Anchors = Sequence[Tuple[float, float]]
@@ -412,3 +418,49 @@ def decode_packed_fused(pre_heads: Sequence[torch.Tensor],
                                  out=payload)
         off += n
     return payload, payload[..., 4]
+
+
+# ---------------------------------------------------------------- K3
+
+
+def decode_head(feat: torch.Tensor, anchors: Anchors, stride: int,
+                num_classes: int) -> torch.Tensor:
+    """K3: one head's NHWC map (B, gy, gx, ≥A·(5+C)), float32 or bf16 →
+    (B, gy·gx·A, 5+C) float32: center-xywh boxes in net pixels, sigmoid
+    objectness and classes, cell-major (``cell·A + anchor``). The map
+    widens to float32 before any math.
+
+    CUDA tensor: launches the K3 kernel on the current stream (counted in
+    ``decode_head.launches``) or raises. CPU tensor: the plain version
+    (``ops.decode.decode_head`` on the float32 map)."""
+    _check_head(feat, anchors, num_classes)
+    if _check_device(feat, "K3"):
+        return plain_decode.decode_head(feat.float(), anchors, stride,
+                                        num_classes)
+    b, gy, gx, _ = feat.shape
+    a, per = len(anchors), 5 + num_classes
+    out = torch.empty((b, gy * gx * a, per), dtype=torch.float32,
+                      device=feat.device)
+    _check_kernel_io(feat, [out], a, "K3")
+    lib = load_kernels()
+    with torch.cuda.device(feat.device):
+        rc = lib.yolo_decode_full_head(
+            feat.data_ptr(), feat.stride(0), feat.stride(1), feat.stride(2),
+            int(feat.dtype == torch.bfloat16), b, gy, gx, a, num_classes,
+            _anchors_c(anchors), float(stride), out.data_ptr(),
+            _stream(feat.device))
+    check_launch(rc, "decode_head")
+    decode_head.launches += 1
+    return out
+
+
+decode_head.launches = 0
+
+
+def decode_all(feats: Sequence[torch.Tensor],
+               anchors_per_head: Sequence[Anchors], strides: Sequence[int],
+               num_classes: int) -> torch.Tensor:
+    """K3 over every head, concatenated → (B, N, 5+C) (reference layout)."""
+    return torch.cat([decode_head(f, a, s, num_classes)
+                      for f, a, s in zip(feats, anchors_per_head, strides)],
+                     dim=1)

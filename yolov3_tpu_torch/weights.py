@@ -37,6 +37,21 @@ BN_EPS = 1e-5
 RawConv = Dict[str, np.ndarray]  # keys: weight(OIHW), bias | bn_beta/bn_gamma/bn_mean/bn_var
 Params = Dict[int, Dict[str, np.ndarray]]  # folded: {layer_index: {"w": HWIO, "b": (C,)}}
 TorchParams = Dict[int, Dict[str, torch.Tensor]]  # {layer_index: {"w": OIHW, "b": (C,)}}
+Device = Union[str, torch.device, None]  # None: the card
+
+
+def resolve_device(device: Device) -> torch.device:
+    """``device`` as a torch.device with an explicit CUDA index. ``None``
+    means the card: the port runs on CUDA unless the caller asks for the
+    CPU, and raises when there is no card (no silent fall back)."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but "
+                               "torch.cuda.is_available() is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _conv_in_channels(graph: Graph, node: Node) -> int:
@@ -181,8 +196,8 @@ def param_count(graph: Graph) -> int:
     return total
 
 
-def params_from_jax(params_np: Params, device: Union[str, torch.device] = "cpu"
-                    ) -> TorchParams:
+def params_from_jax(params_np: Params,
+                    device: Device = None) -> TorchParams:
     """Folded ``{idx: {"w": HWIO, "b": (C,)}}`` numpy params (the JAX
     package's form, and what :func:`load_weights` returns) → the port's
     ``{idx: {"w": OIHW, "b": (C,)}}`` float32 tensors on ``device``.
@@ -190,6 +205,7 @@ def params_from_jax(params_np: Params, device: Union[str, torch.device] = "cpu"
     The weights are stored ``channels_last`` so cuDNN picks its NHWC kernels
     for the channels_last activations of ``model.forward_features``; the
     values are the same bits either way."""
+    device = resolve_device(device)
     out: TorchParams = {}
     for idx, p in params_np.items():
         w = torch.from_numpy(np.ascontiguousarray(
@@ -198,4 +214,31 @@ def params_from_jax(params_np: Params, device: Union[str, torch.device] = "cpu"
             "w": w.to(device=device, memory_format=torch.channels_last),
             "b": torch.from_numpy(np.asarray(p["b"], np.float32).copy()).to(device),
         }
+    return out
+
+
+def quant_state_from_jax(qparams_np, device: Device = None
+                         ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """A quantization state's ``qparams`` as numpy arrays in the JAX
+    package's form (``{idx: {"wq" int8 HWIO, "sw", "b"}}`` or ``{"w" HWIO,
+    "b"}``) → the same dict of tensors on ``device``; the layout does not
+    change. bfloat16 arrives either as an ``ml_dtypes`` bfloat16 array or as
+    the state file's tagged raw bits (a ``"w:bf16"`` uint16 field)."""
+    device = resolve_device(device)
+    out: Dict[int, Dict[str, torch.Tensor]] = {}
+    for idx, qp in qparams_np.items():
+        fields: Dict[str, torch.Tensor] = {}
+        for name, a in qp.items():
+            a = np.asarray(a)
+            if name.endswith(":bf16"):
+                name = name[:-len(":bf16")]
+                a = a.view(np.uint16)
+            elif a.dtype.name == "bfloat16":
+                a = a.view(np.uint16)
+            else:
+                fields[name] = torch.from_numpy(np.array(a)).to(device)
+                continue
+            bits = torch.from_numpy(np.array(a).view(np.int16))
+            fields[name] = bits.view(torch.bfloat16).to(device)
+        out[int(idx)] = fields
     return out

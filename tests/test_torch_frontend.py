@@ -114,15 +114,99 @@ def test_letterbox_geometry_and_unletterbox_match():
                         jboxes.unstretch_tlbr(boxes, src, net, clip))
 
 
+UTILS_COPIES = ("drawing", "export", "profiling", "video")
+
+
+@pytest.mark.parametrize("name", UTILS_COPIES)
+def test_utils_copies_equal_their_originals(name):
+    """``utils/{drawing,export,profiling,video}.py`` are copies (numpy, cv2
+    and threads only): every public function and class has the original's
+    source, line for line."""
+    import importlib
+    import inspect
+
+    t = importlib.import_module(f"yolov3_tpu_torch.utils.{name}")
+    j = importlib.import_module(f"yolov3_tpu.utils.{name}")
+
+    def public(mod):
+        return {n: inspect.getsource(o) for n, o in vars(mod).items()
+                if not n.startswith("_") and getattr(o, "__module__", None)
+                == mod.__name__}
+
+    got, want = public(t), public(j)
+    assert got.keys() == want.keys() and got
+    for n in want:
+        assert got[n] == want[n], n
+
+
+def test_utils_copies_behave_alike(tmp_path):
+    from yolov3_tpu.inference import Detection as JDetection
+    from yolov3_tpu.utils import drawing as jdrawing
+    from yolov3_tpu.utils import export as jexport
+    from yolov3_tpu_torch.inference import Detection
+    from yolov3_tpu_torch.utils import drawing, export, profiling
+
+    fields = dict(bbox_tlbr=np.array([[3.0, 4.0, 40.5, 30.25],
+                                      [10.0, 12.0, 60.0, 50.0]], np.float32),
+                  class_prob=np.array([0.912345, 0.5], np.float32),
+                  class_idx=np.array([2, 0], np.int32))
+    names = ["a", "b", "c"]
+    assert export.to_coco_dicts({"x.png": Detection(**fields)}, names) == \
+        jexport.to_coco_dicts({"x.png": JDetection(**fields)}, names)
+    assert export.save_detections_json(tmp_path / "d.json",
+                                       {"x.png": Detection(**fields)}) == 2
+    frame = np.full((64, 80, 3), 90, np.uint8)
+    other = frame.copy()
+    drawing.draw_boxes(frame, Detection(**fields), class_names=names)
+    jdrawing.draw_boxes(other, JDetection(**fields), class_names=names)
+    np.testing.assert_array_equal(frame, other)
+    assert (frame != 90).any()
+    (tmp_path / "n.names").write_text("cat\ndog\n")
+    assert drawing.load_class_names(tmp_path / "n.names") == \
+        jdrawing.load_class_names(tmp_path / "n.names") == ["cat", "dog"]
+    timers = profiling.StageTimers()
+    with timers.stage("a"):
+        pass
+    assert "a" in timers.totals and "a" in timers.report()
+
+
+def test_preprocess_host_equals_jax(cfg_paths):
+    from yolov3_tpu.ops.preprocess import preprocess_host as jhost
+    from yolov3_tpu_torch.ops.preprocess import preprocess, preprocess_host
+
+    frames = np.random.default_rng(4).integers(0, 256, (2, 90, 120, 3),
+                                               dtype=np.uint8)
+    for mode in ("letterbox", "stretch"):
+        got = preprocess_host(frames, (64, 96), mode=mode)
+        np.testing.assert_array_equal(got, jhost(frames, (64, 96), mode=mode))
+        dev = preprocess(torch.from_numpy(frames), (64, 96), mode=mode).numpy()
+        # the host oracle against the device path: cv2's fixed-point
+        # bilinear weights against float32 ones, under one uint8 step
+        assert np.abs(got - dev).max() <= 1.0 / 255.0
+    with pytest.raises(ValueError, match="unknown preprocess mode"):
+        preprocess_host(frames, (64, 96), mode="crop")
+    assert preprocess_host(frames[0], (64, 96)).shape == (1, 64, 96, 3)
+
+
 def test_import_leaves_jax_out():
-    """``import yolov3_tpu_torch`` (and every module of the port) pulls in
-    no jax — checked in a fresh interpreter, since this process has jax."""
+    """``import yolov3_tpu_torch`` (and every module of the port: the CLI,
+    the server, the native binding, the tools) pulls in no jax, nothing of
+    the JAX package or the repository's ``tools/``, and no cv2 — checked in
+    a fresh interpreter, since this process has them."""
     code = ("import sys, pkgutil, importlib, yolov3_tpu_torch as p\n"
-            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-            "    importlib.import_module(m.name)\n"
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')]\n"
+            "for n in names:\n"
+            "    importlib.import_module(n)\n"
+            "want = ['__main__', 'serve', 'native', 'ops.cuda_probe', "
+            "'tools.probe_block', 'tools.bench_int8_dot', 'tools.bench_dot', "
+            "'tools.clock', 'utils.drawing', 'utils.export', "
+            "'utils.profiling', 'utils.video']\n"
+            "missing = [w for w in want if p.__name__ + '.' + w not in names]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'yolov3_tpu', 'cv2', 'PIL'))\n"
-            "print(bad)\n"
+            "('jax', 'jaxlib', 'yolov3_tpu', 'tools', 'cv2', 'PIL'))\n"
+            "print(bad, missing)\n"
+            "bad += missing\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

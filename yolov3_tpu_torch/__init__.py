@@ -10,9 +10,13 @@ suppression K2 (``ops/cuda_nms.py``, ``csrc/nms_suppress.cu``), the full
 decode K3 (``csrc/decode_full.cu``), and the int8 tier (``quant.py``:
 ``Darknet.quantize_int8``, the int8-carrier and bf16-carrier walks, exact
 int8 convs in ``ops/int8_conv.py``) with the fused int8 residual block K6
-(``ops/cuda_block.py``, ``csrc/block_int8.cu``). Imports
+(``ops/cuda_block.py``, ``csrc/block_int8.cu``). The entry points
+(``detect_mixed``, ``PipelinedDetector``, image / directory / video / cam)
+are in ``inference``, the CLI is ``python -m yolov3_tpu_torch``, the HTTP
+server ``python -m yolov3_tpu_torch.serve``, the diagnostic tools and their
+kernels ``tools/`` and ``ops/cuda_probe.py`` (``csrc/probe.cu``). Imports
 ``torch``, never ``jax``; the kernels build with ``nvcc`` at first use
-(``ops/_build.py``).
+(``ops/_build.py``), the C++ host loader with ``g++`` (``native.py``).
 """
 from .config import parse_config, parse_config_text
 from .graph import Graph, Node, load_graph, lower

@@ -42,11 +42,15 @@
 // Float contract: built with -fmad=false, rounding is rintf (half to even,
 // what torch.round does), so every epilogue is the separate multiply, add,
 // compare and round that eager PyTorch runs and the kernel equals its plain
-// version (ops/cuda_block.py :: residual_block_int8_reference) exactly.
+// version (ops/cuda_block.py :: residual_block_int8_reference) exactly. That
+// arithmetic (dequantize, leaky, requantize, the image-edge mask) lives in
+// block_int8_common.cuh, where the ingredient probes of probe.cu run it too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "block_int8_common.cuh"
 
 #define K6_TH 8
 #define K6_TW 8
@@ -73,14 +77,6 @@ struct K6Params {
   float inv_smid, inv_smid2, smid2, s_in, inv_sout;
 };
 
-__device__ __forceinline__ float k6_leaky(float y) {
-  return y > 0.0f ? y : 0.1f * y;
-}
-
-__device__ __forceinline__ float k6_round_clip(float f) {
-  return fminf(fmaxf(rintf(f), -127.0f), 127.0f);
-}
-
 extern __shared__ int4 k6_smem[];
 
 template <int OUT_KIND>
@@ -97,9 +93,10 @@ block_int8_kernel(const K6Params p) {
   // ---- the halo slab, zero outside the image
   for (int i = tid; i < K6_HPX * vecs; i += K6_THREADS) {
     const int hp = i / vecs, v = i - hp * vecs;
-    const int gy = ty0 + hp / K6_HW - 1, gx = tx0 + hp % K6_HW - 1;
+    int gy, gx;
+    k6_slab_coords(hp, K6_HW, ty0 - 1, tx0 - 1, &gy, &gx);
     int4 val = make_int4(0, 0, 0, 0);
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w)
+    if (k6_in_image(gy, gx, h, w))
       val = __ldg(reinterpret_cast<const int4*>(
                       p.x + (((long long)b * h + gy) * w + gx) * c) + v);
     reinterpret_cast<int4*>(xs)[hp * vecs + v] = val;
@@ -151,12 +148,10 @@ block_int8_kernel(const K6Params p) {
         for (int px = 0; px < K6_PX; ++px) {
           const int hp = p0 + px;
           if (hp >= K6_HPX) continue;
-          const int gy = ty0 + hp / K6_HW - 1, gx = tx0 + hp % K6_HW - 1;
           int q = 0;
-          if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-            const float y = k6_leaky((float)acc[px][k] * d + bb);
-            q = (int)k6_round_clip(y * p.inv_smid);
-          }
+          if (k6_slab_valid(hp, K6_HW, ty0 - 1, tx0 - 1, h, w))
+            q = (int)k6_requant(k6_dequant_leaky(acc[px][k], d, bb),
+                                p.inv_smid);
           mid[hp * cmid + j] = (int8_t)q;
         }
       }
@@ -210,17 +205,17 @@ block_int8_kernel(const K6Params p) {
       for (int px = 0; px < K6_PX; ++px) {
         const int gx = tx0 + px;
         if (gx >= w) continue;
-        float y2 = k6_leaky((float)acc[px][k] * d + bb);
         // the 3x3 output quantizes to ITS scale before the shortcut
         // dequantizes it back, as in the unfused walk
-        y2 = k6_round_clip(y2 * p.inv_smid2) * p.smid2;
+        const float y2 = k6_requant(k6_dequant_leaky(acc[px][k], d, bb),
+                                    p.inv_smid2) * p.smid2;
         const float xres =
             (float)xs[((warp + 1) * K6_HW + px + 1) * c + o] * p.s_in;
         const float y = y2 + xres;
         const long long at = (((long long)b * h + gy) * w + gx) * c + o;
         if (OUT_KIND == K6_OUT_INT8) {
           static_cast<int8_t*>(p.out)[at] =
-              (int8_t)(int)k6_round_clip(y * p.inv_sout);
+              (int8_t)(int)k6_requant(y, p.inv_sout);
         } else if (OUT_KIND == K6_OUT_BF16) {
           static_cast<__nv_bfloat16*>(p.out)[at] = __float2bfloat16_rn(y);
         } else {

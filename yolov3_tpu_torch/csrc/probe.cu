@@ -1,0 +1,702 @@
+// The diagnostic tools' kernels (T1, T2, T3a-e), CUDA C++ for sm_90a.
+//
+// They replace the seven Pallas kernels of the JAX package's tools/:
+//   T1  tools/bench_int8_dot.py :: make_dot        -> probe_dot_step_kernel
+//   T2  tools/bench_pallas_dot.py :: timed_grid    -> probe_dot_grid_kernel
+//   T3a tools/probe_block.py :: probe_int8_dot     -> probe_dot_step_kernel,
+//                                                     store mode
+//   T3b probe_round  -> probe_round_clip_kernel
+//   T3c probe_roll   -> probe_roll_kernel
+//   T3d probe_mask   -> probe_mask_kernel
+//   T3e probe_epilogue -> probe_epilogue_kernel
+// The wrappers, plain versions and launch counts are in ops/cuda_probe.py.
+//
+// The dots. The TPU kernels hold whole operands in VMEM and run one MXU
+// dot. Here a product (M, K) . (K, N) is tiled 64 x 64 over thread blocks of
+// four warps; a block stages 64 bytes of K of both operands through shared
+// memory per step (the (K, N) operand transposed on the way, a 4 x 4 byte or
+// 2 x 2 halfword transpose in registers, so that four / two consecutive K
+// elements of a column share a 32-bit word; the next step's loads are in
+// flight while this step multiplies) and multiplies them with one of three
+// cores:
+//   CORE_MMA_S8    mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
+//   CORE_DP4A_S8   __dp4a on the integer lanes (what K6 runs today)
+//   CORE_MMA_BF16  mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
+// in hand-written fragments (inline PTX). Ragged M, N and K are zero-filled
+// in the loads. This is the simple right kernel: no cp.async ring, no wgmma,
+// no TMA; those belong to the kernels' redesigns, which these tools measure.
+//
+// As in the TPU kernels every element of the product is consumed: the tile's
+// sums, rounded to bf16, go through two small projections p1 (8, M) and
+// p2 (N, 128), out = bf16(p1 . bf16(acc)) . p2, float32 sums. p1 runs on the
+// tensor cores in both kernels; p2 does so in T2, while in T1 it is a scalar
+// loop on the CUDA cores of the block that finishes a column of tiles (its
+// operand exists only once the M tiles are summed). T1 keeps its per-step dependency: a runtime carry (about 0) is added
+// to the small (K, N) operand while it is staged, and each step moves the
+// carry by 1e-24 of its result, so step s + 1 cannot start before step s has
+// finished and no step repeats another's work.
+//
+// T1 spreads ONE product over the card (grid = M tiles x N tiles), because a
+// step is one dot and the next step waits for it; the projections' sums over
+// M tiles and N tiles are finished by the last block to arrive (a counter per
+// N tile column, then one for the grid; sums in tile order, so the result
+// does not depend on the blocks' order). T2's TPU grid is `grid` sequential
+// steps with nothing carried between them: here they are `grid` independent
+// blocks, each computing one whole product with its projections, because a
+// card is full only with at least 132 blocks in flight and nothing orders
+// the steps; the two-size differential of the tool then reads the time the
+// whole card needs per product.
+//
+// What bounds them: T1 / T2 / T3a operations at large shapes, launch and the
+// serial finish at the small ones (bytes never: the operands stay in L2);
+// T3b-e bytes, and at their sizes the launch.
+//
+// Float contract: as everywhere in this library (-fmad=false, rintf).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "block_int8_common.cuh"
+
+#define PD_BM 64
+#define PD_BN 64
+#define PD_BKB 64           // bytes of K staged per step
+#define PD_LDS 80           // shared row stride in bytes: conflict-free frags
+#define PD_THREADS 128
+#define PD_CS_LD 72         // bf16 elements per row of the consumed tile
+#define PD_PS_LD 72
+#define CORE_MMA_S8 0
+#define CORE_DP4A_S8 1
+#define CORE_MMA_BF16 2
+#define MODE_STORE 0
+#define MODE_PROJECT 1
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+
+__device__ __forceinline__ float bf16_float(unsigned short bits) {
+  return __bfloat162float(__ushort_as_bfloat16(bits));
+}
+
+// One staged step of both operands in registers: the loads of step i + 1 are
+// started before the products of step i, so their latency hides behind them.
+struct StageRegs {
+  int4 a[2];        // lhs: two 16-byte chunks per thread
+  uint32_t b[8];    // rhs: eight 32-bit words per thread
+  uint32_t valid;   // bit i: b[i] lies inside (K, N); zero-fill stays zero
+};
+
+// Load rows m0 .. m0+63, K bytes kb0 .. kb0+63 of the row-major lhs (16-byte
+// loads) and K rows k0 .., columns n0 .. n0+63 of the row-major rhs (32-bit
+// words of 4 int8 / 2 bf16 columns; a thread takes 4 / 2 consecutive K rows
+// of its columns, which stage_store transposes); zero past M, N or K.
+template <int CORE>
+__device__ __forceinline__ void stage_load(StageRegs& r,
+                                           const unsigned char* lhs,
+                                           const unsigned char* rhs, int m,
+                                           int k, int n, int m0, int n0,
+                                           int k0, int tid) {
+  constexpr int ES = CORE == CORE_MMA_BF16 ? 2 : 1;
+  constexpr int ROWS = 4 / ES;      // K rows that share a 32-bit word
+  const long long kbytes = (long long)k * ES, kb0 = (long long)k0 * ES;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = tid + i * PD_THREADS, row = c >> 2, ch = c & 3;
+    r.a[i] = make_int4(0, 0, 0, 0);
+    if (m0 + row < m && kb0 + ch * 16 < kbytes)
+      r.a[i] = __ldg(reinterpret_cast<const int4*>(
+          lhs + (long long)(m0 + row) * kbytes + kb0 + ch * 16));
+  }
+  r.valid = 0;
+#pragma unroll
+  for (int i = 0; i < 8 / ROWS; ++i) {
+    const int item = tid + i * PD_THREADS;
+    const int kg = item / (PD_BN / ROWS), nw = item % (PD_BN / ROWS);
+    const int col = n0 + nw * ROWS;
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      const int krow = k0 + kg * ROWS + rr;
+      r.b[i * ROWS + rr] = 0;
+      if (krow < k && col < n) {
+        r.b[i * ROWS + rr] = __ldg(reinterpret_cast<const uint32_t*>(
+            rhs + ((long long)krow * n + col) * ES));
+        r.valid |= 1u << (i * ROWS + rr);
+      }
+    }
+  }
+}
+
+// Registers -> shared memory: As[row][PD_LDS] as loaded; the rhs words moved
+// by the carry (int8: byte-wise with wrap-around; bf16: float32 sum rounded
+// to bf16 once) and transposed into Bs[col][PD_LDS], K contiguous, so that a
+// 32-bit word of a column holds the 4 / 2 consecutive K elements an mma B
+// fragment (and __dp4a) wants.
+template <int CORE>
+__device__ __forceinline__ void stage_store(const StageRegs& r,
+                                            unsigned char* As,
+                                            unsigned char* Bs, float carry,
+                                            int tid) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = tid + i * PD_THREADS, row = c >> 2, ch = c & 3;
+    *reinterpret_cast<int4*>(As + row * PD_LDS + ch * 16) = r.a[i];
+  }
+  if constexpr (CORE == CORE_MMA_BF16) {
+    const float cb = bf16_float(bf16_bits(carry));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int item = tid + i * PD_THREADS, kg = item >> 5, nw = item & 31;
+      uint32_t w[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const uint32_t v = r.b[i * 2 + rr];
+        const uint32_t lo = bf16_bits(__uint_as_float(v << 16) + cb);
+        const uint32_t hi = bf16_bits(__uint_as_float(v & 0xffff0000u) + cb);
+        w[rr] = (r.valid >> (i * 2 + rr)) & 1u ? (lo | (hi << 16)) : 0u;
+      }
+      unsigned char* dst = Bs + (nw * 2) * PD_LDS + kg * 4;
+      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(w[0], w[1], 0x5410);
+      *reinterpret_cast<uint32_t*>(dst + PD_LDS) =
+          __byte_perm(w[0], w[1], 0x7632);
+    }
+  } else {
+    const uint32_t c4 = (uint32_t)((int)carry & 0xff) * 0x01010101u;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int item = tid + i * PD_THREADS, kg = item >> 4, nw = item & 15;
+      uint32_t w[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+        w[rr] = (r.valid >> (i * 4 + rr)) & 1u ? __vadd4(r.b[i * 4 + rr], c4)
+                                               : 0u;
+      // 4 x 4 byte transpose: word j of the result holds byte j of w[0..3]
+      const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
+      const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
+      const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
+      const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
+      unsigned char* dst = Bs + (nw * 4) * PD_LDS + kg * 4;
+      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
+      *reinterpret_cast<uint32_t*>(dst + PD_LDS) =
+          __byte_perm(lo01, lo23, 0x7632);
+      *reinterpret_cast<uint32_t*>(dst + 2 * PD_LDS) =
+          __byte_perm(hi01, hi23, 0x5410);
+      *reinterpret_cast<uint32_t*>(dst + 3 * PD_LDS) =
+          __byte_perm(hi01, hi23, 0x7632);
+    }
+  }
+}
+
+// One 64 x 64 tile of the product for the block's (m0, n0): the sums land in
+// `acc` in the core's own register layout (see tile_coords).
+template <int CORE, typename AccT>
+__device__ __forceinline__ void tile_product(
+    AccT (&acc)[8][4], unsigned char* As, unsigned char* Bs, const void* lhs,
+    const void* rhs, int m, int k, int n, int m0, int n0, float carry,
+    int tid) {
+  constexpr int ES = CORE == CORE_MMA_BF16 ? 2 : 1;
+  constexpr int KSTEP = PD_BKB / ES;  // K elements per staged step
+  const unsigned char* lhs8 = static_cast<const unsigned char*>(lhs);
+  const unsigned char* rhs8 = static_cast<const unsigned char*>(rhs);
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  StageRegs regs;
+  stage_load<CORE>(regs, lhs8, rhs8, m, k, n, m0, n0, 0, tid);
+  for (int k0 = 0; k0 < k; k0 += KSTEP) {
+    stage_store<CORE>(regs, As, Bs, carry, tid);
+    __syncthreads();
+    if (k0 + KSTEP < k)
+      stage_load<CORE>(regs, lhs8, rhs8, m, k, n, m0, n0, k0 + KSTEP, tid);
+    if constexpr (CORE == CORE_DP4A_S8) {
+      // thread (ty, tx): rows ty + 8 i, columns tx + 16 j
+      const int ty = tid >> 4, tx = tid & 15;
+#pragma unroll 4
+      for (int kw = 0; kw < PD_BKB / 4; ++kw) {
+        int a[8], b[4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          a[i] = (int)lds32(As + (ty + 8 * i) * PD_LDS + kw * 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b[j] = (int)lds32(Bs + (tx + 16 * j) * PD_LDS + kw * 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+      }
+    } else {
+      // warp (wm, wn): rows wm*32 + mi*16, columns wn*32 + ni*8; a k-step
+      // of either mma is 32 bytes of K
+#pragma unroll
+      for (int ks = 0; ks < PD_BKB / 32; ++ks) {
+        uint32_t a[2][4], b[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const unsigned char* base =
+              As + (wm * 32 + mi * 16 + g) * PD_LDS + ks * 32 + t * 4;
+          a[mi][0] = lds32(base);
+          a[mi][1] = lds32(base + 8 * PD_LDS);
+          a[mi][2] = lds32(base + 16);
+          a[mi][3] = lds32(base + 8 * PD_LDS + 16);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const unsigned char* base =
+              Bs + (wn * 32 + ni * 8 + g) * PD_LDS + ks * 32 + t * 4;
+          b[ni][0] = lds32(base);
+          b[ni][1] = lds32(base + 16);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            if constexpr (CORE == CORE_MMA_S8)
+              mma_s8(acc[mi * 4 + ni], a[mi], b[ni]);
+            else
+              mma_bf16(acc[mi * 4 + ni], a[mi], b[ni]);
+          }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Tile-local (row, column) of acc[i / 4][i % 4] in the core's register
+// layout.
+template <int CORE>
+__device__ __forceinline__ void tile_coords(int i, int tid, int* row,
+                                            int* col) {
+  if constexpr (CORE == CORE_DP4A_S8) {
+    *row = (tid >> 4) + 8 * (i >> 2);
+    *col = (tid & 15) + 16 * (i & 3);
+  } else {
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int mi = i >> 4, ni = (i >> 2) & 3, e = i & 3;
+    *row = (warp >> 1) * 32 + mi * 16 + g + (e >> 1) * 8;
+    *col = (warp & 1) * 32 + ni * 8 + t * 2 + (e & 1);
+  }
+}
+
+// First projection of the consumed tile on the tensor cores:
+// d[j] += p1[:, m0 .. m0+63] . Cs, for the warp's 16 columns (j: 8 each).
+// Cs[col][PD_CS_LD] holds bf16(acc) with M contiguous; p1 is (8, M) bf16 in
+// device memory, read straight into the A fragment (rows 8-15 are zero).
+__device__ __forceinline__ void project_p1(float (&d)[2][4],
+                                           const unsigned short* Cs,
+                                           const unsigned short* p1, int m,
+                                           int m0, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < PD_BM; kk += 16) {
+    uint32_t a[4] = {0, 0, 0, 0};
+    const int ma = m0 + kk + 2 * t;
+    if (ma < m)
+      a[0] = __ldg(reinterpret_cast<const uint32_t*>(
+          p1 + (long long)g * m + ma));
+    if (ma + 8 < m)
+      a[2] = __ldg(reinterpret_cast<const uint32_t*>(
+          p1 + (long long)g * m + ma + 8));
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const unsigned short* base =
+          Cs + (warp * 16 + j * 8 + g) * PD_CS_LD + kk + 2 * t;
+      const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(base),
+                             *reinterpret_cast<const uint32_t*>(base + 8)};
+      mma_bf16(d[j], a, b);
+    }
+  }
+}
+
+struct ProbeDot {
+  const void* lhs;
+  const void* rhs;
+  const unsigned short* p1;   // (8, M) bf16
+  const unsigned short* p2;   // (N, 128) bf16
+  float* carry;               // one float, or null: no shift
+  void* out;                  // store: (M, N); project: (8, 128) float32
+  float* partial;             // project: (M tiles, 8, N)
+  float* partial2;            // project: (N tiles, 8, 128)
+  unsigned int* counters;     // project: 1 + N tiles, zero between launches
+  int m, k, n;
+};
+
+// T1 and T3a: one product spread over the grid (x: M tiles, y: N tiles).
+template <int CORE, int MODE, typename AccT>
+__global__ void __launch_bounds__(PD_THREADS)
+probe_dot_step_kernel(const ProbeDot p) {
+  __shared__ __align__(16) unsigned char As[PD_BM * PD_LDS];
+  __shared__ __align__(16) unsigned char Bs[PD_BN * PD_LDS];
+  __shared__ __align__(16) unsigned short Cs[PD_BN * PD_CS_LD];
+  __shared__ float Pb[8][PD_BN];
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int mt = blockIdx.x, nt = blockIdx.y;
+  const int m0 = mt * PD_BM, n0 = nt * PD_BN;
+  const float carry = p.carry ? *static_cast<volatile float*>(p.carry) : 0.0f;
+  AccT acc[8][4];
+  tile_product<CORE, AccT>(acc, As, Bs, p.lhs, p.rhs, p.m, p.k, p.n, m0, n0,
+                           carry, tid);
+  if (MODE == MODE_STORE) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      int row, col;
+      tile_coords<CORE>(i, tid, &row, &col);
+      if (m0 + row < p.m && n0 + col < p.n)
+        static_cast<AccT*>(p.out)[(long long)(m0 + row) * p.n + n0 + col] =
+            acc[i >> 2][i & 3];
+    }
+    return;
+  }
+  // ---- consume the tile: bf16(acc) -> Cs, then p1 on the tensor cores
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    int row, col;
+    tile_coords<CORE>(i, tid, &row, &col);
+    Cs[col * PD_CS_LD + row] = bf16_bits((float)acc[i >> 2][i & 3]);
+  }
+  __syncthreads();
+  float d[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+  project_p1(d, Cs, p.p1, p.m, m0, tid);
+  {
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + warp * 16 + j * 8 + 2 * t + e;
+        if (col < p.n)
+          p.partial[((long long)mt * 8 + g) * p.n + col] = d[j][e];
+      }
+  }
+  // ---- the last block of this column of tiles sums the M tiles
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(&p.counters[1 + nt], 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int idx = tid; idx < 8 * PD_BN; idx += PD_THREADS) {
+    const int r = idx / PD_BN, cn = idx % PD_BN;
+    float sum = 0.0f;
+    if (n0 + cn < p.n) {
+#pragma unroll 8
+      for (int i = 0; i < (int)gridDim.x; ++i)
+        sum += __ldcg(&p.partial[((long long)i * 8 + r) * p.n + n0 + cn]);
+    }
+    Pb[r][cn] = bf16_float(bf16_bits(sum));
+  }
+  __syncthreads();
+  {
+    // second projection of this column's 64 rows of p2; thread = column
+    float o[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll 16
+    for (int cn = 0; cn < PD_BN; ++cn) {
+      // rows of p2 past N meet a zero of Pb: clamp the address only
+      const int row = min(n0 + cn, p.n - 1);
+      const float w = bf16_float(__ldg(&p.p2[(long long)row * 128 + tid]));
+#pragma unroll
+      for (int r = 0; r < 8; ++r) o[r] += Pb[r][cn] * w;
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      p.partial2[((long long)nt * 8 + r) * 128 + tid] = o[r];
+  }
+  // ---- the last column sums the N tiles into out and moves the carry
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    p.counters[1 + nt] = 0;
+    s_last = atomicAdd(&p.counters[0], 1u) == gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float sum = 0.0f;
+    for (int i = 0; i < (int)gridDim.y; ++i)
+      sum += __ldcg(&p.partial2[((long long)i * 8 + r) * 128 + tid]);
+    static_cast<float*>(p.out)[r * 128 + tid] = sum;
+    if (r == 0 && tid == 0 && p.carry) *p.carry = carry + sum * 1e-24f;
+  }
+  if (tid == 0) p.counters[0] = 0;
+}
+
+// T2: blockIdx.x is one step of the TPU grid, a whole (M, K) . (K, N) bf16
+// product with its projections -> out[step] (8, 128) bf16.
+__global__ void __launch_bounds__(PD_THREADS)
+probe_dot_grid_kernel(const void* lhs, const void* rhs,
+                      const unsigned short* p1, const unsigned short* p2,
+                      int m, int k, int n, unsigned short* out) {
+  __shared__ __align__(16) unsigned char As[PD_BM * PD_LDS];
+  __shared__ __align__(16) unsigned char Bs[PD_BN * PD_LDS];
+  __shared__ __align__(16) unsigned short Cs[PD_BN * PD_CS_LD];
+  __shared__ __align__(16) unsigned short Ps[8 * PD_PS_LD];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float o[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  for (int n0 = 0; n0 < n; n0 += PD_BN) {
+    float d[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+    for (int m0 = 0; m0 < m; m0 += PD_BM) {
+      float acc[8][4];
+      tile_product<CORE_MMA_BF16, float>(acc, As, Bs, lhs, rhs, m, k, n, m0,
+                                         n0, 0.0f, tid);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        int row, col;
+        tile_coords<CORE_MMA_BF16>(i, tid, &row, &col);
+        Cs[col * PD_CS_LD + row] = bf16_bits(acc[i >> 2][i & 3]);
+      }
+      __syncthreads();
+      project_p1(d, Cs, p1, m, m0, tid);
+      __syncthreads();
+    }
+    // bf16(p1 . acc) for these 64 columns -> Ps (8, 64), the A operand of
+    // the second projection
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        Ps[g * PD_PS_LD + warp * 16 + j * 8 + 2 * t + e] = bf16_bits(d[j][e]);
+    __syncthreads();
+    // o += Ps . p2[n0 .. n0+63, :]; the warp owns 32 of the 128 columns
+#pragma unroll
+    for (int kk = 0; kk < PD_BN; kk += 16) {
+      uint32_t a[4] = {0, 0, 0, 0};
+      a[0] = *reinterpret_cast<const uint32_t*>(&Ps[g * PD_PS_LD + kk + 2 * t]);
+      a[2] = *reinterpret_cast<const uint32_t*>(
+          &Ps[g * PD_PS_LD + kk + 2 * t + 8]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = warp * 32 + j * 8 + g;
+        uint32_t b[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = n0 + kk + 2 * t + 8 * h;
+          const uint32_t lo =
+              row < n ? __ldg(&p2[(long long)row * 128 + col]) : 0;
+          const uint32_t hi =
+              row + 1 < n ? __ldg(&p2[(long long)(row + 1) * 128 + col]) : 0;
+          b[h] = lo | (hi << 16);
+        }
+        mma_bf16(o[j], a, b);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      out[((long long)blockIdx.x * 8 + g) * 128 + warp * 32 + j * 8 + 2 * t +
+          e] = bf16_bits(o[j][e]);
+}
+
+// T3b: clip(round-half-even(x), -127, 127), K6's requantizer at scale 1.
+__global__ void probe_round_clip_kernel(const float* x, float* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = k6_round_clip(x[i]);
+}
+
+// T3c: both circular shifts of an int8 (rows, lanes) plane along its rows,
+// int8 -> float32 -> int8 as the TPU probe. K6 takes its column taps from a
+// halo slab in shared memory, so the plane is staged there as well; block =
+// plane. out: (2, planes, rows, lanes): shift by +1, then by -1.
+__global__ void probe_roll_kernel(const int8_t* x, int8_t* out, int planes,
+                                  int rows, int lanes) {
+  extern __shared__ float plane[];
+  const long long size = (long long)rows * lanes;
+  const int8_t* src = x + blockIdx.x * size;
+  for (int i = threadIdx.x; i < size; i += blockDim.x)
+    plane[i] = (float)src[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < size; i += blockDim.x) {
+    const int r = i / lanes, l = i - r * lanes;
+    const int up = r == 0 ? rows - 1 : r - 1, down = r == rows - 1 ? 0 : r + 1;
+    out[blockIdx.x * size + i] = (int8_t)plane[up * lanes + l];
+    out[(planes + (long long)blockIdx.x) * size + i] =
+        (int8_t)plane[down * lanes + l];
+  }
+}
+
+// T3d: K6's image-edge mask over a (rows, ws) slab whose first row sits at
+// image row row0, written across cp lanes as int32.
+__global__ void probe_mask_kernel(int* out, int rows, int cp, int ws, int row0,
+                                  int h, int w) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)rows * cp) return;
+  const int flat = (int)(i / cp);
+  out[i] = k6_slab_valid(flat, ws, row0, 0, h, w) ? 1 : 0;
+}
+
+// T3e: K6's conv epilogue: int32 sum -> * deq + b -> leaky -> requantize.
+__global__ void probe_epilogue_kernel(const int* acc, const float* deq,
+                                      const float* bias, float inv, float* out,
+                                      int rows, int cols) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * cols) return;
+  const int c = i % cols;
+  out[i] = k6_requant(k6_dequant_leaky(acc[i], deq[c], bias[c]), inv);
+}
+
+template <int CORE, int MODE, typename AccT>
+static int launch_dot_steps(const ProbeDot& p, int steps, cudaStream_t s) {
+  const dim3 grid((p.m + PD_BM - 1) / PD_BM, (p.n + PD_BN - 1) / PD_BN);
+  for (int i = 0; i < steps; ++i)
+    probe_dot_step_kernel<CORE, MODE, AccT><<<grid, PD_THREADS, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// C entries (ctypes). All launch on `stream`, allocate nothing and return
+// cudaGetLastError().
+
+// T1 / T3a. lhs (m, k), rhs (k, n) row-major, int8 (core 0, 1) or bf16 (core
+// 2), 16-byte aligned, k bytes per row a multiple of 16, n a multiple of 8.
+// mode 0: out (m, n) int32 / float32 = lhs . (rhs + carry). mode 1: p1 (8, m)
+// and p2 (n, 128) bf16, m even; out (8, 128) float32; partial (m tiles, 8, n)
+// and partial2 (n tiles, 8, 128) float32 scratch; counters (1 + n tiles)
+// uint32, zero; `steps` dependent launches, each moving *carry.
+extern "C" int yolo_probe_dot(const void* lhs, const void* rhs, const void* p1,
+                              const void* p2, float* carry, int m, int k, int n,
+                              int core, int mode, void* out, float* partial,
+                              float* partial2, void* counters, int steps,
+                              void* stream) {
+  const int es = core == CORE_MMA_BF16 ? 2 : 1;
+  if (m < 1 || k < 1 || n < 8 || n % 8 || ((long long)k * es) % 16 ||
+      steps < 1 || (n + PD_BN - 1) / PD_BN > 65535 ||
+      (mode == MODE_PROJECT && (m % 2 || !p1 || !p2 || !partial || !partial2 ||
+                                !counters)))
+    return (int)cudaErrorInvalidValue;
+  ProbeDot p;
+  p.lhs = lhs;
+  p.rhs = rhs;
+  p.p1 = static_cast<const unsigned short*>(p1);
+  p.p2 = static_cast<const unsigned short*>(p2);
+  p.carry = carry;
+  p.out = out;
+  p.partial = partial;
+  p.partial2 = partial2;
+  p.counters = static_cast<unsigned int*>(counters);
+  p.m = m;
+  p.k = k;
+  p.n = n;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == MODE_STORE) {
+    switch (core) {
+      case CORE_MMA_S8:
+        return launch_dot_steps<CORE_MMA_S8, MODE_STORE, int>(p, steps, s);
+      case CORE_DP4A_S8:
+        return launch_dot_steps<CORE_DP4A_S8, MODE_STORE, int>(p, steps, s);
+      case CORE_MMA_BF16:
+        return launch_dot_steps<CORE_MMA_BF16, MODE_STORE, float>(p, steps, s);
+    }
+  } else if (mode == MODE_PROJECT) {
+    switch (core) {
+      case CORE_MMA_S8:
+        return launch_dot_steps<CORE_MMA_S8, MODE_PROJECT, int>(p, steps, s);
+      case CORE_DP4A_S8:
+        return launch_dot_steps<CORE_DP4A_S8, MODE_PROJECT, int>(p, steps, s);
+      case CORE_MMA_BF16:
+        return launch_dot_steps<CORE_MMA_BF16, MODE_PROJECT, float>(p, steps,
+                                                                    s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// T2. lhs (m, k), rhs (k, n), p1 (8, m), p2 (n, 128) bf16, 16-byte aligned,
+// k a multiple of 8, n of 8, m even; out (grid, 8, 128) bf16.
+extern "C" int yolo_probe_dot_grid(const void* lhs, const void* rhs,
+                                   const void* p1, const void* p2, int m, int k,
+                                   int n, int grid, void* out, void* stream) {
+  if (m < 2 || m % 2 || k < 8 || k % 8 || n < 8 || n % 8 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  probe_dot_grid_kernel<<<grid, PD_THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      lhs, rhs, static_cast<const unsigned short*>(p1),
+      static_cast<const unsigned short*>(p2), m, k, n,
+      static_cast<unsigned short*>(out));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yolo_probe_round_clip(const float* x, float* out, int n,
+                                     void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  probe_round_clip_kernel<<<(n + 255) / 256, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yolo_probe_roll(const void* x, void* out, int planes, int rows,
+                               int lanes, void* stream) {
+  const size_t smem = (size_t)rows * lanes * sizeof(float);
+  if (planes < 1 || rows < 1 || lanes < 1 || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        probe_roll_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  probe_roll_kernel<<<planes, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), planes, rows,
+      lanes);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yolo_probe_mask(int* out, int rows, int cp, int ws, int row0,
+                               int h, int w, void* stream) {
+  if (rows < 1 || cp < 1 || ws < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)rows * cp;
+  probe_mask_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(out, rows, cp, ws,
+                                                           row0, h, w);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yolo_probe_epilogue(const int* acc, const float* deq,
+                                   const float* bias, float inv, float* out,
+                                   int rows, int cols, void* stream) {
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  probe_epilogue_kernel<<<(rows * cols + 255) / 256, 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      acc, deq, bias, inv, out, rows, cols);
+  return (int)cudaGetLastError();
+}

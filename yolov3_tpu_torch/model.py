@@ -49,7 +49,8 @@ from .ops import decode as plain_decode
 from .ops.cuda_decode import (decode_all, decode_compact, decode_packed,
                               decode_packed_fused, fused_head_supported)
 from .precision import tf32
-from .weights import (Params, TorchParams, load_weights, param_count,
+from .weights import (Params, TorchParams, load_weights,
+                      load_weights_cached, param_count,
                       params_from_jax, quant_state_from_jax,
                       resolve_device)
 
@@ -316,9 +317,13 @@ class Darknet(nn.Module):
         self._loaded = True
         return self
 
-    def load_weights(self, weights_path: Union[str, Path, bytes]) -> "Darknet":
-        """Load a darknet ``.weights`` file (BN folded at load)."""
-        return self.set_params(load_weights(weights_path, self.graph))
+    def load_weights(self, weights_path: Union[str, Path, bytes],
+                     cache: bool = False) -> "Darknet":
+        """Load a darknet ``.weights`` file (BN folded at load).
+        ``cache=True`` keeps an npz of the converted params beside the file
+        (``weights.load_weights_cached``)."""
+        loader = load_weights_cached if cache else load_weights
+        return self.set_params(loader(weights_path, self.graph))
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:

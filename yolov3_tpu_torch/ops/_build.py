@@ -1,7 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` into ONE shared library with a plain C
-interface, loaded with ``ctypes``. The build runs at first use from the
+``csrc/*.cu`` (the serving kernels K1-K6 and ``probe.cu``, the diagnostic
+tools' kernels) compile with ``nvcc`` into ONE shared library with a plain C
+interface, loaded with ``ctypes``; ``decode_common.cuh`` and
+``block_int8_common.cuh`` (K6's arithmetic, shared with the probes) are
+their headers. The build runs at first use from the
 sources in the checkout and lands in ``build/kernels/`` at the repository
 root (git-ignored): one ``nvcc -c`` per source, all started together, then
 one link. The library's file name carries a hash of the sources, headers
@@ -25,8 +28,8 @@ from typing import Optional, Union
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_packed.cu", "decode_fused.cu", "decode_full.cu",
-           "conv3x3.cu", "block_int8.cu", "nms_suppress.cu")
-HEADERS = ("decode_common.cuh",)
+           "conv3x3.cu", "block_int8.cu", "nms_suppress.cu", "probe.cu")
+HEADERS = ("decode_common.cuh", "block_int8_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false and no --use_fast_math: the decode and suppression epilogues
@@ -122,7 +125,17 @@ def load_kernels() -> ctypes.CDLL:
     lib.yolo_residual_block_int8.argtypes = [
         p, p, p, p, p, p, p, i32, i32, i32, i32, i32, f32, f32, f32, f32, f32,
         i32, p, p]
-    for fn in (lib.yolo_decode_packed_head, lib.yolo_decode_compact_head,
+    lib.yolo_probe_dot.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, p,
+                                   p, p, p, i32, p]
+    lib.yolo_probe_dot_grid.argtypes = [p, p, p, p, i32, i32, i32, i32, p, p]
+    lib.yolo_probe_round_clip.argtypes = [p, p, i32, p]
+    lib.yolo_probe_roll.argtypes = [p, p, i32, i32, i32, p]
+    lib.yolo_probe_mask.argtypes = [p, i32, i32, i32, i32, i32, i32, p]
+    lib.yolo_probe_epilogue.argtypes = [p, p, p, f32, p, i32, i32, p]
+    for fn in (lib.yolo_probe_dot, lib.yolo_probe_dot_grid,
+               lib.yolo_probe_round_clip, lib.yolo_probe_roll,
+               lib.yolo_probe_mask, lib.yolo_probe_epilogue,
+               lib.yolo_decode_packed_head, lib.yolo_decode_compact_head,
                lib.yolo_decode_packed_fused_head, lib.yolo_conv3x3_fused,
                lib.yolo_nms_suppress, lib.yolo_decode_full_head,
                lib.yolo_residual_block_int8):

@@ -99,3 +99,31 @@ def preprocess(frames: torch.Tensor, net_hw: Tuple[int, int],
     return F.pad(resized, (0, 0, pad_left, nw - new_w - pad_left,
                            pad_top, nh - new_h - pad_top),
                  value=pad_value)
+
+
+def preprocess_host(frames, net_hw: Tuple[int, int], mode: str = "letterbox",
+                    pad_value: float = PAD_FLOAT) -> np.ndarray:
+    """cv2-based host version with the same semantics (for source shapes too
+    heterogeneous to batch, and as the parity oracle of the on-device path):
+    (B, H, W, 3) or (H, W, 3) uint8 → (B, net_h, net_w, 3) float32 numpy."""
+    import cv2
+
+    frames = np.asarray(frames)
+    if frames.ndim == 3:
+        frames = frames[None]
+    b, h, w, c = frames.shape
+    nh, nw = net_hw
+    out = np.full((b, nh, nw, c), pad_value, dtype=np.float32)
+    if mode == "stretch":
+        for i in range(b):
+            out[i] = cv2.resize(frames[i], (nw, nh),
+                                interpolation=cv2.INTER_LINEAR) / 255.0
+        return out
+    if mode != "letterbox":
+        raise ValueError(f"unknown preprocess mode {mode!r}")
+    _, pad_top, pad_left, new_h, new_w = letterbox_geometry((h, w), (nh, nw))
+    for i in range(b):
+        r = cv2.resize(frames[i], (new_w, new_h),
+                       interpolation=cv2.INTER_LINEAR).astype(np.float32) / 255.0
+        out[i, pad_top:pad_top + new_h, pad_left:pad_left + new_w] = r
+    return out

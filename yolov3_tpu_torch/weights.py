@@ -23,7 +23,9 @@ The folded numpy form is the JAX package's ``{idx: {"w": HWIO, "b": (C,)}}``;
 """
 from __future__ import annotations
 
+import hashlib
 import io
+import os
 from pathlib import Path
 from typing import Dict, Tuple, Union
 
@@ -137,6 +139,40 @@ def load_weights(path: Union[str, Path, bytes], graph: Graph) -> Params:
     """Read a ``.weights`` file and return the folded HWIO numpy params."""
     raw, _ = read_raw(path, graph)
     return fold_raw(raw)
+
+
+def load_weights_cached(path: Union[str, Path], graph: Graph,
+                        cache_dir: Union[str, Path, None] = None) -> Params:
+    """:func:`load_weights` with an on-disk cache of the folded, transposed
+    params: repeat loads skip the OIHW parse and the BN fold. The cache key
+    fingerprints the weight file (size, ns-resolution mtime, a hash of the
+    20-byte header) and the graph's architecture (param count), so a
+    replaced ``.weights`` file or a cfg change under the same stem misses.
+    Cache files (npz, the JAX package's layout and key) live under
+    ``.param_cache/`` beside the weight file unless ``cache_dir`` says."""
+    path = Path(path)
+    cache_dir = Path(cache_dir) if cache_dir else path.parent / ".param_cache"
+    st = path.stat()
+    with open(path, "rb") as f:
+        header = f.read(20)
+    fp = hashlib.sha256(header).hexdigest()[:12]
+    key = (f"{path.stem}-{graph.name}-{param_count(graph)}-{st.st_size}-"
+           f"{st.st_mtime_ns}-{fp}")
+    cache_file = cache_dir / f"{key}.npz"
+    if cache_file.exists():
+        with np.load(cache_file) as z:
+            return {int(name[:-2]): {"w": z[name], "b": z[f"{name[:-2]}.b"]}
+                    for name in z.files if name.endswith(".w")}
+    params = load_weights(path, graph)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    flat = {}
+    for idx, p in params.items():
+        flat[f"{idx}.w"] = p["w"]
+        flat[f"{idx}.b"] = p["b"]
+    tmp = cache_file.with_suffix(f".{os.getpid()}.tmp.npz")
+    np.savez(tmp, **flat)
+    tmp.replace(cache_file)
+    return params
 
 
 def write_weights(path: Union[str, Path], graph: Graph, raw: Dict[int, RawConv],

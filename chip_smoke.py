@@ -20,8 +20,12 @@ each raises on failure (the build always runs):
    heads, float32 and bf16 maps: exact;
 6. K4 (head-fused decode) at the three yolov3@416 B=8 pre-head shapes,
    float32 and bf16 operands;
-7. K5 (fused 3x3 conv) at every distinct eligible yolov3@416 B=8 layer
-   shape, float32 and bf16, leaky and linear;
+7. K5 (fused 3x3 conv: the tensor-core kernel at bf16, the CUDA-core kernel
+   at float32) at every distinct eligible yolov3@416 B=8 layer shape, at
+   three ragged shapes, one yolov3@608 layer and an odd Cout, and on
+   strided views, float32 and bf16, leaky and linear, a bias in either
+   type; per shape the kernel's and cuDNN's device time from replayed CUDA
+   graphs;
 8. int8conv: the card's im2col + ``torch._int_mm`` int8 conv against the
    CPU's int32 ``F.conv2d``: 1x1, 3x3 at stride 1 and 2, asymmetric
    zero-points, a padded N and a short M, the exact-u8 stem;
@@ -34,8 +38,10 @@ each raises on failure (the build always runs):
 11. main, the full-width float path: a 248,007,048-byte yolov3 ``.weights``
     file through ``Darknet.load_weights``, then ``Detector.detect_batch``
     at 416 on 8 frames of 480x640: yolov3 precision None (K1), bf16 (K1 on
-    bf16 maps), bf16 with the fused head and fused convs (K4, K5), None on
-    the compact route, and yolov3-tiny; ``forward_compact`` through K1c
+    bf16 maps), bf16 with the fused head (K4), bf16 with the fused head and
+    fused convs (K4, K5), None on the compact route, and yolov3-tiny; the
+    three bf16 routes by stage, their walks' device time from a replayed
+    CUDA graph, K5's launches per call; ``forward_compact`` through K1c
     against the plain compact decode; ``Darknet(x)`` through K3; and the
     bf16 parity bar against "highest";
 12. int8, the full-width int8 tier: ``quantize_int8`` of yolov3 on 8 seeded
@@ -423,58 +429,163 @@ def k5_shapes(graph):
     return shapes
 
 
-def phase_k5(graph):
+# K5 off the main path (B, H, W, Cin, Cout): the JAX package's conv test
+# shapes (a W that is not a multiple of 8, an odd grid, Cout below a tile's
+# 128 channels), one yolov3@608 layer, and a Cout that is no multiple of 8
+# (output rows off the 16-byte grid: the kernel's element-wise stores)
+K5_EXTRA_SHAPES = ((2, 8, 10, 128, 256), (1, 19, 19, 256, 128),
+                   (1, 38, 38, 128, 64), (8, 76, 76, 128, 256),
+                   (1, 13, 13, 128, 255))
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean device milliseconds of ``fn``: ``iters`` calls captured into one
+    CUDA graph and replayed, so the host's time per call (about 25 us for a
+    ctypes wrapper) does not count."""
     import torch
-    import torch.nn.functional as F
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k5_check(x, wt, b, what: str) -> float:
+    """K5 against its plain version on one input, both activations, within
+    the bars of x's type; returns max |err|."""
+    import torch
     from yolov3_tpu_torch.ops.cuda_conv import (conv3x3_fused,
                                                 conv3x3_fused_reference)
 
+    rtol = K5_RTOL if x.dtype == torch.float32 else K5_BF16_RTOL
+    worst = 0.0
+    for act in ("leaky", "linear"):
+        got = conv3x3_fused(x, wt, b, act)
+        want = conv3x3_fused_reference(x, wt, b, act)
+        torch.cuda.synchronize()
+        g, wv = got.float(), want.float()
+        err = (g - wv).abs()
+        if not (got.shape == want.shape and got.dtype == x.dtype
+                and got.is_contiguous() and bool(torch.isfinite(g).all())
+                and bool((err <= K5_ATOL + rtol * wv.abs()).all())):
+            raise AssertionError(f"K5 {what} {act}: max |err| "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_k5(graph):
+    import torch
+    import torch.nn.functional as F
+    from yolov3_tpu_torch.ops import cuda_conv
+    from yolov3_tpu_torch.ops.cuda_conv import (conv3x3_fused,
+                                                conv3x3_fused_reference,
+                                                plan_tiles)
+
     shapes = k5_shapes(graph)
     rng = np.random.default_rng(5)
-    max_err, totals = 0.0, {}
-    for (h, w, cin, cout), count in sorted(shapes.items()):
-        x32 = torch.from_numpy(rng.normal(0, 1, (BATCH, h, w, cin))
+
+    def operands(bsz, h, w, cin, cout):
+        x32 = torch.from_numpy(rng.normal(0, 1, (bsz, h, w, cin))
                                .astype(np.float32)).to(DEVICE)
         w32 = torch.from_numpy(rng.normal(0, 0.1, (cout, cin, 3, 3)).astype(
             np.float32)).to(DEVICE).contiguous(memory_format=torch.channels_last)
-        b = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)).to(DEVICE)
+        b32 = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)
+                               ).to(DEVICE)
+        return x32, w32, b32
+
+    max_err, totals = 0.0, {}
+    cases = [((BATCH, *shape), count) for shape, count in sorted(shapes.items())]
+    cases += [(shape, 0) for shape in K5_EXTRA_SHAPES]
+    for (bsz, h, w, cin, cout), count in cases:
+        x32, w32, b32 = operands(bsz, h, w, cin, cout)
         for dtype in (torch.float32, torch.bfloat16):
-            x, wt = x32.to(dtype), w32.to(dtype)
-            for act in ("leaky", "linear"):
-                got = conv3x3_fused(x, wt, b, act)
-                want = conv3x3_fused_reference(x, wt, b, act)
-                torch.cuda.synchronize()
-                g, wv = got.float(), want.float()
-                rtol = K5_RTOL if dtype == torch.float32 else K5_BF16_RTOL
-                err = (g - wv).abs()
-                if not (bool(torch.isfinite(g).all())
-                        and bool((err <= K5_ATOL + rtol * wv.abs()).all())):
-                    raise AssertionError(
-                        f"K5 {(h, w, cin, cout)} {dtype} {act}: max |err| "
-                        f"{float(err.max())}")
-                max_err = max(max_err, float(err.max()))
-            ms = cuda_ms(lambda: conv3x3_fused(x, wt, b), iters=5, warmup=1)
-            plain_ms = cuda_ms(lambda: conv3x3_fused_reference(x, wt, b),
-                               iters=5, warmup=1)
-            xc, bc = x.permute(0, 3, 1, 2), b.to(dtype)
+            name = str(dtype)[6:]
+            # the bias in the working type, as the walk's buffers hold it
+            x, wt, b = x32.to(dtype), w32.to(dtype), b32.to(dtype)
+            what = f"B={bsz} {h}x{w} {cin}->{cout} {name}"
+            max_err = max(max_err, k5_check(x, wt, b, what))
+            if dtype == torch.bfloat16:
+                max_err = max(max_err, k5_check(x, wt, b32,
+                                                what + ", float32 bias"))
+            ms = graph_ms(lambda: conv3x3_fused(x, wt, b))
+            plain_ms = graph_ms(lambda: conv3x3_fused_reference(x, wt, b),
+                                iters=5, warmup=1)
+            xc = x.permute(0, 3, 1, 2)
             # what the main path runs without K5: cuDNN in the working type
             # (TF32 allowed for float32, as at precision None), then leaky
-            cudnn_ms = cuda_ms(lambda: F.leaky_relu(
-                F.conv2d(xc, wt, bc, padding=1), 0.1), iters=5, warmup=1)
-            tot = totals.setdefault(dtype, [0.0, 0.0, 0.0])
-            for i, t in enumerate((ms, plain_ms, cudnn_ms)):
-                tot[i] += count * t
-            flop = 2 * BATCH * h * w * cin * cout * 9
-            log(f"[K5] B={BATCH} {h}x{w} {cin}->{cout} x{count} layers, "
-                f"{str(dtype)[6:]}: leaky/linear within bars; kernel {ms:.4f} ms "
-                f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                f"cuDNN {cudnn_ms:.4f} ms")
+            cudnn_ms = graph_ms(lambda: F.leaky_relu(
+                F.conv2d(xc, wt, b, padding=1), 0.1))
+            if count:
+                tot = totals.setdefault(dtype, [0.0, 0.0, 0.0])
+                for i, t in enumerate((ms, plain_ms, cudnn_ms)):
+                    tot[i] += count * t
+            size = x.element_size()
+            flop = 2 * bsz * h * w * cin * cout * 9
+            nbytes = size * (bsz * h * w * (cin + cout) + 9 * cin * cout)
+            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flop / peak)
+            log(f"[K5] {what} x{count} layers: leaky/linear within bars; "
+                f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, bound "
+                f"{bound_ms:.4f} ms = {bound_ms / ms:.1%} of it), plain "
+                f"{plain_ms:.4f} ms, cuDNN {cudnn_ms:.4f} ms (all three: one "
+                f"call repeated in a CUDA graph, operands hot in L2)")
+    # the tile rule (plan_tiles) on the card: each main-path shape at one
+    # image, where 64-row tiles each get a multiprocessor, and the 13 x 13
+    # shape at the batch, where they do not; both heights held to the bars
+    for bsz, (h, w, cin, cout) in [(1, shape) for shape in sorted(shapes)] + [
+            (BATCH, min(shapes))]:
+        x, wt, b = (t.to(torch.bfloat16) for t in operands(bsz, h, w, cin, cout))
+        chosen = cuda_conv.plan_tiles(bsz * h * w, cout,
+                                      cuda_conv._sm_count(x.get_device()))
+        tile_ms = {}
+        for block_m in (64, 128):
+            cuda_conv.plan_tiles = lambda m, n, sms, block_m=block_m: block_m
+            try:
+                k5_check(x, wt, b, f"B={bsz} {h}x{w} {cin}->{cout} bfloat16, "
+                                   f"{block_m}-row tiles")
+                tile_ms[block_m] = graph_ms(lambda: conv3x3_fused(x, wt, b))
+            finally:
+                cuda_conv.plan_tiles = plan_tiles
+        log(f"[K5] B={bsz} {h}x{w} {cin}->{cout} bfloat16 by tile height: "
+            f"64 rows {tile_ms[64] * 1e3:.1f} us, 128 rows "
+            f"{tile_ms[128] * 1e3:.1f} us; plan_tiles takes {chosen}")
+    # strided views, as the walk produces them: the NHWC view of a
+    # channels_last torch.cat (a route layer's output), and a channel slice
+    # of a wider map (pixel stride above Cin, base off the allocation's start)
+    for dtype in (torch.float32, torch.bfloat16):
+        x32, w32, b32 = operands(2, 19, 19, 256, 128)
+        halves = [x32[..., :128].permute(0, 3, 1, 2).to(dtype).contiguous(
+            memory_format=torch.channels_last), x32[..., 128:].permute(
+            0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)]
+        cat = torch.cat(halves, dim=1).permute(0, 2, 3, 1)
+        wide = torch.cat([x32, x32], dim=3).to(dtype)[..., 64:320]
+        if wide.is_contiguous() or wide.stride(2) != 512:
+            raise AssertionError("the channel slice is not a strided view")
+        for view, what in ((cat, "torch.cat view"), (wide, "channel slice")):
+            max_err = max(max_err, k5_check(
+                view, w32.to(dtype), b32.to(dtype),
+                f"B=2 19x19 256->128 {str(dtype)[6:]} {what}"))
+    log("[K5] strided inputs (channels_last torch.cat view, channel slice "
+        "with pixel stride 512), float32 and bfloat16: within bars")
     for dtype, (ms, plain_ms, cudnn_ms) in totals.items():
         log(f"[K5] yolov3@416 B={BATCH} all {sum(shapes.values())} eligible "
             f"layers, {str(dtype)[6:]}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms")
+            f"{plain_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms (L2-hot graph "
+            f"replays per shape; the main phase's walk is the cold figure)")
     return max_err, totals
-
 
 
 def phase_k3(graph):
@@ -785,7 +896,8 @@ def compact_sets(res):
 
 def phase_main(card: str):
     import torch
-    from yolov3_tpu_torch import Darknet, Detector, forward_compact
+    from yolov3_tpu_torch import (Darknet, Detector, forward_compact,
+                                  forward_features)
     from yolov3_tpu_torch.ops import cuda_conv, cuda_decode, cuda_nms
     from yolov3_tpu_torch.ops.nms import batched_nms_compact
     from yolov3_tpu_torch.ops.preprocess import preprocess
@@ -819,8 +931,10 @@ def phase_main(card: str):
         k.launches = 0
     run_main_path(Detector(nets["none"]), "yolov3", frames, card)
     run_main_path(Detector(nets["bf16"]), "yolov3", frames, card)
-    run_main_path(Detector(nets["bf16-k5"], decode_impl="pallas-fused"),
-                  "yolov3", frames, card, calls=5)
+    run_main_path(Detector(nets["bf16"], decode_impl="pallas-fused"),
+                  "yolov3", frames, card)
+    k5_det = Detector(nets["bf16-k5"], decode_impl="pallas-fused")
+    run_main_path(k5_det, "yolov3", frames, card)
     run_main_path(Detector(nets["none"], decode_impl="xla"), "yolov3", frames, card)
     run_main_path(Detector(tiny), "yolov3-tiny", frames, card)
     # forward_compact through K1c against the plain compact decode, on the
@@ -845,7 +959,6 @@ def phase_main(card: str):
 
     # Darknet(x): the decoded (B, N, 5+C) tensor through K3, against the
     # plain decode of the same head maps
-    from yolov3_tpu_torch import forward_features
     from yolov3_tpu_torch.ops import decode as plain_decode
 
     with torch.inference_mode():
@@ -864,6 +977,39 @@ def phase_main(card: str):
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {kernel}")
+    # after the read of the counts, which are the main path's own: the
+    # fused-conv route by stage, beside the routes that leave the convs to
+    # cuDNN; the walk also as device time alone (replayed from a CUDA
+    # graph: every layer's weights come from device memory, not from L2 as
+    # in the k5 phase), and K5's launches in one call: every eligible layer
+    x = preprocess(torch.from_numpy(frames).to(DEVICE).flip(-1), k5_det.net_hw,
+                   interp=k5_det._interp_for(SRC_HW))
+    routes = (("bf16 + K1", Detector(nets["bf16"])),
+              ("bf16 + K4", Detector(nets["bf16"], decode_impl="pallas-fused")),
+              ("bf16 + K4 + K5", k5_det))
+    # all eager splits before any graph capture: taken after one in the same
+    # process they read up to 1.5x slower (seen on the card, cause not
+    # isolated)
+    splits = [stage_split(det, frames, calls=10) for _, det in routes]
+    for (name, det), split in zip(routes, splits):
+        net = det.net
+        with torch.inference_mode():
+            walk_ms = graph_ms(lambda: forward_features(
+                net.graph, net.params, x, net.precision, net.conv_impl,
+                stop_before_heads=det.route == "pallas-fused"), iters=5)
+        log(f"[main] yolov3@416 B={BATCH} {name}: stage split ms (CUDA "
+            f"events, median of 10) " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split.items())
+            + f"; the walk's device time {walk_ms:.3f} ms (CUDA graph replay)")
+    before = cuda_conv.conv3x3_fused.launches
+    k5_det.detect_batch(frames)
+    per_call = cuda_conv.conv3x3_fused.launches - before
+    eligible = sum(k5_shapes(nets["bf16-k5"].graph).values())
+    if per_call != eligible:
+        raise AssertionError(f"K5 launched {per_call} times in one call, the "
+                             f"graph has {eligible} eligible convs")
+    log(f"[main] yolov3@416 bf16 + K4 + K5: {per_call} K5 launches per call "
+        f"(every eligible 3x3 conv)")
     # the bf16 bar where the reference holds it (tests/test_compact_path.py:
     # tiny@416, random weights of seed 3, uniform inputs); at yolov3's depth
     # random weights amplify rounding, so its shares are reported, not gated
@@ -923,12 +1069,13 @@ def device_busy_ms(fn):
     return total / 1e3 if total > 0 else None
 
 
-def int8_stage_split(det, frames: np.ndarray, calls: int = 5):
-    """Median device ms (CUDA events) of the stages of one quantized
-    ``detect_batch``: H2D, flip + preprocess, the int8 walk, the decode,
-    selection + K2 + compaction + pack."""
+def stage_split(det, frames: np.ndarray, calls: int):
+    """Median device ms (CUDA events) of the stages of one ``detect_batch``
+    on the packed routes, float or quantized: H2D, flip + preprocess, the
+    walk, the decode (K1, or K4 with the head convs), selection + K2 +
+    compaction + pack."""
     import torch
-    from yolov3_tpu_torch import quant
+    from yolov3_tpu_torch import forward_features, quant
     from yolov3_tpu_torch.ops.cuda_decode import decode_packed, decode_packed_fused
     from yolov3_tpu_torch.ops.nms import batched_nms_packed, pack_results
     from yolov3_tpu_torch.ops.preprocess import preprocess
@@ -938,6 +1085,32 @@ def int8_stage_split(det, frames: np.ndarray, calls: int = 5):
     rows = []
     anchors, strides, ncls = head_spec(net.graph)
     fused = det.route == "pallas-fused"
+    head_convs = [yn.inputs[0] for yn in net.graph.yolo_nodes]
+    if net.quantized:
+        # HWIO int8-tier weights: (1, 1, Cin, Cout) -> (Cout, Cin)
+        ws = [net.qparams[i]["w"] for i in head_convs]
+        ws = [w.reshape(w.shape[2], w.shape[3]).t() for w in ws]
+        bs = [net.qparams[i]["b"] for i in head_convs]
+    else:
+        params = net.params
+        ws = [params[i]["w"] for i in head_convs]  # OIHW, 1x1
+        ws = [w.reshape(w.shape[0], w.shape[1]) for w in ws]
+        bs = [params[i]["b"] for i in head_convs]
+
+    def walk(x):
+        if not net.quantized:
+            return forward_features(net.graph, params, x, net.precision,
+                                    net.conv_impl, stop_before_heads=fused)
+        if net.qcarrier == "int8":
+            return quant.forward_features_int8_carrier(
+                net.graph, net.qparams, net.act_scales, x,
+                net.precision or "bf16", stop_before_heads=fused,
+                block_impl=det.block_impl, tensor_zeros=net.act_zeros,
+                operands=net.qoperands)
+        return quant.forward_features_int8(
+            net.graph, net.qparams, net.act_scales, x,
+            net.precision or "bf16", operands=net.qoperands)
+
     with torch.inference_mode():
         for _ in range(calls + 1):
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -947,21 +1120,9 @@ def int8_stage_split(det, frames: np.ndarray, calls: int = 5):
             x = preprocess(dev.flip(-1), det.net_hw, mode=det.resize_mode,
                            interp=det._interp_for(SRC_HW))
             marks[2].record()
-            kw = dict(block_impl=det.block_impl, tensor_zeros=net.act_zeros,
-                      operands=net.qoperands)
-            if net.qcarrier == "int8":
-                heads = quant.forward_features_int8_carrier(
-                    net.graph, net.qparams, net.act_scales, x,
-                    net.precision or "bf16", stop_before_heads=fused, **kw)
-            else:
-                heads = quant.forward_features_int8(
-                    net.graph, net.qparams, net.act_scales, x,
-                    net.precision or "bf16", operands=net.qoperands)
+            heads = walk(x)
             marks[3].record()
             if fused:
-                ws = [net.qparams[yn.inputs[0]]["w"] for yn in net.graph.yolo_nodes]
-                ws = [w.reshape(w.shape[2], w.shape[3]).t() for w in ws]
-                bs = [net.qparams[yn.inputs[0]]["b"] for yn in net.graph.yolo_nodes]
                 payload, scores = decode_packed_fused(heads, ws, bs, anchors, strides,
                                                       ncls, det.prob_thresh)
             else:
@@ -1061,7 +1222,7 @@ def phase_int8(card: str):
             raise AssertionError(f"the int8 main path never launched {kernel}")
     for name, det in dets.items():
         per_forward = per_forwards[name]
-        split = int8_stage_split(det, frames)
+        split = stage_split(det, frames, calls=5)
         busy = device_busy_ms(lambda: det.detect_batch(frames))
         log(f"[int8] {name}: K6 launches per forward {per_forward:.0f}; stage "
             f"ms (CUDA events, median of 5) "

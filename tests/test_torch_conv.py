@@ -67,6 +67,29 @@ def test_k5_bf16_plain_rounds_once():
     assert torch.equal(got, want.to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("activation", ["leaky", "linear"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k5_bf16_plain_matches_pallas(shape, activation):
+    """bf16 operands: the plain version against the JAX kernel on the same
+    bf16 values. Both sum in float32 and round once to bf16, in different
+    orders, so they agree to one bf16 ulp (rtol 2^-7); near zero, where an
+    ulp is tiny, a float32 summation-order difference decides the rounding,
+    hence the float32 bar's atol on top."""
+    x, w, b = _operands(shape, seed=sum(shape) + 1)
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    want = pallas_conv.conv3x3_fused_roll2(xb, wb, jnp.asarray(b),
+                                           activation=activation, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    got = cuda_conv.conv3x3_fused(
+        torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16),
+        _oihw(np.asarray(wb.astype(jnp.float32))).to(torch.bfloat16),
+        torch.from_numpy(b), activation=activation)
+    assert got.is_contiguous() and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=5e-5, rtol=2.0 ** -7)
+
+
 def test_supported_matches_jax():
     cases = [(3, 1, 256, "leaky"), (1, 1, 256, "leaky"), (3, 2, 256, "leaky"),
              (3, 1, 3, "leaky"), (3, 1, 32, "leaky"), (3, 1, 256, "mish"),
@@ -100,6 +123,84 @@ def test_forward_features_fused_conv_matches_jax(precision):
         assert tuple(gh.shape) == wh.shape
         np.testing.assert_allclose(gh.numpy(), np.asarray(wh), rtol=1e-4,
                                    atol=1e-5)
+
+
+# (B, H, W, Cin, Cout): yolov3@416's three eligible layer shapes at batch 8,
+# the ragged test shapes, a yolov3@608 layer, and single images
+PLAN_SHAPES = [(8, 52, 52, 128, 256), (8, 26, 26, 256, 512),
+               (8, 13, 13, 512, 1024), (8, 76, 76, 128, 256), *SHAPES,
+               (1, 13, 13, 512, 1024), (1, 52, 52, 128, 256),
+               (1, 10, 10, 512, 1000)]
+H100_SMS = 132
+
+
+def _grid(m, cout, block_m):
+    """The kernel's grid for ``block_m``-row tiles (csrc/conv3x3.cu)."""
+    return -(-m // block_m), -(-cout // cuda_conv.BLOCK_N)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tile_plan_covers_the_output_once_and_fits(shape):
+    """The grid the kernel derives from ``block_m`` (ceil(M / block_m) x
+    ceil(Cout / 128)) covers every output element once, with no empty
+    block; that the ring fits a block's shared memory is the header's
+    ``static_assert``."""
+    bsz, h, w, _, cout = shape
+    m = bsz * h * w
+    block_m = cuda_conv.plan_tiles(m, cout, H100_SMS)
+    assert block_m in (64, 128)
+    grid = _grid(m, cout, block_m)
+    count = np.zeros((m, cout), np.int32)
+    for i in range(grid[0]):
+        for j in range(grid[1]):
+            rows = slice(i * block_m, min((i + 1) * block_m, m))
+            cols = slice(j * cuda_conv.BLOCK_N,
+                         min((j + 1) * cuda_conv.BLOCK_N, cout))
+            assert rows.start < m and cols.start < cout  # no empty block
+            count[rows, cols] += 1
+    assert (count == 1).all()
+    # 64-row tiles exactly while each gets a multiprocessor of its own
+    tiles64 = -(-m // 64) * grid[1]
+    assert (block_m == 64) == (tiles64 <= H100_SMS)
+    if block_m == 64:
+        assert grid[0] * grid[1] <= H100_SMS
+
+
+def test_tile_plan_of_the_main_path():
+    """yolov3@416, batch 8: 128-row tiles at all three layer shapes. At
+    13 x 13 that is 88 blocks for 132 multiprocessors; 176 blocks of 64 rows
+    were measured slower on the card (the busiest multiprocessor does the
+    same work, and the weights are read twice as often)."""
+    grids = {hw: _grid(8 * hw * hw, cout,
+                       cuda_conv.plan_tiles(8 * hw * hw, cout, H100_SMS))
+             for hw, cout in ((52, 256), (26, 512), (13, 1024))}
+    assert grids == {52: (169, 2), 26: (43, 4), 13: (11, 8)}
+    # a card with fewer multiprocessors never gets smaller tiles
+    assert cuda_conv.plan_tiles(8 * 13 * 13, 1024, 64) == 128
+    # a single image does: 22 x 8 tiles of 64 rows would not fit, 3 x 8 do
+    assert _grid(13 * 13, 1024,
+                 cuda_conv.plan_tiles(13 * 13, 1024, H100_SMS)) == (3, 8)
+
+
+def test_k5_layout_check_by_type():
+    """Rows are read in 16-byte pieces: strides in multiples of 4 float32 or
+    8 bfloat16 elements. A pixel stride of 132 elements is fine for float32
+    and refused for bfloat16."""
+    w = torch.zeros(8, 3, 3, 128)
+    wide = torch.zeros(1, 4, 4, 132)
+    cuda_conv._check_layout(wide[..., :128], w)
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        cuda_conv._check_layout(wide.to(torch.bfloat16)[..., :128],
+                                w.to(torch.bfloat16))
+    cuda_conv._check_layout(torch.zeros(1, 4, 4, 136, dtype=torch.bfloat16)
+                            [..., :128], w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="multiples of 4 elements"):
+        cuda_conv._check_layout(torch.zeros(1, 4, 4, 130)[..., :128], w)
+    with pytest.raises(ValueError, match="channels_last OIHW"):
+        cuda_conv._check_layout(wide[..., :128], w.permute(0, 3, 1, 2))
+    with pytest.raises(ValueError, match="channel stride 1"):
+        cuda_conv._check_layout(torch.zeros(1, 128, 4, 4).permute(0, 2, 3, 1), w)
 
 
 def test_k5_wrapper_rejects_what_the_kernel_does_not_take():

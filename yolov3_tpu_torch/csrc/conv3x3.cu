@@ -6,7 +6,7 @@
 // which compute the same function with other TPU layouts). Input x is NHWC
 // (B, H, W, Cin), channel stride 1 (the port's channels_last activations
 // read as they are); weights w are (Cout, 3, 3, Cin) in memory (the port's
-// channels_last OIHW buffers), bias float32 (Cout). Output y is NHWC
+// channels_last OIHW buffers), bias float32 or bf16 (Cout). Output y is NHWC
 // (B, H, W, Cout), contiguous, in x's type:
 //
 //   y[b, i, j, n] = act(sum_{ky, kx, c} x[b, i+ky-1, j+kx-1, c]
@@ -15,14 +15,21 @@
 // with zero padding outside the image, float32 accumulation for float32 or
 // bf16 operands, and one rounding to x's type at the store.
 //
-// What bounds it on the H100: arithmetic. The 29 eligible layers of yolov3
-// at 416 do 370 GFLOP per batch-8 call while moving about 0.6 GB, so a
-// kernel at the 67 TFLOP/s float32 CUDA-core rate would need 5.5 ms; cuDNN
-// reaches the tensor cores (989 TFLOP/s bf16, 495 TF32) and will stay far
-// ahead of this kernel. A later PR moves the main loop to wgmma with TMA
-// tile loads.
+// Two kernels, chosen by the operands' type in the C entry:
 //
-// Design (a simple kernel that is right): implicit GEMM with
+// bf16: conv3x3_mma_kernel (conv3x3_mma.cuh), an implicit GEMM on the tensor
+// cores (wgmma) with asynchronous tile loads and the epilogue fused. What
+// bounds it and what its design does about that is written there: shared-
+// memory bandwidth in the main loop, unhidden fill and epilogue per tile,
+// idle multiprocessors at the 26 x 26 and 13 x 13 tile counts. The 29
+// eligible layers of yolov3 at 416, batch 8, are 370 GFLOP: 0.374 ms at the
+// 989 TFLOP/s bf16 peak.
+//
+// float32: conv3x3_kernel below, on the CUDA cores. The float32 bar (atol
+// 5e-5, rtol 1e-4 against the float32 plain version) and precision
+// "highest" rule out TF32, so the tensor cores are not an option for
+// float32 operands; the 67 TFLOP/s float32 rate makes 5.5 ms the least the
+// 29 layers could take. Its design: implicit GEMM with
 // M = B*H*W output pixels, N = Cout, K = 9*Cin in (tap, channel) order. A
 // block of 256 threads computes a 128-pixel x 128-channel tile; thread
 // (ty, tx) of a 16 x 16 grid owns an 8 x 8 sub-tile (pixels ty*4+{0..3} and
@@ -38,8 +45,7 @@
 // the intrinsic). The epilogue adds the bias, applies the activation and
 // makes one store per output element.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv3x3_mma.cuh"
 
 #define K5_THREADS 256
 #define K5_BM 128
@@ -47,31 +53,17 @@
 #define K5_BK 8
 #define K5_PAD 4  // row stride 132 floats: 16-byte aligned, spreads banks
 
-typedef unsigned short bf16_bits;
-
-// four consecutive elements of a row, widened to float (exact for bf16)
+// four consecutive elements of a row
 __device__ __forceinline__ float4 k5_load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
-__device__ __forceinline__ float4 k5_load4(const bf16_bits* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
 
-__device__ __forceinline__ void k5_store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void k5_store(bf16_bits* p, float v) {
-  *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16_rn(v);
-}
-
-template <typename T, bool LEAKY>
+template <bool LEAKY>
 __global__ void __launch_bounds__(K5_THREADS)
-conv3x3_kernel(const T* __restrict__ x, long long sb, long long sy,
-               long long sx, const T* __restrict__ w,
-               const float* __restrict__ bias, int batch, int h, int wd,
-               int cin, int cout, T* __restrict__ y) {
+conv3x3_kernel(const float* __restrict__ x, long long sb, long long sy,
+               long long sx, const float* __restrict__ w,
+               const void* __restrict__ bias, int bias_bf16, int batch, int h,
+               int wd, int cin, int cout, float* __restrict__ y) {
   __shared__ __align__(16) float as[2][K5_BK][K5_BM + K5_PAD];
   __shared__ __align__(16) float bs[2][K5_BK][K5_BN + K5_PAD];
 
@@ -94,10 +86,10 @@ conv3x3_kernel(const T* __restrict__ x, long long sb, long long sy,
     py = rem / wd;
     px = rem - py * wd;
   }
-  const T* x_pix = x + pb * sb + ld_k;
+  const float* x_pix = x + pb * sb + ld_k;
   const int gn = n0 + ld_row;
   const bool n_ok = gn < cout;
-  const T* w_row = w + (long long)(n_ok ? gn : 0) * 9 * cin + ld_k;
+  const float* w_row = w + (long long)(n_ok ? gn : 0) * 9 * cin + ld_k;
 
   const int chunks_per_tap = cin / K5_BK;
   const int steps = 9 * chunks_per_tap;
@@ -160,62 +152,103 @@ conv3x3_kernel(const T* __restrict__ x, long long sb, long long sy,
     __syncthreads();
   }
 
-  // epilogue: bias, activation, one store per element in x's type
+  // epilogue: bias, activation, one store per element
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const long long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
     if (m >= m_total) continue;
-    T* out = y + m * cout;
+    float* out = y + m * cout;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
       if (n >= cout) continue;
-      float v = acc[i][j] + bias[n];
+      float v = acc[i][j] + k5_bias(bias, bias_bf16, n);
       if (LEAKY) v = v > 0.0f ? v : 0.1f * v;
-      k5_store(out + n, v);
+      out[n] = v;
     }
   }
 }
 
-template <typename T>
-static void launch_conv(bool leaky, dim3 grid, cudaStream_t s, const T* x,
-                        long long sb, long long sy, long long sx, const T* w,
-                        const float* bias, int batch, int h, int wd, int cin,
-                        int cout, T* y) {
-  if (leaky)
-    conv3x3_kernel<T, true><<<grid, K5_THREADS, 0, s>>>(
-        x, sb, sy, sx, w, bias, batch, h, wd, cin, cout, y);
-  else
-    conv3x3_kernel<T, false><<<grid, K5_THREADS, 0, s>>>(
-        x, sb, sy, sx, w, bias, batch, h, wd, cin, cout, y);
+
+#define K5T_MAX_DEVICES 64
+
+// launches the tensor-core kernel on BM x 128 tiles; its dynamic shared
+// memory is above the 48 KB a kernel gets without asking
+template <int BM>
+static cudaError_t launch_mma(bool leaky, cudaStream_t s, const bf16_bits* x,
+                              long long sb, long long sy, long long sx,
+                              const bf16_bits* w, const void* bias,
+                              int bias_bf16, int batch, int h, int wd, int cin,
+                              int cout, bf16_bits* y) {
+  constexpr int SMEM = (int)k5t_smem_bytes(BM);
+  auto kernel = leaky ? conv3x3_mma_kernel<BM, true>
+                      : conv3x3_mma_kernel<BM, false>;
+  // once per kernel instance and device (a repeat by a racing thread is
+  // harmless)
+  static bool allowed[2][K5T_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= K5T_MAX_DEVICES || !allowed[leaky][dev]) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev < K5T_MAX_DEVICES) allowed[leaky][dev] = true;
+  }
+  const dim3 grid((unsigned)((batch * h * wd + BM - 1) / BM),
+                  (unsigned)((cout + K5T_BN - 1) / K5T_BN));
+  kernel<<<grid, BM * 2, SMEM, s>>>(x, sb, sy, sx, w, bias, bias_bf16, batch,
+                                    h, wd, cin, cout, y);
+  return cudaGetLastError();
 }
 
 // C entry (ctypes). x: float32 (is_bf16 = 0) or bf16 (is_bf16 = 1) NHWC
 // activation addressed as x[b * sb + i * sy + j * sx + channel], channel
-// stride 1, with sb, sy, sx multiples of 4; w: the same type, (cout, 3, 3,
-// cin) contiguous; bias: float32 (cout); y: x's type, (batch, h, wd, cout)
-// contiguous. cin must be a multiple of 8 (the eligibility gate asks for
-// 128). leaky = 1 applies LeakyReLU(0.1), 0 is linear. Launches on
-// `stream`, allocates nothing, returns cudaGetLastError().
+// stride 1; w: the same type, (cout, 3, 3, cin) contiguous; bias: float32
+// (bias_bf16 = 0) or bf16 (bias_bf16 = 1), (cout); y: x's type, (batch, h,
+// wd, cout) contiguous. leaky = 1 applies LeakyReLU(0.1), 0 is linear.
+// float32 runs the CUDA-core kernel (TF32 would miss the float32 bar):
+// sb, sy, sx multiples of 4, cin a multiple of 8; block_m is not read.
+// bf16 runs the tensor-core kernel on block_m x 128 tiles (the caller's
+// tile plan: 128 or 64): sb, sy, sx multiples of 8 (16-byte rows), cin a
+// multiple of 128, batch * h * wd below 2^31 - 128. Launches on `stream`,
+// allocates nothing, returns the first CUDA error or 0.
 extern "C" int yolo_conv3x3_fused(const void* x, long long sb, long long sy,
                                   long long sx, int is_bf16, const void* w,
-                                  const float* bias, int batch, int h, int wd,
-                                  int cin, int cout, int leaky, void* y,
-                                  void* stream) {
-  if (batch < 1 || h < 1 || wd < 1 || cin < K5_BK || cin % K5_BK != 0 ||
-      cout < 1 || sb % 4 || sy % 4 || sx % 4)
+                                  const void* bias, int bias_bf16, int batch,
+                                  int h, int wd, int cin, int cout, int leaky,
+                                  int block_m, void* y, void* stream) {
+  if (batch < 1 || h < 1 || wd < 1 || cout < 1)
     return (int)cudaErrorInvalidValue;
   const long long m_total = (long long)batch * h * wd;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    if (cin < 128 || cin % 128 || sb % 8 || sy % 8 || sx % 8 ||
+        m_total > 0x7fffffffLL - 128)
+      return (int)cudaErrorInvalidValue;
+    const bf16_bits* xb = (const bf16_bits*)x;
+    const bf16_bits* wb = (const bf16_bits*)w;
+    if (block_m == 128)
+      return (int)launch_mma<128>(leaky != 0, s, xb, sb, sy, sx, wb, bias,
+                                  bias_bf16, batch, h, wd, cin, cout,
+                                  (bf16_bits*)y);
+    if (block_m == 64)
+      return (int)launch_mma<64>(leaky != 0, s, xb, sb, sy, sx, wb, bias,
+                                 bias_bf16, batch, h, wd, cin, cout,
+                                 (bf16_bits*)y);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (cin < K5_BK || cin % K5_BK || sb % 4 || sy % 4 || sx % 4)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((m_total + K5_BM - 1) / K5_BM),
                   (unsigned)((cout + K5_BN - 1) / K5_BN));
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    launch_conv<bf16_bits>(leaky != 0, grid, s, (const bf16_bits*)x, sb, sy,
-                           sx, (const bf16_bits*)w, bias, batch, h, wd, cin,
-                           cout, (bf16_bits*)y);
+  if (leaky)
+    conv3x3_kernel<true><<<grid, K5_THREADS, 0, s>>>(
+        (const float*)x, sb, sy, sx, (const float*)w, bias, bias_bf16, batch,
+        h, wd, cin, cout, (float*)y);
   else
-    launch_conv<float>(leaky != 0, grid, s, (const float*)x, sb, sy, sx,
-                       (const float*)w, bias, batch, h, wd, cin, cout,
-                       (float*)y);
+    conv3x3_kernel<false><<<grid, K5_THREADS, 0, s>>>(
+        (const float*)x, sb, sy, sx, (const float*)w, bias, bias_bf16, batch,
+        h, wd, cin, cout, (float*)y);
   return (int)cudaGetLastError();
 }

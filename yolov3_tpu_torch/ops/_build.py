@@ -2,13 +2,14 @@
 
 ``csrc/*.cu`` (the serving kernels K1-K6 and ``probe.cu``, the diagnostic
 tools' kernels) compile with ``nvcc`` into ONE shared library with a plain C
-interface, loaded with ``ctypes``; ``decode_common.cuh`` and
-``block_int8_common.cuh`` (K6's arithmetic, shared with the probes) are
-their headers. The build runs at first use from the
-sources in the checkout and lands in ``build/kernels/`` at the repository
-root (git-ignored): one ``nvcc -c`` per source, all started together, then
-one link. The library's file name carries a hash of the sources, headers
-and flags, so an edited source is rebuilt, never silently reused.
+interface, loaded with ``ctypes``; ``decode_common.cuh``,
+``block_int8_common.cuh`` (K6's arithmetic, shared with the probes) and
+``conv3x3_mma.cuh`` (K5's tensor-core kernel) are their headers. The build
+runs at first use from the sources in the checkout and lands in
+``build/kernels/`` at the repository root (git-ignored): one ``nvcc -c`` per
+source, all started together, then one link. The library's file name carries
+a hash of the sources, headers and flags, so an edited source is rebuilt,
+never silently reused.
 
 There is no fallback: without ``nvcc``, or when it fails, or when the
 library does not load, :func:`build_kernels` / :func:`load_kernels` raise
@@ -29,7 +30,8 @@ from typing import Optional, Union
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_packed.cu", "decode_fused.cu", "decode_full.cu",
            "conv3x3.cu", "block_int8.cu", "nms_suppress.cu", "probe.cu")
-HEADERS = ("decode_common.cuh", "block_int8_common.cuh")
+HEADERS = ("decode_common.cuh", "block_int8_common.cuh",
+           "conv3x3_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false and no --use_fast_math: the decode and suppression epilogues
@@ -118,7 +120,8 @@ def load_kernels() -> ctypes.CDLL:
         p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, anchors,
         f32, f32, i32, i32, p, p]
     lib.yolo_conv3x3_fused.argtypes = [
-        p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, p, p]
+        p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
+        p, p]
     lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p]
     lib.yolo_decode_full_head.argtypes = [
         p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, p, p]

@@ -18,8 +18,13 @@ each raises on failure (the build always runs):
 4. K2 (suppression) against its plain version, K = 512 and 256, batch 8;
 5. K3 (full decode) against the plain decode on the three yolov3@416 B=8
    heads, float32 and bf16 maps: exact;
-6. K4 (head-fused decode) at the three yolov3@416 B=8 pre-head shapes,
-   float32 and bf16 operands;
+6. K4 (head-fused decode: the tensor-core kernel at bf16, the CUDA-core
+   kernel at float32) at the three yolov3@416 B=8 pre-head shapes, float32
+   and bf16 operands (bf16 over four seeds), then off the main path at
+   B=1, at 608, on tiny, with 20, 150 and 251 classes, on a channel slice,
+   and the inputs it must refuse; per head and over the three, the
+   kernel's, its plain version's and cuDNN 1x1 + K1's device time from
+   replayed CUDA graphs, and the bf16 kernel's time at each tile choice;
 7. K5 (fused 3x3 conv: the tensor-core kernel at bf16, the CUDA-core kernel
    at float32) at every distinct eligible yolov3@416 B=8 layer shape, at
    three ragged shapes, one yolov3@608 layer and an odd Cout, and on
@@ -40,8 +45,8 @@ each raises on failure (the build always runs):
     at 416 on 8 frames of 480x640: yolov3 precision None (K1), bf16 (K1 on
     bf16 maps), bf16 with the fused head (K4), bf16 with the fused head and
     fused convs (K4, K5), None on the compact route, and yolov3-tiny; the
-    three bf16 routes by stage, their walks' device time from a replayed
-    CUDA graph, K5's launches per call; ``forward_compact`` through K1c
+    three bf16 routes by stage, their walks' and decodes' device time from
+    replayed CUDA graphs, K5's launches per call; ``forward_compact`` through K1c
     against the plain compact decode; ``Darknet(x)`` through K3; and the
     bf16 parity bar against "highest";
 12. int8, the full-width int8 tier: ``quantize_int8`` of yolov3 on 8 seeded
@@ -60,6 +65,8 @@ each raises on failure (the build always runs):
     over the tools' shape lists, checked against their plain versions, then
     timed by the tools' own clocks: time per step, useful rate, share of the
     card's peak (above 100% fails), the library's product at the same shape;
+    T1's step, T3a and their library products also as device time alone
+    (replayed CUDA graphs);
 15. native: the C++ host loader built with g++ (required here), its
     letterbox and stretch held to the device preprocess on seeded frames;
 16. entry, the entry-point path at full width (yolov3@416, bf16, batch 8,
@@ -321,96 +328,237 @@ def phase_k2():
     return max_err, times
 
 
+def k4_heads(graph, size: int, bsz: int, rng, ncls=None, dtype=None):
+    """Seeded K4 operands at ``graph``'s pre-head shapes for a ``size``
+    input: per head (x (B, g, g, Cin), w (Cout, Cin), bias float32), with
+    ``ncls`` classes in place of the graph's when given."""
+    import torch
+
+    heads = []
+    for yn, s in zip(graph.yolo_nodes, graph.head_strides()):
+        hc = graph.nodes[yn.inputs[0]]
+        cin = graph.nodes[hc.inputs[0]].out_channels
+        cout = hc.filters if ncls is None else len(yn.anchors) * (5 + ncls)
+        g = size // s
+        x = rng.normal(0, 1, (bsz, g, g, cin)).astype(np.float32)
+        w = rng.normal(0, 1 / np.sqrt(cin), (cout, cin)).astype(np.float32)
+        b = rng.normal(0, 0.5, cout).astype(np.float32)
+        heads.append(tuple(torch.from_numpy(v).to(DEVICE) for v in (x, w, b)))
+    if dtype is not None:
+        heads = [(x.to(dtype), w.to(dtype), b) for x, w, b in heads]
+    return heads
+
+
+def k4_check(heads, anchors, strides, ncls, what: str):
+    """K4 on ``heads`` [(x, w, bias)] against its plain version, within
+    K4's bars: scores, boxes where both keep the candidate, the candidate
+    lane exactly, the class lane exactly outside the K4_MARGIN logit margin.
+    Returns (max |err|, cell-anchors inside the margin)."""
+    import torch
+    from yolov3_tpu_torch.ops.cuda_decode import (
+        decode_packed_fused, decode_packed_fused_head_reference)
+    from yolov3_tpu_torch.precision import tf32
+
+    xs, ws, bs = zip(*heads)
+    got, _ = decode_packed_fused(xs, ws, bs, anchors, strides, ncls, 0.2)
+    off, wants, nears = 0, [], []
+    for (x, w, b), a, s in zip(heads, anchors, strides):
+        wants.append(decode_packed_fused_head_reference(x, w, b, a, s, ncls,
+                                                        0.2, off))
+        off += wants[-1].shape[1]
+        with tf32(False):  # the plain head map, for the class margins
+            h = x.reshape(-1, x.shape[3]).float() @ w.float().T + b
+        cls = h.reshape(-1, len(a), 5 + ncls)[..., 5:]
+        top2 = cls.topk(2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= K4_MARGIN   # (cells, a)
+        nears.append(near.reshape(x.shape[0], -1, len(a)).permute(0, 2, 1)
+                     .reshape(x.shape[0], -1))
+    want, near = torch.cat(wants, dim=1), torch.cat(nears, dim=1)
+    torch.cuda.synchronize()
+    se, sw = got[..., 4], want[..., 4]
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or not bool(
+            ((se - sw).abs() <= K4_SCORE_ATOL + K4_SCORE_RTOL * sw.abs()).all()):
+        raise AssertionError(f"{what}: scores off, max |err| "
+                             f"{float((se - sw).abs().max())}")
+    both = (se > 0) & (sw > 0)
+    box_err = (got[..., :4] - want[..., :4]).abs()[both]
+    if not bool((box_err <= K4_BOX_ATOL + K4_SCORE_RTOL
+                 * want[..., :4].abs()[both]).all()):
+        raise AssertionError(f"{what}: boxes off, max |err| {float(box_err.max())}")
+    if not torch.equal(got[..., 6], want[..., 6]):
+        raise AssertionError(f"{what}: candidate lane differs")
+    bad_cls = (got[..., 5] != want[..., 5]) & ~near
+    if bool(bad_cls.any()):
+        raise AssertionError(f"{what}: class lane differs in "
+                             f"{int(bad_cls.sum())} records outside the margin")
+    err = max(float((se - sw).abs().max()),
+              float(box_err.max()) if box_err.numel() else 0.0)
+    return err, int(near.sum())
+
+
+def k4_bound(x, cout: int, n_anchors: int):
+    """(operations, bytes, bound ms, bound by) of K4 on one head: x and w
+    read once, the records written once; operations at the peak of x's
+    type."""
+    import torch
+
+    bsz, g, _, cin = x.shape
+    es = x.element_size()
+    flop = 2 * bsz * g * g * cin * cout
+    nbytes = es * (bsz * g * g * cin + cin * cout) + 32 * bsz * n_anchors * g * g
+    peak = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flop / peak * 1e3
+    return flop, nbytes, max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
 def phase_k4(graph):
-    """K4 at yolov3@416 B=8's three pre-head shapes, float32 and bf16."""
+    """K4 at yolov3@416 B=8's three pre-head shapes, float32 and bf16
+    operands, bf16 over four seeds; off the main path yolov3@416 B=1,
+    yolov3@608, yolov3-tiny, 20-, 150- and 251-class heads, a strided view
+    and the refusals; both tile heights. Times (graph replay): K4, its plain
+    version, cuDNN 1x1 head conv + K1, per head and over the three."""
     import torch
     import torch.nn.functional as F
+    from yolov3_tpu_torch.graph import load_graph
+    from yolov3_tpu_torch.ops import cuda_decode
+    from yolov3_tpu_torch.ops._build import sm_count
     from yolov3_tpu_torch.ops.cuda_decode import (
-        decode_packed, decode_packed_fused, decode_packed_fused_head_reference)
+        decode_packed_fused, decode_packed_fused_head,
+        decode_packed_fused_head_reference, decode_packed_head)
     from yolov3_tpu_torch.precision import tf32
 
     anchors, strides, ncls = head_spec(graph)
-    rng = np.random.default_rng(4)
-    shapes, times, max_err = [], {}, 0.0
-    xs32, ws32, bs = [], [], []
-    for yn, s in zip(graph.yolo_nodes, strides):
-        hc = graph.nodes[yn.inputs[0]]
-        cin = graph.nodes[hc.inputs[0]].out_channels
-        g = 416 // s
-        shapes.append((g, cin, hc.filters))
-        xs32.append(torch.from_numpy(rng.normal(0, 1, (BATCH, g, g, cin))
-                                     .astype(np.float32)).to(DEVICE))
-        ws32.append(torch.from_numpy(rng.normal(0, 1 / np.sqrt(cin),
-                                                (hc.filters, cin))
-                                     .astype(np.float32)).to(DEVICE))
-        bs.append(torch.from_numpy(rng.normal(0, 0.5, hc.filters)
-                                   .astype(np.float32)).to(DEVICE))
+    times, max_err = {}, 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        xs = [x.to(dtype) for x in xs32]
-        ws = [w.to(dtype) for w in ws32]
-        got, _ = decode_packed_fused(xs, ws, bs, anchors, strides, ncls, 0.2)
-        off, parts, margins_in = 0, [], 0
-        for x, w, b, a, s in zip(xs, ws, bs, anchors, strides):
-            parts.append(decode_packed_fused_head_reference(x, w, b, a, s, ncls,
-                                                            0.2, off))
-            off += parts[-1].shape[1]
-            with tf32(False):  # the plain head map, for the class margins
-                h = x.reshape(-1, x.shape[3]).float() @ w.float().T + b
-            cls = h.reshape(-1, len(a), 5 + ncls)[..., 5:]
-            top2 = cls.topk(2, dim=-1).values
-            near = (top2[..., 0] - top2[..., 1]) <= K4_MARGIN   # (cells, a)
-            parts[-1] = (parts[-1], near.reshape(BATCH, -1, len(a))
-                         .permute(0, 2, 1).reshape(BATCH, -1))
-            margins_in += int(near.sum())
-        want = torch.cat([p[0] for p in parts], dim=1)
-        near = torch.cat([p[1] for p in parts], dim=1)
-        torch.cuda.synchronize()
-        what = f"K4 {str(dtype)[6:]}"
-        se, sw = got[..., 4], want[..., 4]
-        if not bool((torch.isfinite(got)).all()) or not bool(
-                ((se - sw).abs() <= K4_SCORE_ATOL + K4_SCORE_RTOL * sw.abs()).all()):
-            raise AssertionError(f"{what}: scores off, max |err| "
-                                 f"{float((se - sw).abs().max())}")
-        both = (se > 0) & (sw > 0)
-        box_err = (got[..., :4] - want[..., :4]).abs()[both]
-        if not bool((box_err <= K4_BOX_ATOL + K4_SCORE_RTOL
-                     * want[..., :4].abs()[both]).all()):
-            raise AssertionError(f"{what}: boxes off, max |err| {float(box_err.max())}")
-        if not torch.equal(got[..., 6], want[..., 6]):
-            raise AssertionError(f"{what}: candidate lane differs")
-        bad_cls = (got[..., 5] != want[..., 5]) & ~near
-        if bool(bad_cls.any()):
-            raise AssertionError(f"{what}: class lane differs in "
-                                 f"{int(bad_cls.sum())} records outside the margin")
-        err = max(float((se - sw).abs().max()), float(box_err.max()))
-        max_err = max(max_err, err)
-        ms = cuda_ms(lambda: decode_packed_fused(xs, ws, bs, anchors, strides,
-                                                 ncls, 0.2))
+        name = str(dtype)[6:]
+        for seed in ((4, 5, 6, 7) if dtype == torch.bfloat16 else (4,)):
+            heads = k4_heads(graph, 416, BATCH, np.random.default_rng(seed),
+                             dtype=dtype)
+            err, margins_in = k4_check(heads, anchors, strides, ncls,
+                                       f"K4 {name} seed {seed}")
+            max_err = max(max_err, err)
+            log(f"[K4] yolov3@416 B={BATCH} {name} operands, seed {seed}, "
+                f"pre-head (g, Cin) {[(x.shape[1], x.shape[3]) for x, _, _ in heads]}: "
+                f"scores/boxes within bars, cand exact, class exact outside "
+                f"the {K4_MARGIN} logit margin ({margins_in} cell-anchors "
+                f"inside it), max |err| {err!r}")
+        xs, ws, bs = zip(*heads)
+        eager_ms = cuda_ms(lambda: decode_packed_fused(xs, ws, bs, anchors,
+                                                       strides, ncls, 0.2))
+        tot = [0.0, 0.0, 0.0]
+        n_total = sum(len(a) * x.shape[1] * x.shape[2] for x, a in zip(xs, anchors))
+        out = torch.empty((BATCH, n_total, 8), device=DEVICE)
+        off = 0
+        for (x, w, b), a, s in zip(heads, anchors, strides):
+            cw = w.reshape(*w.shape, 1, 1).contiguous(
+                memory_format=torch.channels_last)
+            bb = b.to(dtype)
 
-        def plain():
-            o = 0
-            for x, w, b, a, s in zip(xs, ws, bs, anchors, strides):
-                decode_packed_fused_head_reference(x, w, b, a, s, ncls, 0.2, o)
-                o += len(a) * x.shape[1] * x.shape[2]
+            def unfused(x=x, cw=cw, bb=bb, a=a, s=s, off=off):
+                # cuDNN 1x1 head conv in the working type (TF32 allowed),
+                # then K1: what the "pallas" route runs
+                head = F.conv2d(x.permute(0, 3, 1, 2), cw, bb).permute(0, 2, 3, 1)
+                decode_packed_head(head, a, s, ncls, 0.2, off, out=out)
 
-        convs = [w.reshape(*w.shape, 1, 1).contiguous(
-            memory_format=torch.channels_last) for w in ws]
-
-        def unfused():  # cuDNN 1x1 head conv in the working type, then K1
-            heads = [F.conv2d(x.permute(0, 3, 1, 2), cw, b.to(dtype))
-                     .permute(0, 2, 3, 1) for x, cw, b in zip(xs, convs, bs)]
-            decode_packed(heads, anchors, strides, ncls, 0.2)
-
-        plain_ms = cuda_ms(plain, iters=5, warmup=1)
-        with tf32(True):
-            unfused_ms = cuda_ms(unfused)
-        times[dtype] = (ms, plain_ms, unfused_ms)
-        log(f"[K4] yolov3@416 B={BATCH} {str(dtype)[6:]} operands, pre-head "
-            f"(g, Cin, Cout) {shapes}: scores/boxes within bars, cand exact, "
-            f"class exact outside the {K4_MARGIN} logit margin "
-            f"({margins_in} cell-anchors inside it), max |err| {err!r}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN 1x1 head conv + K1 "
-            f"{unfused_ms:.4f} ms")
+            ms = graph_ms(lambda: decode_packed_fused_head(
+                x, w, b, a, s, ncls, 0.2, off, out=out))
+            plain_ms = graph_ms(lambda: decode_packed_fused_head_reference(
+                x, w, b, a, s, ncls, 0.2, off), iters=5, warmup=1)
+            with tf32(True):
+                lib_ms = graph_ms(unfused)
+            for i, t in enumerate((ms, plain_ms, lib_ms)):
+                tot[i] += t
+            flop, nbytes, bound_ms, by = k4_bound(x, w.shape[0], len(a))
+            log(f"[K4] {name} head {x.shape[1]}x{x.shape[2]} Cin {x.shape[3]} "
+                f"B={BATCH}: kernel {ms * 1e3:.2f} us ({flop / ms / 1e9:.1f} "
+                f"TFLOP/s, bound {bound_ms * 1e3:.2f} us by {by} = "
+                f"{bound_ms / ms:.1%} of it), plain {plain_ms * 1e3:.1f} us, "
+                f"cuDNN 1x1 + K1 {lib_ms * 1e3:.2f} us (graph replays, L2-hot)")
+            off += len(a) * x.shape[1] * x.shape[2]
+        flop = sum(k4_bound(x, w.shape[0], len(a))[0]
+                   for (x, w, _), a in zip(heads, anchors))
+        times[dtype] = (*tot, eager_ms)
+        log(f"[K4] yolov3@416 B={BATCH} {name} all three heads: kernel "
+            f"{tot[0]:.4f} ms ({flop / tot[0] / 1e9:.1f} TFLOP/s), plain "
+            f"{tot[1]:.4f} ms, cuDNN 1x1 + K1 {tot[2]:.4f} ms (graph "
+            f"replays); eager wrapper calls (CUDA events) {eager_ms:.4f} ms")
+    # off the main path, bf16 (float32 where the float32 kernel runs a new
+    # shape): other batches, sizes, graphs and class counts
+    rng = np.random.default_rng(8)
+    tiny = load_graph(REPO / "models" / "yolov3-tiny.cfg")
+    cases = [("yolov3@416 B=1", graph, 416, 1, None, (torch.bfloat16,)),
+             ("yolov3@608 B=8", graph, 608, BATCH, None,
+              (torch.bfloat16, torch.float32)),
+             ("yolov3-tiny@416 B=8", tiny, 416, BATCH, None, (torch.bfloat16,)),
+             ("yolov3@416 B=2, 20 classes", graph, 416, 2, 20, (torch.bfloat16,)),
+             ("yolov3@128 B=2, 150 classes", graph, 128, 2, 150, (torch.bfloat16,)),
+             ("yolov3@128 B=1, 251 classes", graph, 128, 1, 251, (torch.bfloat16,))]
+    for what, gr, size, bsz, nc, dtypes in cases:
+        a_, s_, c_ = head_spec(gr)
+        for dtype in dtypes:
+            heads = k4_heads(gr, size, bsz, rng, nc, dtype)
+            err, _ = k4_check(heads, a_, s_, nc or c_, f"K4 {what}")
+            max_err = max(max_err, err)
+            log(f"[K4] {what} {str(dtype)[6:]}, (g, Cin, Cout) "
+                f"{[(x.shape[1], x.shape[3], w.shape[0]) for x, w, _ in heads]}"
+                f": within bars, max |err| {err!r}")
+    # a channel slice of a wider map (strides of 512, base 256 bytes in):
+    # read in place; a base 8 bytes in, or a pixel stride of 260, refused
+    x, w, b = k4_heads(graph, 416, 2, rng, dtype=torch.bfloat16)[1]
+    wide = torch.cat([x, x], dim=3)
+    view = wide[..., 128:640]
+    err, _ = k4_check([(view, w, b)], anchors[1:2], strides[1:2], ncls,
+                      "K4 channel slice")
+    max_err = max(max_err, err)
+    refused = 0
+    for bad in (wide[..., 4:516], torch.cat([x, x[..., :4]], dim=3)[..., :512]):
+        try:
+            decode_packed_fused_head(bad, w, b, anchors[1], strides[1], ncls)
+        except ValueError:
+            refused += 1
+    try:
+        decode_packed_fused_head(x, torch.zeros(3 * 257, 512, device=DEVICE,
+                                                dtype=torch.bfloat16),
+                                 torch.zeros(3 * 257, device=DEVICE),
+                                 anchors[1], strides[1], 252)
+    except ValueError:
+        refused += 1
+    torch.cuda.synchronize()
+    if refused != 3:
+        raise AssertionError(f"K4 took {3 - refused} of three inputs it must "
+                             f"refuse")
+    log(f"[K4] a channel slice (pixel stride 512, base 256 bytes in) within "
+        f"bars, max |err| {err!r}; refused a base 8 bytes in, a pixel stride "
+        f"of 260 and 5 + C = 257, with no launch")
+    # the tile plan on the card: both heights, and one or two resident
+    # blocks where a head's K allows two, at each main-path head and at the
+    # 13x13 head at one image, held to the bars and timed
+    plan = cuda_decode.plan_fused_tiles
+    for bsz, gi in ((BATCH, 0), (BATCH, 1), (BATCH, 2), (1, 0)):
+        x, w, b = k4_heads(graph, 416, bsz, rng, dtype=torch.bfloat16)[gi]
+        per, a, s, cin = 5 + ncls, anchors[gi], strides[gi], x.shape[3]
+        m = bsz * x.shape[1] * x.shape[2]
+        chosen = plan(m, per, len(a), cin, sm_count(x.get_device()))
+        tile_us = {}
+        for block_m in (64, 128):
+            for resident in (1, 2):
+                if resident == 2 and (cin > 256 or block_m + chosen.n_tile > 224):
+                    continue
+                cuda_decode.plan_fused_tiles = (
+                    lambda *args, t=chosen._replace(block_m=block_m,
+                                                    resident=resident): t)
+                try:
+                    k4_check([(x, w, b)], [a], [s], ncls,
+                             f"K4 B={bsz} {x.shape[1]}x{x.shape[2]} "
+                             f"{block_m}-row tiles, {resident} resident")
+                    tile_us[block_m, resident] = 1e3 * graph_ms(
+                        lambda: decode_packed_fused_head(x, w, b, a, s, ncls, 0.2))
+                finally:
+                    cuda_decode.plan_fused_tiles = plan
+        log(f"[K4] B={bsz} {x.shape[1]}x{x.shape[2]} Cin {cin} bfloat16 by "
+            f"(tile rows, resident blocks): " + ", ".join(
+                f"{k} {v:.2f} us" for k, v in tile_us.items())
+            + f"; plan_fused_tiles takes {tuple(chosen)}")
     return max_err, times
 
 
@@ -490,6 +638,7 @@ def phase_k5(graph):
     import torch
     import torch.nn.functional as F
     from yolov3_tpu_torch.ops import cuda_conv
+    from yolov3_tpu_torch.ops._build import sm_count
     from yolov3_tpu_torch.ops.cuda_conv import (conv3x3_fused,
                                                 conv3x3_fused_reference,
                                                 plan_tiles)
@@ -549,7 +698,7 @@ def phase_k5(graph):
             (BATCH, min(shapes))]:
         x, wt, b = (t.to(torch.bfloat16) for t in operands(bsz, h, w, cin, cout))
         chosen = cuda_conv.plan_tiles(bsz * h * w, cout,
-                                      cuda_conv._sm_count(x.get_device()))
+                                      sm_count(x.get_device()))
         tile_ms = {}
         for block_m in (64, 128):
             cuda_conv.plan_tiles = lambda m, n, sms, block_m=block_m: block_m
@@ -992,15 +1141,16 @@ def phase_main(card: str):
     # isolated)
     splits = [stage_split(det, frames, calls=10) for _, det in routes]
     for (name, det), split in zip(routes, splits):
-        net = det.net
+        walk, decode = route_stages(det)
         with torch.inference_mode():
-            walk_ms = graph_ms(lambda: forward_features(
-                net.graph, net.params, x, net.precision, net.conv_impl,
-                stop_before_heads=det.route == "pallas-fused"), iters=5)
+            walk_ms = graph_ms(lambda: walk(x), iters=5)
+            heads = walk(x)
+            decode_ms = graph_ms(lambda: decode(heads))
         log(f"[main] yolov3@416 B={BATCH} {name}: stage split ms (CUDA "
             f"events, median of 10) " + ", ".join(
                 f"{k} {v:.3f}" for k, v in split.items())
-            + f"; the walk's device time {walk_ms:.3f} ms (CUDA graph replay)")
+            + f"; device time (CUDA graph replay): the walk {walk_ms:.3f} ms, "
+            f"the decode {decode_ms:.4f} ms")
     before = cuda_conv.conv3x3_fused.launches
     k5_det.detect_batch(frames)
     per_call = cuda_conv.conv3x3_fused.launches - before
@@ -1069,20 +1219,14 @@ def device_busy_ms(fn):
     return total / 1e3 if total > 0 else None
 
 
-def stage_split(det, frames: np.ndarray, calls: int):
-    """Median device ms (CUDA events) of the stages of one ``detect_batch``
-    on the packed routes, float or quantized: H2D, flip + preprocess, the
-    walk, the decode (K1, or K4 with the head convs), selection + K2 +
-    compaction + pack."""
-    import torch
+def route_stages(det):
+    """(walk, decode) of a packed route, float or quantized: ``walk(x)`` →
+    the head maps (pre-head maps on the fused route), ``decode(heads)`` →
+    (payload, scores) through K1, or K4 with the head convs."""
     from yolov3_tpu_torch import forward_features, quant
     from yolov3_tpu_torch.ops.cuda_decode import decode_packed, decode_packed_fused
-    from yolov3_tpu_torch.ops.nms import batched_nms_packed, pack_results
-    from yolov3_tpu_torch.ops.preprocess import preprocess
 
     net = det.net
-    names = ("h2d", "preprocess", "walk", "decode", "nms+pack")
-    rows = []
     anchors, strides, ncls = head_spec(net.graph)
     fused = det.route == "pallas-fused"
     head_convs = [yn.inputs[0] for yn in net.graph.yolo_nodes]
@@ -1111,6 +1255,27 @@ def stage_split(det, frames: np.ndarray, calls: int):
             net.graph, net.qparams, net.act_scales, x,
             net.precision or "bf16", operands=net.qoperands)
 
+    def decode(heads):
+        if fused:
+            return decode_packed_fused(heads, ws, bs, anchors, strides, ncls,
+                                       det.prob_thresh)
+        return decode_packed(heads, anchors, strides, ncls, det.prob_thresh)
+
+    return walk, decode
+
+
+def stage_split(det, frames: np.ndarray, calls: int):
+    """Median device ms (CUDA events) of the stages of one ``detect_batch``
+    on the packed routes, float or quantized: H2D, flip + preprocess, the
+    walk, the decode (K1, or K4 with the head convs), selection + K2 +
+    compaction + pack."""
+    import torch
+    from yolov3_tpu_torch.ops.nms import batched_nms_packed, pack_results
+    from yolov3_tpu_torch.ops.preprocess import preprocess
+
+    names = ("h2d", "preprocess", "walk", "decode", "nms+pack")
+    rows = []
+    walk, decode = route_stages(det)
     with torch.inference_mode():
         for _ in range(calls + 1):
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -1122,12 +1287,7 @@ def stage_split(det, frames: np.ndarray, calls: int):
             marks[2].record()
             heads = walk(x)
             marks[3].record()
-            if fused:
-                payload, scores = decode_packed_fused(heads, ws, bs, anchors, strides,
-                                                      ncls, det.prob_thresh)
-            else:
-                payload, scores = decode_packed(heads, anchors, strides, ncls,
-                                                det.prob_thresh)
+            payload, scores = decode(heads)
             marks[4].record()
             pack_results(batched_nms_packed(
                 payload, scores, iou_thresh=det.iou_thresh, top_k=det.top_k,
@@ -1316,7 +1476,16 @@ def phase_probes():
         ms_dp4a=_sum_ms(lambda a, b: cp.probe_int8_dot(a, b, "dp4a_s8"), dots),
         plain_ms=_sum_ms(cp.dot_reference, dots),
         library_ms=_sum_ms(torch._int_mm, dots), ops=ops, nbytes=nbytes,
-        peak=INT8_OPS_PER_S)
+        peak=INT8_OPS_PER_S,
+        # device time alone (CUDA graph replay), beside the eager sums
+        graph_ms=sum(graph_ms(lambda: cp.probe_int8_dot(a, b, "mma_s8"))
+                     for a, b in dots),
+        library_graph_ms=sum(graph_ms(lambda: torch._int_mm(a, b))
+                             for a, b in dots))
+    log(f"[probes] T3a over {len(dots)} shapes: tensor cores "
+        f"{rec['T3a']['ms']:.4f} ms eager, {rec['T3a']['graph_ms']:.4f} ms "
+        f"graph replay; torch._int_mm {rec['T3a']['library_ms']:.4f} / "
+        f"{rec['T3a']['library_graph_ms']:.4f} ms")
     # T3b-e at the tool's inputs
     x = torch.from_numpy(pb.round_inputs()).to(dev)
     err = same(cp.probe_round(x), cp.probe_round_reference(x), "T3b")
@@ -1429,6 +1598,20 @@ def phase_dots(card: str):
         r["plain_ms"] = cuda_ms(lambda: cp.dot_grid_reference(*args, 1),
                                 iters=3, warmup=1)
         r["library_ms"] = cuda_ms(lambda: torch.matmul(args[0], args[1]))
+    # T1's step and the library's product again as device time alone (CUDA
+    # graph replay): the eager times above carry ~25 us of host work a call
+    for name, dtype, core, peak in bench_int8_dot.VARIANTS:
+        lib = torch._int_mm if dtype == torch.int8 else torch.matmul
+        for r in rec[core]["rows"]:
+            args = cases[(dtype, r["shape"])]
+            r["graph_ms"] = graph_ms(lambda: cp.dot_step(*args, core=core))
+            r["library_graph_ms"] = graph_ms(lambda: lib(args[1], args[2]))
+        rows = rec[core]["rows"]
+        log(f"[dots] {name}, {len(rows)} shapes, one step each, device time "
+            f"(CUDA graph replay): kernel {sum(r['graph_ms'] for r in rows):.4f}"
+            f" ms, library {sum(r['library_graph_ms'] for r in rows):.4f} ms; "
+            f"eager (CUDA events): library "
+            f"{sum(r['library_ms'] for r in rows):.4f} ms on {card}")
     # bound of one step inside the timed call. The operands are the same on
     # every step and stay in L2, so device memory sees them once per call:
     # a step's bytes are its share of them (the larger timed size) plus its
@@ -1895,6 +2078,9 @@ def probe_records(dots, probes, bound):
             "bound_by": worst["bound_by"],
             "library_ms": sum(r["library_ms"] for r in rows),
             "ms_of": f"one step at each of the tool's {len(rows)} shapes",
+            **({"graph_ms": sum(r["graph_ms"] for r in rows),
+                "library_graph_ms": sum(r["library_graph_ms"] for r in rows)}
+               if core != "grid" else {}),
             "best_share_of_peak": max(r["share"] for r in rows)})
     lines = {"T3a": ("probe_int8_dot", "tools/probe_block.py:55"),
              "T3b": ("probe_round_clip", "tools/probe_block.py:78"),
@@ -1912,6 +2098,8 @@ def probe_records(dots, probes, bound):
         if "ms_dp4a" in v:
             entry["ms_dp4a"] = v["ms_dp4a"]
             entry["ms_of"] = "one launch at each of the tool's 8 shapes"
+            entry["graph_ms"] = v["graph_ms"]
+            entry["library_graph_ms"] = v["library_graph_ms"]
         out.append(entry)
     return out
 
@@ -2044,15 +2232,21 @@ def main() -> int:
          "bound_ms": res["k3"][3], "bound_by": "bytes", "library_ms": None},
         {"name": "decode_packed_fused_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_fused.cu",
+         "headers": ["yolov3_tpu_torch/csrc/wgmma_common.cuh",
+                     "yolov3_tpu_torch/csrc/decode_common.cuh"],
          "replaces": "yolov3_tpu/ops/pallas_decode.py:511",
          "launches": launches["decode_packed_fused_head"],
          "launches_int8_path": res["int8"]["decode_packed_fused_head"],
+         # the three heads at bf16, each one call replayed from a CUDA graph
          "max_abs_err": k4_err, "ms": k4[bf16][0], "plain_ms": k4[bf16][1],
          **bound(2 * pre_elems + 32 * BATCH * n_cand, k4_flop, BF16_FLOPS_PER_S),
          # no single call: the cuDNN 1x1 head conv followed by K1
-         "library_ms": k4[bf16][2]},
+         "library_ms": k4[bf16][2], "ms_float32": k4[torch.float32][0],
+         "ms_eager": k4[bf16][3]},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/conv3x3.cu",
+         "headers": ["yolov3_tpu_torch/csrc/conv3x3_mma.cuh",
+                     "yolov3_tpu_torch/csrc/wgmma_common.cuh"],
          "replaces": "yolov3_tpu/ops/pallas_conv.py:289",
          "launches": launches["conv3x3_fused"], "max_abs_err": k5_err,
          "ms": k5[bf16][0], "plain_ms": k5[bf16][1],

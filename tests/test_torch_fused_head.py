@@ -1,7 +1,7 @@
 """K4, the head-conv-fused packed decode: its plain version against the JAX
 package's Pallas kernel (interpret mode on the CPU), the route gate against
-the JAX gate, and the Detector's "pallas-fused" route against its "pallas"
-route."""
+the JAX gate, the Detector's "pallas-fused" route against its "pallas"
+route, the bf16 kernel's tile plan and the inputs its wrapper refuses."""
 import dataclasses
 from pathlib import Path
 
@@ -165,3 +165,78 @@ def test_k4_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="not eligible"):
         g = load_graph(str(Path(WIDE_CFG).with_name("port_small.cfg")))
         forward_packed_fused(g, {}, torch.zeros(1, 64, 64, 3), 0.1)
+
+
+# (M = B·g², Cin) of yolov3's three heads at 416 and 608, batch 1 and 8
+HEADS = {(size, bsz): [(bsz * (size // s) ** 2, cin)
+                       for s, cin in ((32, 1024), (16, 512), (8, 256))]
+         for size in (416, 608) for bsz in (1, 8)}
+
+
+@pytest.mark.parametrize("size,bsz,want", [
+    # (block_m, resident) per head, and the grid: ceil(M / block_m) x 3
+    (416, 8, [((64, 1), 66), ((128, 1), 129), ((128, 2), 507)]),
+    (416, 1, [((64, 1), 9), ((64, 1), 33), ((64, 2), 129)]),
+    (608, 8, [((128, 1), 69), ((128, 1), 273), ((128, 2), 1083)]),
+    (608, 1, [((64, 1), 18), ((64, 1), 69), ((128, 2), 138)]),
+])
+def test_k4_tile_plan(size, bsz, want):
+    """plan_fused_tiles on an H100 (132 multiprocessors): 64-row tiles while
+    each of them gets a multiprocessor, two resident blocks at Cin 256."""
+    for (m, cin), ((block_m, resident), grid) in zip(HEADS[size, bsz], want):
+        t = cuda_decode.plan_fused_tiles(m, 85, 3, cin, 132)
+        assert (t.block_m, t.n_tile, t.resident) == (block_m, 96, resident)
+        assert -(-m // t.block_m) * 3 == grid
+
+
+@pytest.mark.parametrize("classes,n_tile", [
+    (80, 96), (20, 32), (1, 32), (27, 32), (28, 64), (123, 128), (124, 192),
+    (187, 192), (188, 256), (251, 256)])
+def test_k4_tile_columns(classes, n_tile):
+    """5 + C rounded up to a multiple of 32 (one warpgroup's N, at most
+    128), above 128 to a multiple of 64 (two warpgroups, 64-row tiles, one
+    resident block)."""
+    t = cuda_decode.plan_fused_tiles(21632, 5 + classes, 3, 256, 132)
+    assert t.n_tile == n_tile >= 5 + classes
+    if n_tile > 128:
+        assert (t.block_m, t.resident) == (64, 1)
+    else:  # two blocks' two-step rings fit 228 KB up to 128 + 96 rows
+        assert (t.block_m, t.resident) == (128, 2 if n_tile <= 96 else 1)
+
+
+def test_k4_plan_and_check_refuse_wide_anchors():
+    with pytest.raises(ValueError, match="5 \\+ C <= 256"):
+        cuda_decode.plan_fused_tiles(1352, 257, 3, 1024, 132)
+    x = torch.zeros(1, 4, 4, 128, dtype=torch.bfloat16)
+    cuda_decode.check_fused_mma_input(x, 251, 3)
+    with pytest.raises(ValueError, match="widest wgmma N"):
+        cuda_decode.check_fused_mma_input(x, 252, 3)
+    with pytest.raises(ValueError, match="at most 64 anchors"):
+        cuda_decode.check_fused_mma_input(x, 80, 65)
+
+
+def test_k4_check_refuses_rows_off_16_bytes():
+    """The bf16 kernel reads channel rows in 16-byte pieces: a channel
+    slice that starts on the grid passes, one 8 bytes in, a pixel stride of
+    260 elements or a channel stride other than 1 is refused."""
+    wide = torch.zeros(2, 4, 4, 512, dtype=torch.bfloat16)
+    cuda_decode.check_fused_mma_input(wide[..., 128:384], 80, 3)
+    cuda_decode.check_fused_mma_input(wide[:, 1:], 80, 3)
+    odd = torch.zeros(2, 4, 4, 260, dtype=torch.bfloat16)
+    for bad in (wide[..., 4:260], odd[..., :256], wide[..., ::2]):
+        with pytest.raises(ValueError, match="16-byte pieces"):
+            cuda_decode.check_fused_mma_input(bad, 80, 3)
+
+
+def test_k4_cpu_path_runs_what_the_kernel_refuses():
+    """The refusals are the kernel's: on the CPU the wrapper runs the plain
+    version, misaligned or wide, as before."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(0, 1, (1, 2, 2, 260)).astype(np.float32)
+                         ).to(torch.bfloat16)[..., 4:132]
+    w = torch.from_numpy(rng.normal(0, 0.1, (3 * 257, 128)).astype(np.float32))
+    bias = torch.zeros(3 * 257)
+    got = cuda_decode.decode_packed_fused_head(x, w, bias, ANCHORS, 32, 252)
+    want = cuda_decode.decode_packed_fused_head_reference(x, w, bias, ANCHORS,
+                                                          32, 252)
+    assert torch.equal(got, want) and got.shape == (1, 12, 8)

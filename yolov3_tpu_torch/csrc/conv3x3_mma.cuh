@@ -1,8 +1,9 @@
 // K5 on the tensor cores: the bf16 implicit-GEMM kernel of the fused 3x3
 // convolution, on Hopper's warpgroup matrix multiply (wgmma), CUDA C++ for
 // sm_90a. Included by conv3x3.cu, which holds the C entry and the float32
-// kernel. With one tap and another epilogue the same main loop is a 1x1
-// convolution.
+// kernel. Its copies, swizzle, descriptors, products and float32 promotion
+// are wgmma_common.cuh's, which K4's bf16 kernel (decode_fused.cu, a 1x1
+// convolution with the decode as its epilogue) shares.
 //
 // GEMM view: M = B*H*W output pixels (tiled linearly over the flattened
 // pixels, so no tile row is wasted at 13 x 13), N = Cout, K = 9*Cin. Both
@@ -51,15 +52,15 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "wgmma_common.cuh"
 
 typedef unsigned short bf16_bits;
 
 #define K5T_BN 128        // output channels of a tile (wgmma n)
 #define K5T_BK 128        // channels of one tap per K step: two halves of
-#define K5T_HALF 64       // 64 channels, each a tile of 128-byte rows
-#define K5T_ROW 128       // bytes of one operand tile row: 64 bf16
+#define K5T_HALF WG_HALF  // 64 channels, each a tile of 128-byte rows
+#define K5T_ROW WG_ROW    // bytes of one operand tile row: 64 bf16
 #define K5T_STAGES 3      // K steps in the ring: one multiplied, two in flight
 #define K5T_C_ROW 272     // bytes of one staged output row: 128 bf16 + 16,
                           // so that a warp's fragment stores hit 32 banks
@@ -83,101 +84,6 @@ __host__ __device__ constexpr uint32_t k5t_smem_bytes(int bm) {
 
 static_assert(k5t_smem_bytes(128) <= 232448,
               "a block's shared memory fits the 227 KB an H100 allows");
-
-__device__ __forceinline__ uint32_t k5t_smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte asynchronous copy; src_bytes = 0 reads nothing and writes zeros
-// (src must still be a valid address)
-__device__ __forceinline__ void k5t_cp_async16(uint32_t dst, const void* src,
-                                               int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-// the same through L1, for rows the block reads again soon
-__device__ __forceinline__ void k5t_cp_async16_l1(uint32_t dst,
-                                                  const void* src,
-                                                  int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void k5t_cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void k5t_cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// make this thread's shared-memory writes visible to the asynchronous
-// proxy, through which wgmma reads its operands
-__device__ __forceinline__ void k5t_fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major bf16 tile with 128-byte rows
-// and the 128-byte swizzle: start address / 16 in bits 0-13, leading byte
-// offset (unused for a swizzled K-major tile) 1 in bits 16-29, stride byte
-// offset = 8 rows * 128 B = 1,024 B / 16 in bits 32-45, layout type 1
-// (128-byte swizzle) in bits 62-63
-__device__ __forceinline__ uint64_t k5t_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void k5t_wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void k5t_wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void k5t_wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous products
-__device__ __forceinline__ void k5t_fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, float32, this warpgroup's fragment) = A (64 x 16, bf16,
-// K-major in shared memory) * B (128 x 16, bf16, K-major in shared memory)
-// + (scale_d ? d : 0)
-__device__ __forceinline__ void k5t_wgmma_m64n128k16(float (&d)[64],
-                                                     uint64_t desc_a,
-                                                     uint64_t desc_b,
-                                                     int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
 
 __device__ __forceinline__ float k5_widen(bf16_bits v) {
   return __uint_as_float((uint32_t)v << 16);
@@ -206,7 +112,7 @@ conv3x3_mma_kernel(const bf16_bits* __restrict__ x, long long sb,
   constexpr uint32_t STAGE_BYTES = k5t_stage_bytes(BM);
 
   extern __shared__ unsigned char k5t_smem[];
-  const uint32_t raw = k5t_smem_u32(k5t_smem);
+  const uint32_t raw = wg_smem_u32(k5t_smem);
   const uint32_t ring = (raw + 1023u) & ~1023u;
   unsigned char* ring_ptr = k5t_smem + (ring - raw);
   float* sbias = reinterpret_cast<float*>(ring_ptr + k5t_ring_bytes(BM));
@@ -269,13 +175,13 @@ conv3x3_mma_kernel(const bf16_bits* __restrict__ x, long long sb,
 #pragma unroll
         for (int i = 0; i < A_IT; ++i) {
           const bool ok = (a_taps[i] >> ld_tap) & 1u;
-          k5t_cp_async16_l1(stage + hf * A_BYTES + row_off + i * RPP * K5T_ROW,
+          wg_cp_async16_l1(stage + hf * A_BYTES + row_off + i * RPP * K5T_ROW,
                             ok ? a_src[i] + a_off : x, ok ? 16 : 0);
         }
 #pragma unroll
         for (int i = 0; i < B_IT; ++i) {
           const bool ok = n0 + r0 + i * RPP < cout;
-          k5t_cp_async16(
+          wg_cp_async16(
               stage + 2 * A_BYTES + hf * B_BYTES + row_off + i * RPP * K5T_ROW,
               ok ? b_src + i * RPP * w_row + b_off : w, ok ? 16 : 0);
         }
@@ -283,14 +189,14 @@ conv3x3_mma_kernel(const bf16_bits* __restrict__ x, long long sb,
       }
       ++ld_step;
     }
-    k5t_cp_async_commit();
+    wg_cp_async_commit();
   };
 
   // The tensor cores add a step's 128 products per output in float32 but
   // truncate when they align the addends, and over K = 4,608 that error
   // passes the float32 bar on outputs near zero. So `acc` restarts at every
   // step and the steps are added in `sum` on the CUDA cores, rounded to
-  // nearest.
+  // nearest (wg_promote).
   float acc[64];
   float sum[64];
 #pragma unroll
@@ -305,28 +211,27 @@ conv3x3_mma_kernel(const bf16_bits* __restrict__ x, long long sb,
   for (int s = 0; s < steps; ++s) {
     // step s has landed: this thread's copies, then everyone's; the barrier
     // also says every warpgroup is done with step s - 1's products
-    k5t_cp_async_wait<STAGES - 2>();
-    k5t_fence_async_proxy();
+    wg_cp_async_wait<STAGES - 2>();
+    wg_fence_async_proxy();
     __syncthreads();
     const uint32_t stage = ring + st * STAGE_BYTES;
-    k5t_fence_acc(acc);
-    k5t_wgmma_fence();
+    wg_fence_acc(acc);
+    wg_fence();
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const uint64_t da = k5t_desc(stage + hf * A_BYTES + wg * 64 * K5T_ROW);
-      const uint64_t db = k5t_desc(stage + 2 * A_BYTES + hf * B_BYTES);
+      const uint64_t da = wg_desc(stage + hf * A_BYTES + wg * 64 * K5T_ROW);
+      const uint64_t db = wg_desc(stage + 2 * A_BYTES + hf * B_BYTES);
 #pragma unroll
       for (int kk = 0; kk < K5T_HALF / 16; ++kk)  // 32 bytes of K a product
-        k5t_wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk, hf + kk > 0);
+        wg_mma_m64k16<K5T_BN>(acc, da + 2 * kk, db + 2 * kk, hf + kk > 0);
     }
-    k5t_wgmma_commit();
+    wg_commit();
     // while the products run: step s + STAGES - 1 into the stage step s - 1
     // has left
     load_next(st == 0 ? STAGES - 1 : st - 1);
-    k5t_wgmma_wait<0>();
-    k5t_fence_acc(acc);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+    wg_wait<0>();
+    wg_fence_acc(acc);
+    wg_promote(sum, acc);
     st = st + 1 == STAGES ? 0 : st + 1;
   }
 
@@ -334,7 +239,7 @@ conv3x3_mma_kernel(const bf16_bits* __restrict__ x, long long sb,
   // ring (every product is done, the copy groups still open are empty).
   // Fragment layout of m64n128: thread (warp, lane) of the warpgroup holds
   // rows warp * 16 + lane / 4 (+ 8), columns nb * 8 + (lane % 4) * 2 (+ 1).
-  k5t_cp_async_wait<0>();
+  wg_cp_async_wait<0>();
   __syncthreads();
   const int lane = tid & 31, warp = (tid >> 5) & 3;
   const int row_a = wg * 64 + warp * 16 + (lane >> 2);

@@ -64,8 +64,8 @@ from .model import (Darknet, forward_compact, forward_packed,
                     forward_packed_fused, fused_heads_eligible,
                     resolve_device)
 from .ops.cuda_decode import supported as packed_decode_supported
-from .ops.nms import (auto_top_k, batched_nms_compact, batched_nms_packed,
-                      pack_results)
+from .ops.nms import IMPLS as NMS_IMPLS, auto_top_k
+from .ops.nms import batched_nms_compact, batched_nms_packed, pack_results
 from .ops.preprocess import Interp, interp_matrices, preprocess, resize_target
 from .utils.boxes import unletterbox_tlbr, unstretch_tlbr
 
@@ -74,7 +74,6 @@ log = logging.getLogger("yolov3_tpu_torch")
 RESIZE_MODES = ("letterbox", "stretch")
 DECODE_IMPLS = ("pallas", "pallas-fused", "xla")
 BLOCK_IMPLS = ("xla", "pallas")
-NMS_IMPLS = ("xla", "pallas")
 PARTITIONS = ("data", "spatial")
 
 
@@ -111,8 +110,9 @@ class Detection:
 
 class Detector:
     """End-to-end detector over a :class:`~yolov3_tpu_torch.model.Darknet`
-    on the net's device. ``device``, when given, must be that device (the
-    Detector does not move weights); asking for CUDA without a card
+    on the net's device. The parameters take the JAX Detector's positional
+    order, with ``device`` last: when given, it must be the net's device
+    (the Detector does not move weights); asking for CUDA without a card
     raises. ``decode_impl`` picks the route (module docstring); the route
     actually run is ``self.route``. ``block_impl="pallas"`` runs a quantized
     net's eligible residual blocks through K6 (no effect on a float net or
@@ -132,12 +132,12 @@ class Detector:
     def __init__(self, net: Darknet, prob_thresh: float = 0.05,
                  iou_thresh: float = 0.3, resize_mode: str = "letterbox",
                  top_k: Optional[int] = None, bgr: bool = True,
-                 net_hw: Optional[Tuple[int, int]] = None,
-                 max_results: int = 128, select_group: int = 2,
-                 device: Union[str, torch.device, None] = None,
-                 decode_impl: str = "pallas", block_impl: str = "xla",
-                 nms_impl: str = "xla", scan: int = 1, mesh=None,
-                 partition: str = "data"):
+                 net_hw: Optional[Tuple[int, int]] = None, mesh=None,
+                 nms_impl: str = "xla", decode_impl: str = "pallas",
+                 max_results: int = 128, scan: int = 1,
+                 partition: str = "data", select_group: int = 2,
+                 block_impl: str = "xla",
+                 device: Union[str, torch.device, None] = None):
         if partition not in PARTITIONS:
             raise ValueError(f"unknown partition {partition!r}")
         if mesh is not None or partition == "spatial":
@@ -252,7 +252,7 @@ class Detector:
             res = batched_nms_compact(boxes, scores, classes,
                                       prob_thresh=self.prob_thresh,
                                       iou_thresh=self.iou_thresh,
-                                      top_k=self.top_k,
+                                      top_k=self.top_k, impl=self.nms_impl,
                                       max_results=self.max_results,
                                       select_group=self.select_group)
         else:
@@ -262,7 +262,7 @@ class Detector:
                                   prob_thresh=self.prob_thresh, **route)
             res = batched_nms_packed(payload, scores,
                                      iou_thresh=self.iou_thresh,
-                                     top_k=self.top_k,
+                                     top_k=self.top_k, impl=self.nms_impl,
                                      max_results=self.max_results,
                                      select_group=self.select_group)
         return pack_results(res)
@@ -278,7 +278,7 @@ class Detector:
                   block_impl=self.block_impl, zeros=net.act_zeros,
                   operands=net.qoperands)
         nms = dict(iou_thresh=self.iou_thresh, top_k=self.top_k,
-                   max_results=self.max_results,
+                   impl=self.nms_impl, max_results=self.max_results,
                    select_group=self.select_group)
         if decode == "xla":
             boxes, scores, classes = forward_compact_int8(

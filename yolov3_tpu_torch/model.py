@@ -255,9 +255,10 @@ def forward_packed_fused(graph: Graph, params: TorchParams, x: torch.Tensor,
 class Darknet(nn.Module):
     """A cfg's network with folded weights on one device.
 
-    ``Darknet(cfg_path, precision, device, param_dtype, conv_impl)``, then
-    ``load_weights(path)`` (a darknet ``.weights`` file) or
-    ``set_params(params_np)`` (the folded HWIO numpy form of
+    ``Darknet(cfg_path, precision, param_dtype, conv_impl, device)`` (the
+    JAX class's order, ``device`` last), then ``load_weights(path)`` (a
+    darknet ``.weights`` file) or ``set_params(params)`` (the folded HWIO
+    numpy form of
     ``weights.fold_raw``); calling it on an NHWC batch returns the decoded
     (B, N, 5+C) tensor of :func:`forward`. Weights are buffers, so
     ``.to(device)`` moves them; they are bfloat16 at precision "bf16" and
@@ -267,9 +268,9 @@ class Darknet(nn.Module):
     ``set_quantized``, a ``Detector``) lives where the net does."""
 
     def __init__(self, cfg_path: Union[str, Path], precision: Optional[str] = None,
-                 device: Union[str, torch.device, None] = None,
                  param_dtype: Optional[torch.dtype] = None,
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla",
+                 device: Union[str, torch.device, None] = None):
         super().__init__()
         _check_route(precision, conv_impl)
         self.graph = load_graph(cfg_path)
@@ -292,6 +293,10 @@ class Darknet(nn.Module):
         return next(self.buffers()).device if self._loaded else self._device
 
     @property
+    def num_classes(self) -> int:
+        return self.graph.yolo_nodes[0].classes
+
+    @property
     def net_size(self) -> Tuple[int, int]:
         return (self.graph.in_height, self.graph.in_width)
 
@@ -304,13 +309,13 @@ class Darknet(nn.Module):
                           "b": getattr(self, f"b{n.index}")}
                 for n in self.graph.conv_nodes}
 
-    def set_params(self, params_np: Params) -> "Darknet":
+    def set_params(self, params: Params) -> "Darknet":
         """Install folded HWIO numpy params (``weights.fold_raw`` form)."""
         missing = [n.index for n in self.graph.conv_nodes
-                   if n.index not in params_np]
+                   if n.index not in params]
         if missing:
             raise ValueError(f"params missing conv layers {missing}")
-        for idx, p in params_from_jax(params_np, self.device).items():
+        for idx, p in params_from_jax(params, self.device).items():
             # .to keeps the weights' channels_last memory
             self.register_buffer(f"w{idx}", p["w"].to(self.param_dtype))
             self.register_buffer(f"b{idx}", p["b"].to(self.param_dtype))

@@ -2,9 +2,11 @@
 
 ``csrc/*.cu`` (the serving kernels K1-K6 and ``probe.cu``, the diagnostic
 tools' kernels) compile with ``nvcc`` into ONE shared library with a plain C
-interface, loaded with ``ctypes``; ``decode_common.cuh``,
-``block_int8_common.cuh`` (K6's arithmetic, shared with the probes) and
-``conv3x3_mma.cuh`` (K5's tensor-core kernel) are their headers. The build
+interface, loaded with ``ctypes``; ``decode_common.cuh`` (the decode body),
+``block_int8_common.cuh`` (K6's arithmetic, shared with the probes),
+``wgmma_common.cuh`` (the tensor-core building blocks of K4's and K5's bf16
+kernels) and ``conv3x3_mma.cuh`` (K5's tensor-core kernel) are their
+headers. The build
 runs at first use from the sources in the checkout and lands in
 ``build/kernels/`` at the repository root (git-ignored): one ``nvcc -c`` per
 source, all started together, then one link. The library's file name carries
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_packed.cu", "decode_fused.cu", "decode_full.cu",
            "conv3x3.cu", "block_int8.cu", "nms_suppress.cu", "probe.cu")
 HEADERS = ("decode_common.cuh", "block_int8_common.cuh",
-           "conv3x3_mma.cuh")
+           "wgmma_common.cuh", "conv3x3_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false and no --use_fast_math: the decode and suppression epilogues
@@ -118,7 +120,7 @@ def load_kernels() -> ctypes.CDLL:
         i32, i32, p, p, p, p]
     lib.yolo_decode_packed_fused_head.argtypes = [
         p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, anchors,
-        f32, f32, i32, i32, p, p]
+        f32, f32, i32, i32, i32, i32, i32, p, p]
     lib.yolo_conv3x3_fused.argtypes = [
         p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
         p, p]
@@ -144,6 +146,14 @@ def load_kernels() -> ctypes.CDLL:
                lib.yolo_residual_block_int8):
         fn.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Multiprocessors of CUDA device ``index`` (the tile plans' input)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_launch(rc: int, kernel: str) -> None:

@@ -22,13 +22,11 @@ and only then, it runs :func:`conv3x3_fused_reference`.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
 from ..precision import tf32
-from ._build import check_launch, load_kernels
+from ._build import check_launch, load_kernels, sm_count
 
 ACTIVATIONS = ("leaky", "linear")
 CIN_MULTIPLE = 128
@@ -88,11 +86,6 @@ def conv3x3_fused_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check_layout(x: torch.Tensor, w_ohwi: torch.Tensor) -> None:
     """What the kernels read in place: ``x`` NHWC with channel stride 1 and
     rows that start on 16-byte boundaries, ``w_ohwi`` (Cout, 3, 3, Cin)
@@ -139,7 +132,7 @@ def conv3x3_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     is_bf16 = x.dtype == torch.bfloat16
     block_m = 0  # the float32 kernel's tiles are fixed
     if is_bf16:
-        block_m = plan_tiles(bsz * h * wd, cout, _sm_count(x.get_device()))
+        block_m = plan_tiles(bsz * h * wd, cout, sm_count(x.get_device()))
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = load_kernels()
     with torch.cuda.device(x.device):

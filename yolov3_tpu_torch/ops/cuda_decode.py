@@ -18,8 +18,11 @@ Ports of ``yolov3_tpu/ops/pallas_decode.py``:
   (B, n), with no candidate lane; ``forward_compact(decode_impl="pallas")``.
 * K4 ``decode_packed_fused_head`` (``decode_packed_head_fused_pallas``): K1's
   records computed from the PRE-head activation (B, gy, gx, Cin) and the 1×1
-  head conv's weights (Cout, Cin) + bias, float32 accumulation; the head
-  map never reaches device memory. ``forward_packed_fused``.
+  head conv's weights (Cout, Cin) + bias, float32 sums; the head map never
+  reaches device memory. ``forward_packed_fused``. bf16 operands run a 1×1
+  GEMM on the tensor cores (``wgmma``) with the decode as its epilogue, one
+  block per (tile of cells, anchor), tiled by :func:`plan_fused_tiles`;
+  float32 operands a CUDA-core kernel (TF32 would miss the float32 bar).
 * K3 ``decode_head`` (``decode_head_pallas``): the full decode, one head map
   → the reference ``Darknet.forward`` tensor (B, gy·gx·A, 5+C), cell-major
   (``csrc/decode_full.cu``; plain version ``ops.decode.decode_head``).
@@ -37,13 +40,13 @@ kernels take the map's element strides.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..precision import tf32
 from . import decode as plain_decode
-from ._build import check_launch, load_kernels
+from ._build import check_launch, load_kernels, sm_count
 
 Anchors = Sequence[Tuple[float, float]]
 MAX_ANCHORS = 64  # K1_MAX_ANCHORS in csrc/decode_common.cuh: the kernels' parameter block
@@ -52,7 +55,8 @@ MAX_ANCHORS = 64  # K1_MAX_ANCHORS in csrc/decode_common.cuh: the kernels' param
 # does, so a graph takes the same route in both packages
 GATE_ANCHORS = 4
 FUSED_CIN_MULTIPLE = 128  # ``fused_head_supported``'s lane boundary
-K4_MAX_CHANNELS = 1024  # 4 * K4_THREADS in csrc/decode_fused.cu
+K4_MAX_CHANNELS = 1024  # 4 * K4_THREADS in csrc/decode_fused.cu (float32)
+K4_MMA_MAX_PER = 256  # 5 + C of the bf16 kernel: the widest wgmma N
 MAP_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -111,7 +115,11 @@ def decode_packed_head_reference(feat: torch.Tensor, anchors: Anchors,
     cell = torch.arange(cells, device=feat.device)
     col = (cell % gx).to(torch.float32)[:, None]        # (cells, 1)
     row = (cell // gx).to(torch.float32)[:, None]
-    anc = torch.tensor(anchors, dtype=torch.float32, device=feat.device)
+    # made by fill kernels, not copied from the host: a CUDA-graph capture
+    # (chip_smoke.py times the plain versions so) refuses a host copy
+    anc = torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                  device=feat.device)
+                       for wh in anchors for v in wh]).reshape(len(anchors), 2)
 
     cx = (torch.sigmoid(f[..., 0]) + col) * stride       # (b, cells, a)
     cy = (torch.sigmoid(f[..., 1]) + row) * stride
@@ -348,6 +356,66 @@ def decode_packed_fused_head_reference(x: torch.Tensor, w: torch.Tensor,
                                         head_offset)
 
 
+class FusedTiles(NamedTuple):
+    block_m: int   # cells of a block's tile: 64 or 128
+    n_tile: int    # the tile's columns, 5 + C padded
+    resident: int  # blocks a multiprocessor the kernel is built for: 1 or 2
+
+
+def plan_fused_tiles(m: int, per: int, anchors: int, cin: int,
+                     sm_count: int) -> FusedTiles:
+    """The tiles of K4's bf16 kernel (``csrc/decode_fused.cu``) for M =
+    B·gy·gx cells, ``per`` = 5 + C channels an anchor, ``anchors`` per head
+    and ``cin`` pre-head channels, on a card with ``sm_count``
+    multiprocessors. The grid is ceil(M / block_m) × anchors blocks of
+    block_m cells × one anchor.
+
+    ``n_tile``: ``per`` rounded up to a multiple of 32 (one warpgroup's
+    ``wgmma`` N, at most 128), above 128 to a multiple of 64 (two
+    warpgroups, each half the columns, and then 64-row tiles).
+    ``block_m``: 64 while every 64-row tile of the head gets a
+    multiprocessor of its own, else 128, which re-reads the anchor's weights
+    half as often. ``resident``: 2 where the whole K fits a ring of two
+    128-channel steps (Cin ≤ 256) and two such blocks fit a
+    multiprocessor's shared memory (block_m + n_tile ≤ 224): one block's
+    fill and decode then overlap the other's products; with a longer K the
+    deeper ring of one block a multiprocessor wins. ``chip_smoke.py``'s
+    ``k4`` phase times every choice at yolov3@416's heads (``PERF.md``)."""
+    if not 5 < per <= K4_MMA_MAX_PER:
+        raise ValueError(f"K4's bf16 kernel takes 5 < 5 + C <= "
+                         f"{K4_MMA_MAX_PER} channels an anchor, got {per}")
+    if per > 128:
+        block_m, n_tile = 64, -(-per // 64) * 64
+    else:
+        n_tile = -(-per // 32) * 32
+        block_m = 64 if -(-m // 64) * anchors <= sm_count else 128
+    resident = 2 if cin <= 256 and block_m + n_tile <= 224 else 1
+    return FusedTiles(block_m, n_tile, resident)
+
+
+def check_fused_mma_input(x: torch.Tensor, num_classes: int,
+                          n_anchors: int) -> None:
+    """Raise for a bf16 head that K4's tensor-core kernel does not take:
+    5 + C above 256, more than ``MAX_ANCHORS`` anchors, or channel rows that
+    do not start on 16-byte boundaries (batch, row and pixel strides a
+    multiple of 8 elements and a 16-byte aligned base). There is no
+    fallback: the wrapper calls this before any launch."""
+    per = 5 + num_classes
+    if per > K4_MMA_MAX_PER:
+        raise ValueError(f"K4's bf16 kernel takes 5 + C <= {K4_MMA_MAX_PER} "
+                         f"channels an anchor (the widest wgmma N), got {per}")
+    if n_anchors > MAX_ANCHORS:
+        raise ValueError(f"K4 takes at most {MAX_ANCHORS} anchors per head, "
+                         f"got {n_anchors}")
+    if (x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3])
+            or x.data_ptr() % 16):
+        raise ValueError(f"K4's bf16 kernel reads channel rows in 16-byte "
+                         f"pieces: it needs channel stride 1, batch / row / "
+                         f"pixel strides that are multiples of 8 elements "
+                         f"and a 16-byte aligned x, got strides "
+                         f"{tuple(x.stride())}")
+
+
 def decode_packed_fused_head(x: torch.Tensor, w: torch.Tensor,
                              bias: torch.Tensor, anchors: Anchors, stride: int,
                              num_classes: int, prob_thresh: float = 0.0,
@@ -357,11 +425,12 @@ def decode_packed_fused_head(x: torch.Tensor, w: torch.Tensor,
     (B, gy, gx, Cin), Cin % 128 == 0, and head conv ``w`` (≥A·(5+C), Cin),
     ``bias`` (≥A·(5+C),), written into ``out`` like
     :func:`decode_packed_head`. ``w`` is cast to ``x``'s type (bf16 operands
-    stay bf16); products accumulate in float32 at every precision.
+    stay bf16); products are summed in float32 at every precision.
 
     CUDA tensor: launches the K4 kernel on the current stream (counted in
-    ``decode_packed_fused_head.launches``) or raises. CPU tensor: the plain
-    version."""
+    ``decode_packed_fused_head.launches``) or raises: the tensor-core kernel
+    for bf16 (:func:`check_fused_mma_input` says what it refuses), the
+    CUDA-core kernel for float32. CPU tensor: the plain version."""
     need = _check_fused(x, w, bias, anchors, num_classes)
     b, gy, gx, cin = x.shape
     a = len(anchors)
@@ -373,9 +442,14 @@ def decode_packed_fused_head(x: torch.Tensor, w: torch.Tensor,
                                                num_classes, prob_thresh,
                                                head_offset))
         return out
-    if need > K4_MAX_CHANNELS:
-        raise ValueError(f"K4 takes at most {K4_MAX_CHANNELS} head channels, "
-                         f"got {need}")
+    tiles = FusedTiles(0, 0, 0)  # the float32 kernel's tiles are fixed
+    if x.dtype == torch.bfloat16:
+        check_fused_mma_input(x, num_classes, a)
+        tiles = plan_fused_tiles(b * gy * gx, 5 + num_classes, a, cin,
+                                 sm_count(x.get_device()))
+    elif need > K4_MAX_CHANNELS:
+        raise ValueError(f"K4 takes at most {K4_MAX_CHANNELS} head channels "
+                         f"at float32, got {need}")
     w = w[:need].to(x.dtype).contiguous()
     bias = bias[:need].float().contiguous()
     if w.device != x.device or bias.device != x.device:
@@ -387,8 +461,8 @@ def decode_packed_fused_head(x: torch.Tensor, w: torch.Tensor,
             x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
             int(x.dtype == torch.bfloat16), w.data_ptr(), bias.data_ptr(),
             b, gy, gx, cin, a, num_classes, _anchors_c(anchors), float(stride),
-            float(prob_thresh), head_offset, out.shape[1], out.data_ptr(),
-            _stream(x.device))
+            float(prob_thresh), head_offset, out.shape[1], *tiles,
+            out.data_ptr(), _stream(x.device))
     check_launch(rc, "decode_packed_fused_head")
     decode_packed_fused_head.launches += 1
     return out

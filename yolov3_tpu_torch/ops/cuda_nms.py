@@ -24,19 +24,12 @@ MAX_K = 1024  # K2_MAX_K in csrc/nms_suppress.cu: the conflict bitmask fits shar
 
 def conflict_matrix(boxes: torch.Tensor, classes: torch.Tensor,
                     iou_thresh: float) -> torch.Tensor:
-    """(B, K, K) bool: IoU > τ and same class, with the float operations in
-    the order of ``nms.iou_matrix`` (union = (area_i + area_j) - inter)."""
-    x0, y0, x1, y1 = boxes.unbind(-1)
-    area = (torch.clamp(x1 - x0, min=0.0)
-            * torch.clamp(y1 - y0, min=0.0))                 # (B, K)
-    iw = torch.clamp(torch.minimum(x1[:, :, None], x1[:, None, :])
-                     - torch.maximum(x0[:, :, None], x0[:, None, :]), min=0.0)
-    ih = torch.clamp(torch.minimum(y1[:, :, None], y1[:, None, :])
-                     - torch.maximum(y0[:, :, None], y0[:, None, :]), min=0.0)
-    inter = iw * ih
-    union = area[:, :, None] + area[:, None, :] - inter
-    iou = inter / torch.clamp(union, min=1e-9)
-    return (iou > iou_thresh) & (classes[:, :, None] == classes[:, None, :])
+    """(B, K, K) bool: IoU > τ (``nms.iou_matrix``, whose float order the
+    kernel repeats: union = (area_i + area_j) - inter) and same class."""
+    from .nms import iou_matrix  # nms imports this module
+
+    return ((iou_matrix(boxes) > iou_thresh)
+            & (classes[:, :, None] == classes[:, None, :]))
 
 
 def suppress_reference(boxes: torch.Tensor, classes: torch.Tensor,

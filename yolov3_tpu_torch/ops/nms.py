@@ -10,6 +10,11 @@ bit-identical to the JAX function of the same name on the same inputs:
   (the compact route), pair-max or direct top-k selection;
 * ``batched_nms``: decoded (B, N, 5+C) rows (``forward()``'s contract).
 
+They take the JAX functions' parameters in the same positions. ``impl``
+names the JAX package's two suppressions, "xla" and "pallas", which are
+bit-identical; here both run K2. There is no interpret mode: a CPU tensor
+already runs K2's plain version, so ``interpret=True`` raises.
+
 Tie order is the hazard: ``torch.topk`` promises no order among equal
 values, while ``lax.top_k`` puts the lower index first. Every selection here
 is therefore a stable sort: candidates already sit in ascending index order
@@ -29,6 +34,7 @@ from .cuda_nms import suppress
 
 # candidate indices ride in float32 lanes: exact below 2^24
 EXACT_INDEX_LIMIT = 2 ** 24
+IMPLS = ("xla", "pallas")
 
 
 class NMSResult(NamedTuple):
@@ -62,6 +68,19 @@ def unpack_results(arr) -> NMSResult:
     return NMSResult(boxes=arr[..., :4], scores=scores,
                      classes=arr[..., 5].astype(np.int32),
                      valid=scores > 0.0)
+
+
+def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of (..., K, 4) tlbr boxes → (..., K, K), with the float
+    operations of ``yolov3_tpu.ops.nms.iou_matrix`` in its order."""
+    area = (torch.clamp(boxes[..., 2] - boxes[..., 0], min=0.0)
+            * torch.clamp(boxes[..., 3] - boxes[..., 1], min=0.0))
+    tl = torch.maximum(boxes[..., :, None, :2], boxes[..., None, :, :2])
+    br = torch.minimum(boxes[..., :, None, 2:], boxes[..., None, :, 2:])
+    wh = torch.clamp(br - tl, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area[..., :, None] + area[..., None, :] - inter
+    return inter / torch.clamp(union, min=1e-9)
 
 
 def _sort_desc(values: torch.Tensor) -> torch.Tensor:
@@ -153,8 +172,15 @@ def _candidates(det: torch.Tensor, prob_thresh: float, top_k: int):
 
 def _suppress_batch(boxes: torch.Tensor, scores: torch.Tensor,
                     classes: torch.Tensor, valid: torch.Tensor,
-                    iou_thresh: float) -> NMSResult:
-    """K2 over the selected candidates; suppressed slots zeroed (class -1)."""
+                    iou_thresh: float, impl: str = "xla",
+                    interpret: bool = False) -> NMSResult:
+    """K2 over the selected candidates; suppressed slots zeroed (class -1).
+    ``impl`` "xla" or "pallas": both run K2."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown NMS impl {impl!r}")
+    if interpret:
+        raise ValueError("interpret=True: the port has no interpret mode; a "
+                         "CPU tensor runs K2's plain version")
     keep = suppress(boxes, classes, valid, iou_thresh)
     return NMSResult(
         boxes=torch.where(keep[..., None], boxes, torch.zeros_like(boxes)),
@@ -184,17 +210,19 @@ def compact_results(res: NMSResult, max_results: int) -> NMSResult:
 
 
 def batched_nms(detections: torch.Tensor, prob_thresh: float = 0.05,
-                iou_thresh: float = 0.3, top_k: int = 512) -> NMSResult:
+                iou_thresh: float = 0.3, top_k: int = 512,
+                impl: str = "xla", interpret: bool = False) -> NMSResult:
     """Class-aware NMS over decoded detections (B, N, 5+C) (``forward()``'s
     output). Exactly the ``top_k`` highest-scoring candidates above
     ``prob_thresh`` enter suppression (the >K truncation contract)."""
     return _suppress_batch(*_candidates(detections, prob_thresh, top_k),
-                           iou_thresh)
+                           iou_thresh, impl, interpret)
 
 
 def batched_nms_compact(boxes: torch.Tensor, scores: torch.Tensor,
                         classes: torch.Tensor, prob_thresh: float = 0.05,
                         iou_thresh: float = 0.3, top_k: int = 512,
+                        impl: str = "xla", interpret: bool = False,
                         max_results: int = 0, select_impl: str = "pairmax",
                         select_group: int = 2) -> NMSResult:
     """NMS over compact-decode outputs: tlbr boxes (B, N, 4), scores (B, N),
@@ -210,7 +238,7 @@ def batched_nms_compact(boxes: torch.Tensor, scores: torch.Tensor,
         sel = _select_topk(boxes, masked, classes, k)
     else:
         raise ValueError(f"unknown select_impl {select_impl!r}")
-    res = _suppress_batch(*sel, iou_thresh)
+    res = _suppress_batch(*sel, iou_thresh, impl, interpret)
     if max_results and max_results < k:
         res = compact_results(res, max_results)
     return res
@@ -218,6 +246,7 @@ def batched_nms_compact(boxes: torch.Tensor, scores: torch.Tensor,
 
 def batched_nms_packed(payload: torch.Tensor, scores: torch.Tensor,
                        iou_thresh: float = 0.3, top_k: int = 512,
+                       impl: str = "xla", interpret: bool = False,
                        max_results: int = 0, select_group: int = 2
                        ) -> NMSResult:
     """NMS over the packed decode output (serving path): ``payload``
@@ -228,7 +257,7 @@ def batched_nms_packed(payload: torch.Tensor, scores: torch.Tensor,
     survivors."""
     k = min(top_k, scores.shape[1])
     res = _suppress_batch(*_select_pairmax_payload(
-        payload, scores, k, group=select_group), iou_thresh)
+        payload, scores, k, group=select_group), iou_thresh, impl, interpret)
     if max_results and max_results < k:
         res = compact_results(res, max_results)
     return res

@@ -1,7 +1,8 @@
-"""Letterbox geometry and net→image coordinate rescaling.
+"""Box-format conversions, letterbox geometry and net→image coordinate
+rescaling.
 
-A copy of the functions of ``yolov3_tpu/utils/boxes.py`` that the serving
-path uses (that package imports JAX; the port must not).
+A copy of the functions of ``yolov3_tpu/utils/boxes.py`` (that package
+imports JAX; the port must not).
 ``tests/test_torch_frontend.py`` holds the copies equal to the originals.
 Pure numpy — runs on tiny (≤K) arrays after the device→host transfer.
 """
@@ -10,6 +11,19 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+
+def cxywh_to_tlbr(boxes: np.ndarray) -> np.ndarray:
+    """(…, 4) center-x, center-y, w, h → top-left/bottom-right corners."""
+    boxes = np.asarray(boxes, dtype=np.float32)
+    half = boxes[..., 2:4] * 0.5
+    return np.concatenate([boxes[..., 0:2] - half, boxes[..., 0:2] + half], axis=-1)
+
+
+def tlbr_to_cxywh(boxes: np.ndarray) -> np.ndarray:
+    boxes = np.asarray(boxes, dtype=np.float32)
+    wh = boxes[..., 2:4] - boxes[..., 0:2]
+    return np.concatenate([boxes[..., 0:2] + wh * 0.5, wh], axis=-1)
 
 
 def letterbox_geometry(src_hw: Tuple[int, int], net_hw: Tuple[int, int]

@@ -34,9 +34,13 @@ each raises on failure (the build always runs):
 8. int8conv: the card's im2col + ``torch._int_mm`` int8 conv against the
    CPU's int32 ``F.conv2d``: 1x1, 3x3 at stride 1 and 2, asymmetric
    zero-points, a padded N and a short M, the exact-u8 stem;
-9. K6 (fused int8 residual block) against its plain version, exact, at
-   both yolov3@416 B=8 block shapes and two odd geometries, int8, bf16 and
-   float32 outputs;
+9. K6 (fused int8 residual block on ``wgmma`` s8) against its plain
+   version, exact, at both yolov3@416 B=8 block shapes, yolov3@608's two,
+   both 416 shapes at B=1 and five odd geometries (an H and W no tile
+   divides, cmid = C, cmid below 64), int8, bf16 and float32 outputs, at
+   both tile heights; K6, its plain version and the block's two bare
+   products on ``torch._int_mm`` (a yardstick, not the same function) as
+   device time by CUDA graph replay, with TOP/s and the share of the bound;
 10. the golden fixtures (``tests/data/golden_{tiny,yolov3}.json``) replayed
     at precision "highest" through the Detector's routes: K1, the plain
     compact decode, K4, and K5 convs;
@@ -56,17 +60,18 @@ each raises on failure (the build always runs):
     per forward against ``fused_block_plan``; identical detections for
     fused and unfused blocks; the state file's round trip; the DESIGN int8
     bar against float32 on tiny@416;
-13. probes: the ingredient kernels T3a-e (int8 dot on the tensor cores and on
-    ``__dp4a``, round / clip, the row shifts, the edge mask, the float
-    epilogue) against their plain versions and the tool's exact host values,
-    then ``tools.probe_block``'s full blocks and chain prefixes: 0
-    differences everywhere;
-14. dots: T1 (int8 ``mma.sync``, int8 ``__dp4a``, bf16 ``mma.sync``) and T2
-    over the tools' shape lists, checked against their plain versions, then
-    timed by the tools' own clocks: time per step, useful rate, share of the
-    card's peak (above 100% fails), the library's product at the same shape;
-    T1's step, T3a and their library products also as device time alone
-    (replayed CUDA graphs);
+13. probes: the ingredient kernels T3a-e (int8 dot on ``wgmma``, on
+    ``mma.sync`` and on ``__dp4a``, round / clip, the row shifts, the edge
+    mask, the float epilogue) against their plain versions and the tool's
+    exact host values, then ``tools.probe_block``'s full blocks and chain
+    prefixes: 0 differences everywhere;
+14. dots: T1 (int8 ``wgmma``, int8 ``mma.sync``, int8 ``__dp4a``, bf16
+    ``wgmma``) and T2 over the tools' shape lists, checked against their
+    plain versions, then timed by the tools' own clocks: time per step,
+    useful rate, share of the card's peak (above 100% fails), the library's
+    product at the same shape; T1's step, its store mode (the bare product,
+    exact at int8) and the library products also as device time alone
+    (replayed CUDA graphs), shape by shape;
 15. native: the C++ host loader built with g++ (required here), its
     letterbox and stretch held to the device preprocess on seeded frames;
 16. entry, the entry-point path at full width (yolov3@416, bf16, batch 8,
@@ -590,24 +595,9 @@ def graph_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     """Mean device milliseconds of ``fn``: ``iters`` calls captured into one
     CUDA graph and replayed, so the host's time per call (about 25 us for a
     ctypes wrapper) does not count."""
-    import torch
+    from yolov3_tpu_torch.tools.clock import graph_ms as replay_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return replay_ms(fn, iters, warmup)
 
 
 def k5_check(x, wt, b, what: str) -> float:
@@ -844,6 +834,16 @@ def phase_int8conv():
 
 
 K6_SHAPES = ((BATCH, 104, 104, 128, 64), (BATCH, 52, 52, 256, 128))
+# K6 off yolov3@416's main path, all timed too: yolov3@608's two block
+# shapes, both 416 shapes at one image (where the tile plan takes 8-row
+# tiles)
+K6_TIMED_SHAPES = ((BATCH, 152, 152, 128, 64), (BATCH, 76, 76, 256, 128),
+                   (1, 104, 104, 128, 64), (1, 52, 52, 256, 128))
+# exact only: an H and W that no tile divides (37 x 53), a 5 x 3 image with
+# cmid = C, and mid widths below a 64-channel product (zero-filled N and K)
+K6_ODD_SHAPES = ((2, 37, 53, 128, 64), (1, 5, 3, 128, 128),
+                 (3, 21, 19, 256, 128), (2, 13, 11, 128, 32),
+                 (1, 12, 20, 256, 48))
 
 
 def k6_case(rng, b: int, h: int, w: int, c: int, cmid: int):
@@ -863,52 +863,104 @@ def k6_case(rng, b: int, h: int, w: int, c: int, cmid: int):
     return x, bp, kw
 
 
-def phase_k6():
-    """K6 (fused int8 residual block) against its plain version: exact, at
-    both yolov3@416 B=8 block shapes and an odd geometry, int8 and carrier
-    outputs."""
+def k6_exact(x, bp, kw, what: str) -> float:
+    """K6 against its plain version on one block: int8, bf16 and float32
+    outputs equal, 0 differing elements; returns max |err| (0.0)."""
     import torch
     from yolov3_tpu_torch.ops.cuda_block import (residual_block_int8,
                                                  residual_block_int8_reference)
 
+    worst = 0.0
+    for emit_q, carrier in ((True, torch.bfloat16), (False, torch.bfloat16),
+                            (False, torch.float32)):
+        got = residual_block_int8(x, bp, emit_q=emit_q, carrier_dtype=carrier, **kw)
+        want = residual_block_int8_reference(x, bp, emit_q=emit_q,
+                                             carrier_dtype=carrier, **kw)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        worst = max(worst, float(d.max()))
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(
+                f"K6 {what} emit_q={emit_q} {carrier}: {int((d > 0).sum())} "
+                f"of {d.numel()} elements differ, max {float(d.max())}")
+    return worst
+
+
+def phase_k6():
+    """K6 (fused int8 residual block) against its plain version: exact at
+    yolov3@416's and @608's B=8 block shapes, at B=1 and at odd
+    geometries, int8, bf16 and float32 outputs, at the plan's tile and at
+    the other one; then device time by CUDA graph replay of the kernel, its
+    plain version and the library yardstick (the block's two bare int8
+    products as ``torch._int_mm``)."""
+    import torch
+    from yolov3_tpu_torch.ops import cuda_block
+    from yolov3_tpu_torch.ops._build import sm_count
+    from yolov3_tpu_torch.ops.cuda_block import (residual_block_int8,
+                                                 residual_block_int8_reference)
+
     rng = np.random.default_rng(6)
+    plan = cuda_block.plan_block_tiles
     times, max_err = {}, 0.0
-    for shape in K6_SHAPES + ((2, 37, 53, 128, 64), (1, 5, 3, 128, 128)):
+    for shape in K6_SHAPES + K6_TIMED_SHAPES + K6_ODD_SHAPES:
         b, h, w, c, cmid = shape
         x, bp, kw = k6_case(rng, *shape)
-        for emit_q, carrier in ((True, torch.bfloat16), (False, torch.bfloat16),
-                                (False, torch.float32)):
-            got = residual_block_int8(x, bp, emit_q=emit_q, carrier_dtype=carrier, **kw)
-            want = residual_block_int8_reference(x, bp, emit_q=emit_q,
-                                                 carrier_dtype=carrier, **kw)
-            torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs()
-            max_err = max(max_err, float(d.max()))
-            if got.dtype != want.dtype or not torch.equal(got, want):
-                raise AssertionError(
-                    f"K6 {shape} emit_q={emit_q} {carrier}: {int((d > 0).sum())} "
-                    f"of {d.numel()} elements differ, max {float(d.max())}")
+        chosen = plan(b, h, w, c, cmid, sm_count(x.get_device()))
+        tile_ms = {}
+        heights = [th for th in cuda_block.TILE_HEIGHTS if cuda_block.
+                   block_smem_bytes(th, c, cmid) <= cuda_block.SMEM_LIMIT]
+        for th in heights:
+            cuda_block.plan_block_tiles = lambda *a, th=th: th
+            try:
+                max_err = max(max_err, k6_exact(x, bp, kw, f"{shape} {th}-row tiles"))
+                if shape not in K6_ODD_SHAPES:
+                    tile_ms[th] = graph_ms(lambda: residual_block_int8(
+                        x, bp, emit_q=True, **kw))
+            finally:
+                cuda_block.plan_block_tiles = plan
         q = residual_block_int8(x, bp, emit_q=True, **kw)
         spread = [float((q == v).float().mean()) for v in (-127, 0, 127)]
         log(f"[K6] B={b} {h}x{w} C={c} cmid={cmid}: int8, bf16 and float32 "
-            f"outputs exact against the plain version (share of outputs at "
-            f"-127/0/127: {spread[0]:.3f}/{spread[1]:.3f}/{spread[2]:.3f})")
-        if shape in K6_SHAPES:
-            ms = cuda_ms(lambda: residual_block_int8(x, bp, emit_q=True, **kw),
-                         iters=10, warmup=2)
-            plain_ms = cuda_ms(lambda: residual_block_int8_reference(
-                x, bp, emit_q=True, **kw), iters=5, warmup=1)
-            ops = 2 * b * h * w * (c * cmid + 9 * cmid * c)
-            nbytes = 2 * x.numel() + c * cmid + 9 * cmid * c + 8 * (c + cmid)
-            t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            times[shape] = (ms, plain_ms, bound_ms,
-                            "operations" if t_ops >= t_bytes else "bytes")
-            log(f"[K6] B={b} {h}x{w} C={c}: kernel {ms:.4f} ms "
-                f"({ops / ms / 1e9:.1f} TOP/s int8), plain (unfused ops) "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({ops / 1e9:.1f} G "
-                f"operations at 1,979 TOP/s against {nbytes / 1e6:.1f} MB at "
-                f"3.35 TB/s; {bound_ms / ms:.1%} of the bound reached)")
+            f"outputs exact against the plain version at tile heights "
+            f"{heights} (share of outputs at -127/0/127: {spread[0]:.3f}/"
+            f"{spread[1]:.3f}/{spread[2]:.3f})")
+        if shape in K6_ODD_SHAPES:
+            continue
+        ms = graph_ms(lambda: residual_block_int8(x, bp, emit_q=True, **kw))
+        plain_ms = graph_ms(lambda: residual_block_int8_reference(
+            x, bp, emit_q=True, **kw), iters=5, warmup=1)
+        # the yardstick: the block's two products alone, (M, C) . (C, cmid)
+        # and the 3x3's im2col (M, 9 cmid) . (9 cmid, C), on torch._int_mm;
+        # NOT the same function (no epilogues, no mid tile, no shortcut)
+        m = b * h * w
+        a1 = torch.randint(-127, 128, (m, c), dtype=torch.int8, device=DEVICE)
+        b1 = torch.randint(-127, 128, (c, cmid), dtype=torch.int8, device=DEVICE)
+        a2 = torch.randint(-127, 128, (m, 9 * cmid), dtype=torch.int8, device=DEVICE)
+        b2 = torch.randint(-127, 128, (9 * cmid, c), dtype=torch.int8, device=DEVICE)
+        lib_ms = graph_ms(lambda: (torch._int_mm(a1, b1), torch._int_mm(a2, b2)))
+        del a1, a2
+        ops = 2 * m * (c * cmid + 9 * cmid * c)
+        nbytes = 2 * x.numel() + c * cmid + 9 * cmid * c + 8 * (c + cmid)
+        t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        times[shape] = (ms, plain_ms, bound_ms,
+                        "operations" if t_ops >= t_bytes else "bytes", lib_ms)
+        log(f"[K6] B={b} {h}x{w} C={c} cmid={cmid}: kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s int8, {bound_ms / ms:.1%} of the "
+            f"bound {bound_ms:.4f} ms: {ops / 1e9:.1f} G operations at 1,979 "
+            f"TOP/s against {nbytes / 1e6:.1f} MB at 3.35 TB/s); plain "
+            f"(unfused ops) {plain_ms:.4f} ms; yardstick, the two bare products "
+            f"on torch._int_mm (not the same function) {lib_ms:.4f} ms; by tile "
+            f"height " + ", ".join(f"{k} rows {v * 1e3:.1f} us"
+                                   for k, v in sorted(tile_ms.items()))
+            + f", plan_block_tiles takes {chosen} (one call repeated in a CUDA "
+            f"graph, operands hot in L2)")
+    forward = [sum(n * times[shape][i] for n, shape in zip((2, 8), K6_SHAPES))
+               for i in (0, 1, 2, 4)]
+    log(f"[K6] yolov3@416 B={BATCH}, the 10 blocks of a forward (2 at 104x104 "
+        f"C=128, 8 at 52x52 C=256): kernel {forward[0]:.4f} ms, plain "
+        f"{forward[1]:.4f} ms, bound {forward[2]:.4f} ms ({forward[2] / forward[0]:.1%} "
+        f"of it reached), torch._int_mm yardstick {forward[3]:.4f} ms")
     return max_err, times
 
 
@@ -1461,31 +1513,38 @@ def phase_probes():
             raise AssertionError(f"{what}: {n} elements differ from the plain version")
         return float((got.double() - want.double()).abs().max())
 
-    # T3a: every shape of the tool, both cores, against the float64 product
+    # T3a: every shape of the tool, all three int8 cores, against the
+    # float64 product
     dots, errs = [], []
     for m, k, n in pb.INT8_DOT_SHAPES:
         lhs = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
         rhs = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(dev)
         errs += [same(cp.probe_int8_dot(lhs, rhs, core), cp.dot_reference(lhs, rhs),
-                      f"T3a {core} {(m, k, n)}") for core in ("mma_s8", "dp4a_s8")]
+                      f"T3a {core} {(m, k, n)}")
+                 for core in ("wgmma_s8", "mma_s8", "dp4a_s8")]
         dots.append((lhs, rhs))
     ops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in dots)
     nbytes = sum(a.numel() + b.numel() + 4 * a.shape[0] * b.shape[1] for a, b in dots)
     rec["T3a"] = dict(
-        max_abs_err=max(errs), ms=_sum_ms(lambda a, b: cp.probe_int8_dot(a, b, "mma_s8"), dots),
+        max_abs_err=max(errs),
+        ms=_sum_ms(lambda a, b: cp.probe_int8_dot(a, b, "wgmma_s8"), dots),
+        ms_mma=_sum_ms(lambda a, b: cp.probe_int8_dot(a, b, "mma_s8"), dots),
         ms_dp4a=_sum_ms(lambda a, b: cp.probe_int8_dot(a, b, "dp4a_s8"), dots),
         plain_ms=_sum_ms(cp.dot_reference, dots),
         library_ms=_sum_ms(torch._int_mm, dots), ops=ops, nbytes=nbytes,
         peak=INT8_OPS_PER_S,
         # device time alone (CUDA graph replay), beside the eager sums
-        graph_ms=sum(graph_ms(lambda: cp.probe_int8_dot(a, b, "mma_s8"))
+        graph_ms=sum(graph_ms(lambda: cp.probe_int8_dot(a, b, "wgmma_s8"))
                      for a, b in dots),
+        graph_ms_mma=sum(graph_ms(lambda: cp.probe_int8_dot(a, b, "mma_s8"))
+                         for a, b in dots),
         library_graph_ms=sum(graph_ms(lambda: torch._int_mm(a, b))
                              for a, b in dots))
-    log(f"[probes] T3a over {len(dots)} shapes: tensor cores "
+    log(f"[probes] T3a over {len(dots)} shapes: wgmma "
         f"{rec['T3a']['ms']:.4f} ms eager, {rec['T3a']['graph_ms']:.4f} ms "
-        f"graph replay; torch._int_mm {rec['T3a']['library_ms']:.4f} / "
-        f"{rec['T3a']['library_graph_ms']:.4f} ms")
+        f"graph replay; mma.sync {rec['T3a']['ms_mma']:.4f} / "
+        f"{rec['T3a']['graph_ms_mma']:.4f} ms; torch._int_mm "
+        f"{rec['T3a']['library_ms']:.4f} / {rec['T3a']['library_graph_ms']:.4f} ms")
     # T3b-e at the tool's inputs
     x = torch.from_numpy(pb.round_inputs()).to(dev)
     err = same(cp.probe_round(x), cp.probe_round_reference(x), "T3b")
@@ -1516,7 +1575,7 @@ def phase_probes():
                           acc, deq, b, inv)),
                       nbytes=8 * acc.numel() + 8 * deq.numel(), ops=6 * acc.numel())
     log("[probes] T3a-e equal their plain versions on the card (T3a at "
-        f"{len(dots)} shapes, tensor cores and __dp4a)")
+        f"{len(dots)} shapes, wgmma, mma.sync and __dp4a)")
     # the tool's path: exact host values, the reference's wording
     wrappers = {"T3a": cp.probe_int8_dot, "T3b": cp.probe_round,
                 "T3c": cp.probe_roll, "T3d": cp.probe_mask,
@@ -1540,11 +1599,18 @@ def phase_probes():
     return rec
 
 
+# T1's store mode at bf16 against the float32 matmul: the same products
+# summed in another order (and truncated by the tensor cores' alignment),
+# relative to the largest sum
+DOT_STORE_BF16_RTOL = 2.0 ** -12
+
+
 def phase_dots(card: str):
-    """T1 (int8 mma.sync, int8 __dp4a, bf16 mma.sync) and T2 over the tools'
-    shape lists: checked against their plain versions, then timed by the
-    tools' own clocks with the launch counts zeroed before; shares of the
-    card's peaks; the library call at the same shape."""
+    """T1 (int8 wgmma, int8 mma.sync, int8 __dp4a, bf16 wgmma) and T2 over
+    the tools' shape lists: checked against their plain versions, then
+    timed by the tools' own clocks with the launch counts zeroed before;
+    shares of the card's peaks; the library call at the same shape; T1's
+    store mode (the bare product) by graph replay beside the step."""
     import torch
     from yolov3_tpu_torch.ops import cuda_probe as cp
     from yolov3_tpu_torch.tools import bench_dot, bench_int8_dot
@@ -1564,7 +1630,8 @@ def phase_dots(card: str):
                 for shape in bench_dot.SHAPES]
     rec["grid"] = dict(max_abs_err=max(bench_dot.check_shape(a) for a in t2_cases),
                        peak=BF16_FLOPS_PER_S, name="bf16 grid", rows=[])
-    log(f"[dots] T1 (3 cores x {len(bench_int8_dot.SHAPES)} shapes) and T2 "
+    log(f"[dots] T1 ({len(bench_int8_dot.VARIANTS)} cores x "
+        f"{len(bench_int8_dot.SHAPES)} shapes) and T2 "
         f"({len(bench_dot.SHAPES)} shapes) within the bar of their plain "
         f"versions (rtol {bench_int8_dot.DOT_RTOL:.3g} of the largest output): "
         f"max |err| { {k: v['max_abs_err'] for k, v in rec.items()} }")
@@ -1606,12 +1673,36 @@ def phase_dots(card: str):
             args = cases[(dtype, r["shape"])]
             r["graph_ms"] = graph_ms(lambda: cp.dot_step(*args, core=core))
             r["library_graph_ms"] = graph_ms(lambda: lib(args[1], args[2]))
+        # the timing split: T1's kernel in store mode is the bare product,
+        # the function of the library call; the step minus it is the
+        # projections and the two-stage finish
+        for r in rec[core]["rows"]:
+            lhs, rhs = cases[(dtype, r["shape"])][1:3]
+            got = cp.dot_product(lhs, rhs, core)
+            want = cp.dot_reference(lhs, rhs)
+            torch.cuda.synchronize()
+            if dtype == torch.int8:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"T1 store mode {core} {r['shape']}: "
+                                         f"int32 sums differ")
+            else:
+                err = float((got - want).abs().max())
+                if not err <= DOT_STORE_BF16_RTOL * float(want.abs().max()):
+                    raise AssertionError(f"T1 store mode {core} {r['shape']}: "
+                                         f"max |err| {err}")
+            r["store_graph_ms"] = graph_ms(lambda: cp.dot_product(lhs, rhs, core))
         rows = rec[core]["rows"]
-        log(f"[dots] {name}, {len(rows)} shapes, one step each, device time "
-            f"(CUDA graph replay): kernel {sum(r['graph_ms'] for r in rows):.4f}"
-            f" ms, library {sum(r['library_graph_ms'] for r in rows):.4f} ms; "
-            f"eager (CUDA events): library "
-            f"{sum(r['library_ms'] for r in rows):.4f} ms on {card}")
+        log(f"[dots] {name}, {len(rows)} shapes, one each, device time "
+            f"(CUDA graph replay): step {sum(r['graph_ms'] for r in rows):.4f}"
+            f" ms, store mode (the bare product) "
+            f"{sum(r['store_graph_ms'] for r in rows):.4f} ms, library "
+            f"{sum(r['library_graph_ms'] for r in rows):.4f} ms; eager (CUDA "
+            f"events): library {sum(r['library_ms'] for r in rows):.4f} ms on "
+            f"{card}")
+        for r in rows:
+            log(f"[dots]   {name} {r['shape']}: step {r['graph_ms'] * 1e3:.2f} "
+                f"us, store {r['store_graph_ms'] * 1e3:.2f} us, library "
+                f"{r['library_graph_ms'] * 1e3:.2f} us")
     # bound of one step inside the timed call. The operands are the same on
     # every step and stay in L2, so device memory sees them once per call:
     # a step's bytes are its share of them (the larger timed size) plus its
@@ -2060,9 +2151,10 @@ def probe_records(dots, probes, bound):
     launches are those of the tool's timed run."""
     src = "yolov3_tpu_torch/csrc/probe.cu"
     out = []
-    for core, name in (("mma_s8", "probe_dot_step[int8 mma.sync]"),
+    for core, name in (("wgmma_s8", "probe_dot_step[int8 wgmma]"),
+                       ("mma_s8", "probe_dot_step[int8 mma.sync]"),
                        ("dp4a_s8", "probe_dot_step[int8 __dp4a]"),
-                       ("mma_bf16", "probe_dot_step[bf16 mma.sync]"),
+                       ("wgmma_bf16", "probe_dot_step[bf16 wgmma]"),
                        ("grid", "probe_dot_grid")):
         v = dots[core]
         rows = v["rows"]
@@ -2079,6 +2171,7 @@ def probe_records(dots, probes, bound):
             "library_ms": sum(r["library_ms"] for r in rows),
             "ms_of": f"one step at each of the tool's {len(rows)} shapes",
             **({"graph_ms": sum(r["graph_ms"] for r in rows),
+                "store_graph_ms": sum(r["store_graph_ms"] for r in rows),
                 "library_graph_ms": sum(r["library_graph_ms"] for r in rows)}
                if core != "grid" else {}),
             "best_share_of_peak": max(r["share"] for r in rows)})
@@ -2096,10 +2189,11 @@ def probe_records(dots, probes, bound):
                  **bound(v["nbytes"], v["ops"], v.get("peak", FP32_FLOPS_PER_S)),
                  "library_ms": v.get("library_ms")}
         if "ms_dp4a" in v:
-            entry["ms_dp4a"] = v["ms_dp4a"]
-            entry["ms_of"] = "one launch at each of the tool's 8 shapes"
-            entry["graph_ms"] = v["graph_ms"]
-            entry["library_graph_ms"] = v["library_graph_ms"]
+            for key in ("ms_mma", "ms_dp4a", "graph_ms", "graph_ms_mma",
+                        "library_graph_ms"):
+                entry[key] = v[key]
+            entry["ms_of"] = ("one launch at each of the tool's 8 shapes, "
+                              "wgmma core")
         out.append(entry)
     return out
 
@@ -2197,7 +2291,7 @@ def main() -> int:
         k5_bytes += count * 2 * (BATCH * h * w * (cin + cout) + 9 * cin * cout)
         k5_flop += count * 2 * BATCH * h * w * 9 * cin * cout
     k6_forward = [sum(n * k6[shape][i] for n, shape in zip((2, 8), K6_SHAPES))
-                  for i in range(3)]
+                  for i in (0, 1, 2, 4)]
     kernels = {"kernels": [
         {"name": "decode_packed_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_packed.cu",
@@ -2254,17 +2348,21 @@ def main() -> int:
          "library_ms": k5[bf16][2]},
         {"name": "residual_block_int8", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/block_int8.cu",
+         "headers": ["yolov3_tpu_torch/csrc/wgmma_common.cuh",
+                     "yolov3_tpu_torch/csrc/block_int8_common.cuh"],
          "replaces": "yolov3_tpu/ops/pallas_block.py:222",
          "launches": res["int8"]["residual_block_int8"], "max_abs_err": k6_err,
          # one forward's ten launches (2 at 104x104 C=128, 8 at 52x52 C=256):
-         # each time is 2 x the first shape's + 8 x the second's, as the k6
-         # phase measured them one launch at a time
+         # each time is 2 x the first shape's + 8 x the second's, one call
+         # of each replayed from a CUDA graph
          "ms": k6_forward[0], "plain_ms": k6_forward[1],
          "bound_ms": k6_forward[2],
          "ms_of": "one forward: 2 launches at 104x104 C=128 + 8 at 52x52 C=256",
          "bound_by": ("operations" if all(k6[shape][3] == "operations"
                                           for shape in K6_SHAPES) else "bytes"),
-         "library_ms": None},
+         # the block's two bare int8 products on torch._int_mm: a yardstick,
+         # not the same function (no epilogues, mid tile or shortcut)
+         "library_ms": k6_forward[3]},
         *probe_records(res["dots"], res["probes"], bound),
     ]}
     for entry in kernels["kernels"]:

@@ -212,12 +212,44 @@ def test_residual_block_int8_direct_against_jax_kernel():
         assert torch.equal(q, got)
 
 
+def _unpack_block_weights(w1k, w2k, cin, cmid):
+    """The inverse of ``pack_block_weights``, written from the kernel's
+    layout: w1k row n = the 1×1 weights of mid channel n; w2k row o at
+    K = tap·cmid_p + j = the 3×3 weight of (tap, j) into output o."""
+    cp = w1k.shape[0]
+    wq1 = w1k[:cmid].t().reshape(1, 1, cin, cmid)
+    wq2 = torch.empty((3, 3, cmid, cin), dtype=torch.int8)
+    for tap in range(9):
+        wq2[tap // 3, tap % 3] = w2k[:, tap * cp:tap * cp + cmid].t()
+    return wq1, wq2
+
+
+@pytest.mark.parametrize("cin,cmid", [(128, 64), (256, 128), (128, 32)])
+def test_pack_block_weights_round_trip(cin, cmid):
+    """K6's K-major operands hold the int8 weights and zeros elsewhere:
+    w1k (cmid_p, C) and w2k (C, ksteps·128), cmid_p = cmid rounded up to
+    64, ksteps = ceil(9·cmid_p / 128)."""
+    rng = np.random.default_rng(cin + cmid)
+    wq1 = torch.from_numpy(rng.integers(-127, 128, (1, 1, cin, cmid), dtype=np.int8))
+    wq2 = torch.from_numpy(rng.integers(-127, 128, (3, 3, cmid, cin), dtype=np.int8))
+    w1k, w2k = cuda_block.pack_block_weights(wq1, wq2)
+    cp = -(-cmid // 64) * 64
+    ksteps = -(-9 * cp // 128)
+    assert w1k.shape == (cp, cin) and w1k.dtype == torch.int8
+    assert w2k.shape == (cin, ksteps * 128) and w2k.dtype == torch.int8
+    assert w1k.is_contiguous() and w2k.is_contiguous()
+    back1, back2 = _unpack_block_weights(w1k, w2k, cin, cmid)
+    assert torch.equal(back1, wq1) and torch.equal(back2, wq2)
+    # every byte that is not a weight is zero: the padded mid channels and
+    # the K tail past 9·cmid_p add nothing to the products
+    assert int(w1k.abs().sum()) == int(wq1.abs().sum())
+    assert int(w2k.abs().sum()) == int(wq2.abs().sum())
+    # the 3x3's K = (tap, mid channel) in 32-byte products never straddles
+    # a tap: K6 reads each product's A rows from one tap's shifted tile
+    assert cp % 32 == 0
+
+
 def test_pack4_and_block_validation():
-    w = torch.arange(8 * 3, dtype=torch.int8).reshape(8, 3) - 12
-    packed = cuda_block._pack4(w)
-    assert packed.shape == (2, 3) and packed.dtype == torch.int32
-    back = packed.view(torch.int8).reshape(2, 3, 4).permute(0, 2, 1).reshape(8, 3)
-    assert torch.equal(back, w)
     case = Case("chain2")
     bp, kw = _block_operands(case)
     x = torch.zeros((1, 4, 4, 128), dtype=torch.int8)
@@ -239,3 +271,77 @@ def test_pack4_and_block_validation():
                                            cache=cache, key=1) is a
     assert cuda_block.prepare_block_params(case.tqp[1], case.tqp[2], 0.3, 0.2,
                                            cache=cache, key=1) is not a
+
+
+def _shipped_blocks():
+    """(cfg, net size, block start, plan entry, grid) of every block
+    ``fused_block_plan`` selects in the shipped cfgs at 320, 416 and 608."""
+    out = []
+    for path in sorted(MODELS.glob("*.cfg")):
+        g = load_graph(path)
+        fake = {n.index: ({"wq": 0} if tq.eligible(g, n) else {"w": 0})
+                for n in g.conv_nodes}
+        scales = {n.index: 1.0 for n in g.nodes}
+        for a, v in cuda_block.fused_block_plan(g, fake, scales).items():
+            for size in (320, 416, 608):
+                out.append((path.name, size, a, v,
+                            size // g.nodes[a].downsample))
+    return out
+
+
+def test_shipped_blocks_are_in_the_kernels_domain():
+    """Every block ``fused_block_plan`` selects in ``models/`` passes K6's
+    domain check (C ∈ {128, 256}, cmid a multiple of 16 up to 256), and the
+    check refuses what the kernel does not take."""
+    blocks = _shipped_blocks()
+    assert {cfg for cfg, *_ in blocks} == {"yolov3.cfg", "yolov3-spp.cfg"}
+    for cfg, size, a, v, grid in blocks:
+        assert v["cout"] == v["cin"]
+        cuda_block.check_block_domain(v["cin"], v["cmid"])
+    for c, cmid in ((512, 256), (64, 32), (256, 40), (256, 272), (128, 0)):
+        with pytest.raises(ValueError, match="K6 takes"):
+            cuda_block.check_block_domain(c, cmid)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_block_tile_plan_fits_and_covers(batch):
+    """The tile plan: every shipped block at 320 / 416 / 608 gets a tile
+    whose shared memory fits a block's 227 KB; 8-row tiles only while every
+    8 × 8 tile has a multiprocessor to itself (132 on an H100); the grid
+    covers every output pixel exactly once."""
+    sms = 132
+    for cfg, size, a, v, grid in _shipped_blocks():
+        c, cmid = v["cin"], v["cmid"]
+        th = cuda_block.plan_block_tiles(batch, grid, grid, c, cmid, sms)
+        assert th in cuda_block.TILE_HEIGHTS
+        assert cuda_block.block_smem_bytes(th, c, cmid) <= 227 * 1024
+        small = batch * (-(-grid // 8)) ** 2 <= sms
+        assert th == (8 if small else 16), (cfg, size, a)
+    # yolov3@416 B=8: 104² C=128 and 52² C=256 take 16-row tiles
+    assert cuda_block.block_smem_bytes(16, 256, 128) == 207360
+    assert cuda_block.plan_block_tiles(8, 52, 52, 256, 128, sms) == 16
+    # a wide mid tile falls back to 8 rows, and past that the plan refuses
+    assert cuda_block.block_smem_bytes(16, 256, 256) > cuda_block.SMEM_LIMIT
+    assert cuda_block.plan_block_tiles(8, 52, 52, 256, 256, sms) == 8
+    for h, w, th in ((37, 53, 16), (5, 3, 8), (52, 52, 16), (19, 21, 8)):
+        count = np.zeros((h, w), np.int32)
+        for ty in range(-(-h // th)):
+            for tx in range(-(-w // cuda_block.TILE_W)):
+                count[ty * th:(ty + 1) * th,
+                      tx * cuda_block.TILE_W:(tx + 1) * cuda_block.TILE_W] += 1
+        assert (count == 1).all()
+
+
+def test_ablations_apply_to_the_kernel_source():
+    """``tools.ablate_block`` removes each part from the kernel as it is:
+    every edit finds its code exactly once, and each ablated source differs
+    from the kernel's."""
+    from yolov3_tpu_torch.tools import ablate_block
+
+    source = ablate_block.SOURCE.read_text()
+    got = ablate_block.ablated_sources(source)
+    assert set(got) == {"noload", "nomma3", "noepi", "skeleton"}
+    assert all(text != source for text in got.values())
+    assert "wg_mma_m64k32_s8<C>(acc2" not in got["skeleton"]
+    with pytest.raises(ValueError, match="exactly once"):
+        ablate_block.ablated_sources(source.replace("load_w2(st == 0", "x("))

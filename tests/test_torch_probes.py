@@ -16,7 +16,8 @@ from tools import bench_int8_dot as jbench_int8
 from tools import bench_pallas_dot as jbench_dot
 from tools import probe_block as jprobe
 from yolov3_tpu_torch.ops import cuda_probe as cp
-from yolov3_tpu_torch.tools import bench_dot, bench_int8_dot, probe_block
+from yolov3_tpu_torch.tools import (ablate_block, bench_dot, bench_int8_dot,
+                                   probe_block)
 
 torch.set_num_threads(1)
 
@@ -79,7 +80,9 @@ def test_t1_dot_step_against_make_dot(calls, shape, dtype, carry):
         exact = np.asarray(args[1], np.int64) @ shifted.astype(np.int64)
         acc = cp.dot_reference(targs[1], cp.shift_rhs(targs[2], carry))
         np.testing.assert_array_equal(acc.numpy(), exact)
-    for core in ("mma_s8", "dp4a_s8") if dtype == "int8" else ("mma_bf16",):
+    cores = ("wgmma_s8", "mma_s8", "dp4a_s8") if dtype == "int8" else (
+        "wgmma_bf16",)
+    for core in cores:
         assert torch.equal(cp.dot_step(*targs, core=core), got)
     # the dependent chain moves the carry by 1e-24 of each result: no change
     assert torch.equal(cp.dot_step(*targs, steps=3), got)
@@ -185,7 +188,7 @@ def test_tool_shape_lists_keep_the_reference_and_add_the_ports_own():
                for m, k, n in bench_dot.SHAPES[8:])
     args = cp.dot_operands(64, 72, 64, torch.bfloat16,
                            np.random.default_rng(0), "cpu")
-    assert bench_int8_dot.check_shape(args, "mma_bf16") == 0.0
+    assert bench_int8_dot.check_shape(args, "wgmma_bf16") == 0.0
     assert bench_dot.check_shape(args[1:]) == 0.0
 
 
@@ -196,7 +199,7 @@ def test_cuda_requests_raise_without_a_card():
         cp.probe_mask(6, 48, 128, 40, 40, 0)             # default: the card
     with pytest.raises(RuntimeError, match="cuda"):
         cp.dot_operands(64, 64, 64, torch.int8, np.random.default_rng(0))
-    for tool in (probe_block, bench_int8_dot, bench_dot):
+    for tool in (probe_block, bench_int8_dot, bench_dot, ablate_block):
         with pytest.raises(RuntimeError, match="cuda"):
             tool.main()
     meta8 = torch.empty((64, 64), dtype=torch.int8, device="meta")
@@ -223,4 +226,42 @@ def test_cuda_requests_raise_without_a_card():
         cp.dot_step(carry, torch.zeros((4, 4), dtype=torch.int8),
                     torch.zeros((4, 4), dtype=torch.int8),
                     torch.zeros((8, 4), dtype=torch.bfloat16),
-                    torch.zeros((4, 128), dtype=torch.bfloat16), core="mma_bf16")
+                    torch.zeros((4, 128), dtype=torch.bfloat16),
+                    core="wgmma_bf16")
+    with pytest.raises(ValueError, match="core"):   # T2's core is not T1's
+        cp.dot_product(torch.zeros((4, 4), dtype=torch.bfloat16),
+                       torch.zeros((4, 4), dtype=torch.bfloat16),
+                       core="mma_bf16")
+    for call in (lambda: cp.dot_product(meta8, meta8),
+                 lambda: cp.dot_product(metab, metab, "wgmma_bf16")):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            call()
+
+
+@pytest.mark.parametrize("dtype,core", [("int8", "wgmma_s8"), ("int8", "mma_s8"),
+                                        ("int8", "dp4a_s8"),
+                                        ("bfloat16", "wgmma_bf16")])
+def test_dot_product_store_mode_is_the_bare_product(dtype, core):
+    """T1's kernel in store mode (the timing split's bare product): on the
+    CPU the plain product, int8 exact against int64 numpy, bf16 to float32
+    sums; every core of T1 takes it, the default being the wgmma core of
+    the operands' type."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(-127, 128, (100, 128))
+    b = rng.integers(-127, 128, (128, 64))
+    if dtype == "int8":
+        lhs, rhs = (torch.from_numpy(t.astype(np.int8)) for t in (a, b))
+        got = cp.dot_product(lhs, rhs, core)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), a @ b)
+        assert torch.equal(cp.dot_product(lhs, rhs), got)
+        assert torch.equal(cp.probe_int8_dot(lhs, rhs, core), got)
+    else:
+        lhs = torch.from_numpy(a.astype(np.float32) / 64).to(torch.bfloat16)
+        rhs = torch.from_numpy(b.astype(np.float32) / 64).to(torch.bfloat16)
+        got = cp.dot_product(lhs, rhs, core)
+        assert got.dtype == torch.float32 and got.shape == (100, 64)
+        # multiples of 1/64 below 2: the products and sums are exact
+        np.testing.assert_array_equal(got.numpy(), (a @ b) / 4096.0)
+        assert torch.equal(cp.dot_product(lhs, rhs), got)
+    assert cp.dot_product.launches == 0   # CPU: the plain version

@@ -4,7 +4,8 @@
 //
 // Float contract (see block_int8.cu): built with -fmad=false, so every
 // multiply and add below stays a separate rounding, and rounding to integer
-// is rintf (half to even, what torch.round and numpy.round do), never roundf.
+// is half to even (what torch.round and numpy.round do), never roundf's half
+// away from zero.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,9 +14,31 @@ __device__ __forceinline__ float k6_leaky(float y) {
   return y > 0.0f ? y : 0.1f * y;
 }
 
-// clip(round-half-even(f), -127, 127), as a float
+// 1.5 * 2^23. Added to a float of magnitude below 2^22 it leaves that
+// float's nearest integer, ties to even (the constant is even), as the low
+// bits of a float whose unit in the last place is 1; the same sum carries
+// small integers between int and float. These run on the floating-point
+// pipes, where rintf and the int <-> float conversions take the conversion
+// unit at a quarter of their rate, and K6's epilogues are bound by that.
+#define K6_MAGIC 12582912.0f
+#define K6_MAGIC_BITS 0x4B400000
+
+// clip(round-half-even(f), -127, 127), as a float: equal to
+// fminf(fmaxf(rintf(f), -127), 127) for every f. Below 2^22 the rounding is
+// rintf's; from there on both clip to +-127, and NaN becomes -127 in both.
 __device__ __forceinline__ float k6_round_clip(float f) {
-  return fminf(fmaxf(rintf(f), -127.0f), 127.0f);
+  const float r = (f + K6_MAGIC) - K6_MAGIC;
+  return fminf(fmaxf(r, -127.0f), 127.0f);
+}
+
+// an integral float of magnitude below 2^22 (a quantized level) -> int
+__device__ __forceinline__ int k6_level_int(float q) {
+  return __float_as_int(q + K6_MAGIC) - K6_MAGIC_BITS;
+}
+
+// an int of magnitude below 2^22 (an int8 input) -> float, exactly
+__device__ __forceinline__ float k6_small_float(int v) {
+  return __int_as_float(K6_MAGIC_BITS + v) - K6_MAGIC;
 }
 
 // an int32 conv sum -> dequantize (the scale bakes the input scale) -> add

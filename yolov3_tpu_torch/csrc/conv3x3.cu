@@ -170,8 +170,6 @@ conv3x3_kernel(const float* __restrict__ x, long long sb, long long sy,
 }
 
 
-#define K5T_MAX_DEVICES 64
-
 // launches the tensor-core kernel on BM x 128 tiles; its dynamic shared
 // memory is above the 48 KB a kernel gets without asking
 template <int BM>
@@ -183,18 +181,9 @@ static cudaError_t launch_mma(bool leaky, cudaStream_t s, const bf16_bits* x,
   constexpr int SMEM = (int)k5t_smem_bytes(BM);
   auto kernel = leaky ? conv3x3_mma_kernel<BM, true>
                       : conv3x3_mma_kernel<BM, false>;
-  // once per kernel instance and device (a repeat by a racing thread is
-  // harmless)
-  static bool allowed[2][K5T_MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static bool allowed[2][WG_MAX_DEVICES] = {};  // per kernel instance
+  cudaError_t e = wg_allow_smem(kernel, SMEM, allowed[leaky]);
   if (e != cudaSuccess) return e;
-  if (dev >= K5T_MAX_DEVICES || !allowed[leaky][dev]) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return e;
-    if (dev < K5T_MAX_DEVICES) allowed[leaky][dev] = true;
-  }
   const dim3 grid((unsigned)((batch * h * wd + BM - 1) / BM),
                   (unsigned)((cout + K5T_BN - 1) / K5T_BN));
   kernel<<<grid, BM * 2, SMEM, s>>>(x, sb, sy, sx, w, bias, bias_bf16, batch,

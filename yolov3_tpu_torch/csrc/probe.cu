@@ -13,28 +13,38 @@
 //
 // The dots. The TPU kernels hold whole operands in VMEM and run one MXU
 // dot. Here a product (M, K) . (K, N) is tiled 64 x 64 over thread blocks of
-// four warps; a block stages 64 bytes of K of both operands through shared
-// memory per step (the (K, N) operand transposed on the way, a 4 x 4 byte or
-// 2 x 2 halfword transpose in registers, so that four / two consecutive K
-// elements of a column share a 32-bit word; the next step's loads are in
-// flight while this step multiplies) and multiplies them with one of three
-// cores:
-//   CORE_MMA_S8    mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
-//   CORE_DP4A_S8   __dp4a on the integer lanes (what K6 runs today)
-//   CORE_MMA_BF16  mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
-// in hand-written fragments (inline PTX). Ragged M, N and K are zero-filled
-// in the loads. This is the simple right kernel: no cp.async ring, no wgmma,
-// no TMA; those belong to the kernels' redesigns, which these tools measure.
+// four warps (one warpgroup) and multiplied with one of four cores:
+//   CORE_MMA_S8     mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
+//   CORE_DP4A_S8    __dp4a on the integer lanes (K6's core until its
+//                   redesign)
+//   CORE_WGMMA_S8   wgmma.mma_async m64n64k32.s32.s8.s8 (what K6 runs)
+//   CORE_WGMMA_BF16 wgmma.mma_async m64n64k16.f32.bf16.bf16
+// The mma.sync and __dp4a cores stage 64 bytes of K of both operands per
+// step through registers into padded shared rows (the next step's loads in
+// flight while this step multiplies) and multiply them in hand-written
+// fragments (inline PTX). The wgmma cores take the building blocks of
+// wgmma_common.cuh: the (M, K) operand, K-major as it is, goes by cp.async
+// into the 128-byte swizzle, a ring of three steps of 128 bytes of K; the
+// (K, N) operand keeps the register path, where the carry is added and it
+// is transposed to [N][K] (int8 wgmma takes only K-major operands) into the
+// same swizzle; one step is four products of 32 bytes of K. The (K, N)
+// operand's transpose is a 4 x 4 byte or 2 x 2 halfword transpose in
+// registers, so that four / two consecutive K elements of a column share a
+// 32-bit word. Ragged M, N and K are zero-filled in the loads (cp.async
+// with source size 0 for the (M, K) operand). The bf16 product for T2 stays
+// on mma.sync (CORE_MMA_BF16).
 //
 // As in the TPU kernels every element of the product is consumed: the tile's
 // sums, rounded to bf16, go through two small projections p1 (8, M) and
 // p2 (N, 128), out = bf16(p1 . bf16(acc)) . p2, float32 sums. p1 runs on the
 // tensor cores in both kernels; p2 does so in T2, while in T1 it is a scalar
 // loop on the CUDA cores of the block that finishes a column of tiles (its
-// operand exists only once the M tiles are summed). T1 keeps its per-step dependency: a runtime carry (about 0) is added
-// to the small (K, N) operand while it is staged, and each step moves the
-// carry by 1e-24 of its result, so step s + 1 cannot start before step s has
-// finished and no step repeats another's work.
+// operand exists only once the M tiles are summed). T1 keeps its per-step
+// dependency: a runtime carry (about 0) is added to the small (K, N) operand
+// while it is staged, and each step moves the carry by 1e-24 of its result,
+// so step s + 1 cannot start before step s has finished and no step repeats
+// another's work. Store mode (T3a, and the bare product of the timing split)
+// writes the tile's sums instead.
 //
 // T1 spreads ONE product over the card (grid = M tiles x N tiles), because a
 // step is one dot and the next step waits for it; the projections' sums over
@@ -51,13 +61,15 @@
 // serial finish at the small ones (bytes never: the operands stay in L2);
 // T3b-e bytes, and at their sizes the launch.
 //
-// Float contract: as everywhere in this library (-fmad=false, rintf).
+// Float contract: as everywhere in this library (-fmad=false, rounding half
+// to even).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_int8_common.cuh"
+#include "wgmma_common.cuh"
 
 #define PD_BM 64
 #define PD_BN 64
@@ -68,9 +80,22 @@
 #define PD_PS_LD 72
 #define CORE_MMA_S8 0
 #define CORE_DP4A_S8 1
-#define CORE_MMA_BF16 2
+#define CORE_MMA_BF16 2     // T2's core; T1 takes the other four
+#define CORE_WGMMA_S8 3
+#define CORE_WGMMA_BF16 4
 #define MODE_STORE 0
 #define MODE_PROJECT 1
+#define PW_STAGES 3         // wgmma cores: K steps in the ring
+#define PW_STEP 128         // bytes of K a step: one tile row
+#define PW_TILE (PD_BM * WG_ROW)  // bytes of one operand tile of a step
+// dynamic shared memory of the wgmma cores: slack to a 1,024-byte boundary,
+// then per stage the (M, K) tile and the [N][K] tile
+#define PW_SMEM (1024 + PW_STAGES * 2 * PW_TILE)
+
+template <int CORE>
+__host__ __device__ constexpr bool is_wgmma_core() {
+  return CORE == CORE_WGMMA_S8 || CORE == CORE_WGMMA_BF16;
+}
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
@@ -290,12 +315,186 @@ __device__ __forceinline__ void tile_product(
   }
 }
 
+// The wgmma cores' (K, N) operand for one step (128 bytes of K) in
+// registers: 32 groups of 4 (int8) / 2 (bf16) consecutive K rows x 16 / 32
+// words of 4 / 2 columns; a thread takes 4 / 8 (group, word) items.
+struct WgRegs {
+  uint32_t b[16];
+  uint32_t valid;  // bit i: b[i] lies inside (K, N); zero-fill stays zero
+};
+
+template <int ES>
+__device__ __forceinline__ void wg_rhs_load(WgRegs& r,
+                                            const unsigned char* rhs, int k,
+                                            int n, int n0, int k0, int tid) {
+  constexpr int ROWS = 4 / ES;          // K rows that share a 32-bit word
+  constexpr int WORDS = PD_BN / ROWS;   // words of a K row of the tile
+  constexpr int ITEMS = 16 / ROWS;      // (group, word) items a thread
+  r.valid = 0;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int item = tid + i * PD_THREADS;
+    const int kg = item / WORDS, nw = item % WORDS;
+    const int col = n0 + nw * ROWS;
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      const int krow = k0 + kg * ROWS + rr;
+      r.b[i * ROWS + rr] = 0;
+      if (krow < k && col < n) {
+        r.b[i * ROWS + rr] = __ldg(reinterpret_cast<const uint32_t*>(
+            rhs + ((long long)krow * n + col) * ES));
+        r.valid |= 1u << (i * ROWS + rr);
+      }
+    }
+  }
+}
+
+// byte offset of K byte kb of row r in a tile with the 128-byte swizzle
+__device__ __forceinline__ uint32_t wg_swizzled(int r, int kb) {
+  return (uint32_t)(r * WG_ROW + ((((kb >> 4) ^ r) & 7) << 4) + (kb & 15));
+}
+
+// Registers -> the step's [N][K] tile: the words moved by the carry (int8:
+// byte-wise with wrap-around; bf16: float32 sum rounded to bf16 once, as in
+// stage_store) and transposed so that a 32-bit word holds 4 / 2 consecutive
+// K elements of one column.
+template <int ES>
+__device__ __forceinline__ void wg_rhs_store(const WgRegs& r,
+                                             unsigned char* bs, float carry,
+                                             int tid) {
+  if constexpr (ES == 2) {
+    const float cb = bf16_float(bf16_bits(carry));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int item = tid + i * PD_THREADS, kg = item >> 5, nw = item & 31;
+      uint32_t w[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const uint32_t v = r.b[i * 2 + rr];
+        const uint32_t lo = bf16_bits(__uint_as_float(v << 16) + cb);
+        const uint32_t hi = bf16_bits(__uint_as_float(v & 0xffff0000u) + cb);
+        w[rr] = (r.valid >> (i * 2 + rr)) & 1u ? (lo | (hi << 16)) : 0u;
+      }
+      *reinterpret_cast<uint32_t*>(bs + wg_swizzled(nw * 2, kg * 4)) =
+          __byte_perm(w[0], w[1], 0x5410);
+      *reinterpret_cast<uint32_t*>(bs + wg_swizzled(nw * 2 + 1, kg * 4)) =
+          __byte_perm(w[0], w[1], 0x7632);
+    }
+  } else {
+    const uint32_t c4 = (uint32_t)((int)carry & 0xff) * 0x01010101u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int item = tid + i * PD_THREADS, kg = item >> 4, nw = item & 15;
+      uint32_t w[4];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+        w[rr] = (r.valid >> (i * 4 + rr)) & 1u ? __vadd4(r.b[i * 4 + rr], c4)
+                                               : 0u;
+      // 4 x 4 byte transpose: word j of the result holds byte j of w[0..3]
+      const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
+      const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
+      const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
+      const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
+      const uint32_t t[4] = {__byte_perm(lo01, lo23, 0x5410),
+                             __byte_perm(lo01, lo23, 0x7632),
+                             __byte_perm(hi01, hi23, 0x5410),
+                             __byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(bs + wg_swizzled(nw * 4 + j, kg * 4)) =
+            t[j];
+    }
+  }
+}
+
+// One 64 x 64 tile of the product on wgmma: acc (this warpgroup's m64n64
+// fragment, viewed as [8][4]) = lhs[m0 .., :] . (rhs[:, n0 ..] + carry).
+template <int CORE, typename AccT>
+__device__ __forceinline__ void tile_product_wgmma(
+    AccT (&acc)[8][4], const void* lhs, const void* rhs, int m, int k, int n,
+    int m0, int n0, float carry, int tid) {
+  constexpr int ES = CORE == CORE_WGMMA_BF16 ? 2 : 1;
+  constexpr int KSTEP = PW_STEP / ES;  // K elements per step
+  extern __shared__ unsigned char pw_smem[];
+  const uint32_t raw = wg_smem_u32(pw_smem);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  unsigned char* ring_ptr = pw_smem + (ring - raw);
+  const unsigned char* lhs8 = static_cast<const unsigned char*>(lhs);
+  const unsigned char* rhs8 = static_cast<const unsigned char*>(rhs);
+  const long long kbytes = (long long)k * ES;
+  const int steps = (k + KSTEP - 1) / KSTEP;
+  AccT(&d)[32] = *reinterpret_cast<AccT(*)[32]>(&acc[0][0]);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0;
+
+  // the (M, K) tile of the next step into stage `st` as one cp.async group
+  // (an empty group past the last step keeps the count in step)
+  int ld = 0;
+  auto load_lhs = [&](int st) {
+    if (ld < steps) {
+      const uint32_t dst = ring + st * 2 * PW_TILE;
+      const long long kb0 = (long long)ld * PW_STEP;
+#pragma unroll
+      for (int i = 0; i < PD_BM * 8 / PD_THREADS; ++i) {
+        const int c = tid + i * PD_THREADS, row = c >> 3, ch = c & 7;
+        const bool ok = m0 + row < m && kb0 + ch * 16 < kbytes;
+        wg_cp_async16(dst + row * WG_ROW + ((ch ^ (row & 7)) << 4),
+                      ok ? lhs8 + (long long)(m0 + row) * kbytes + kb0 + ch * 16
+                         : lhs8,
+                      ok ? 16 : 0);
+      }
+      ++ld;
+    }
+    wg_cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < PW_STAGES - 1; ++st) load_lhs(st);
+  WgRegs regs;
+  wg_rhs_load<ES>(regs, rhs8, k, n, n0, 0, tid);
+  int st = 0;
+  for (int s = 0; s < steps; ++s) {
+    // stage st was last read by step s - PW_STAGES, which every warp has
+    // finished: it passed the barrier of step s - 1 after waiting for it
+    const uint32_t stage = ring + st * 2 * PW_TILE;
+    wg_rhs_store<ES>(regs, ring_ptr + (stage - ring) + PW_TILE, carry, tid);
+    if (s + 1 < steps)
+      wg_rhs_load<ES>(regs, rhs8, k, n, n0, (s + 1) * KSTEP, tid);
+    wg_cp_async_wait<PW_STAGES - 2>();
+    wg_fence_async_proxy();
+    __syncthreads();
+    const uint64_t da = wg_desc(stage), db = wg_desc(stage + PW_TILE);
+    wg_fence_acc(d);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < PW_STEP / 32; ++kk) {
+      if constexpr (CORE == CORE_WGMMA_S8)
+        wg_mma_m64k32_s8<PD_BN>(d, da + 2 * kk, db + 2 * kk, 1);
+      else
+        wg_mma_m64k16<PD_BN>(d, da + 2 * kk, db + 2 * kk, 1);
+    }
+    wg_commit();
+    // while the products run: the (M, K) tile of step s + PW_STAGES - 1
+    // into the stage step s - 1 has left
+    load_lhs(st == 0 ? PW_STAGES - 1 : st - 1);
+    wg_wait<0>();
+    wg_fence_acc(d);
+    st = st + 1 == PW_STAGES ? 0 : st + 1;
+  }
+  wg_cp_async_wait<0>();
+}
+
 // Tile-local (row, column) of acc[i / 4][i % 4] in the core's register
 // layout.
 template <int CORE>
 __device__ __forceinline__ void tile_coords(int i, int tid, int* row,
                                             int* col) {
-  if constexpr (CORE == CORE_DP4A_S8) {
+  if constexpr (is_wgmma_core<CORE>()) {
+    // wgmma m64n64: warp w holds rows 16 w + lane / 4 (+ 8), columns
+    // 8 nb + 2 (lane % 4) (+ 1) in d[4 nb + 2 hr + e] (wgmma_common.cuh)
+    const int lane = tid & 31, warp = tid >> 5;
+    *row = warp * 16 + (lane >> 2) + ((i >> 1) & 1) * 8;
+    *col = (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+  } else if constexpr (CORE == CORE_DP4A_S8) {
     *row = (tid >> 4) + 8 * (i >> 2);
     *col = (tid & 15) + 16 * (i & 3);
   } else {
@@ -355,8 +554,6 @@ struct ProbeDot {
 template <int CORE, int MODE, typename AccT>
 __global__ void __launch_bounds__(PD_THREADS)
 probe_dot_step_kernel(const ProbeDot p) {
-  __shared__ __align__(16) unsigned char As[PD_BM * PD_LDS];
-  __shared__ __align__(16) unsigned char Bs[PD_BN * PD_LDS];
   __shared__ __align__(16) unsigned short Cs[PD_BN * PD_CS_LD];
   __shared__ float Pb[8][PD_BN];
   __shared__ int s_last;
@@ -365,8 +562,15 @@ probe_dot_step_kernel(const ProbeDot p) {
   const int m0 = mt * PD_BM, n0 = nt * PD_BN;
   const float carry = p.carry ? *static_cast<volatile float*>(p.carry) : 0.0f;
   AccT acc[8][4];
-  tile_product<CORE, AccT>(acc, As, Bs, p.lhs, p.rhs, p.m, p.k, p.n, m0, n0,
-                           carry, tid);
+  if constexpr (is_wgmma_core<CORE>()) {
+    tile_product_wgmma<CORE, AccT>(acc, p.lhs, p.rhs, p.m, p.k, p.n, m0, n0,
+                                   carry, tid);
+  } else {
+    __shared__ __align__(16) unsigned char As[PD_BM * PD_LDS];
+    __shared__ __align__(16) unsigned char Bs[PD_BN * PD_LDS];
+    tile_product<CORE, AccT>(acc, As, Bs, p.lhs, p.rhs, p.m, p.k, p.n, m0,
+                             n0, carry, tid);
+  }
   if (MODE == MODE_STORE) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -579,26 +783,36 @@ __global__ void probe_epilogue_kernel(const int* acc, const float* deq,
 template <int CORE, int MODE, typename AccT>
 static int launch_dot_steps(const ProbeDot& p, int steps, cudaStream_t s) {
   const dim3 grid((p.m + PD_BM - 1) / PD_BM, (p.n + PD_BN - 1) / PD_BN);
+  int smem = 0;
+  if constexpr (is_wgmma_core<CORE>()) {
+    static bool allowed[WG_MAX_DEVICES] = {};  // the ring is above 48 KB
+    const cudaError_t e =
+        wg_allow_smem(probe_dot_step_kernel<CORE, MODE, AccT>, PW_SMEM,
+                      allowed);
+    if (e != cudaSuccess) return (int)e;
+    smem = PW_SMEM;
+  }
   for (int i = 0; i < steps; ++i)
-    probe_dot_step_kernel<CORE, MODE, AccT><<<grid, PD_THREADS, 0, s>>>(p);
+    probe_dot_step_kernel<CORE, MODE, AccT><<<grid, PD_THREADS, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 // C entries (ctypes). All launch on `stream`, allocate nothing and return
 // cudaGetLastError().
 
-// T1 / T3a. lhs (m, k), rhs (k, n) row-major, int8 (core 0, 1) or bf16 (core
-// 2), 16-byte aligned, k bytes per row a multiple of 16, n a multiple of 8.
-// mode 0: out (m, n) int32 / float32 = lhs . (rhs + carry). mode 1: p1 (8, m)
-// and p2 (n, 128) bf16, m even; out (8, 128) float32; partial (m tiles, 8, n)
-// and partial2 (n tiles, 8, 128) float32 scratch; counters (1 + n tiles)
-// uint32, zero; `steps` dependent launches, each moving *carry.
+// T1 / T3a. lhs (m, k), rhs (k, n) row-major, int8 (core 0 mma.sync, 1
+// __dp4a, 3 wgmma) or bf16 (core 4 wgmma), 16-byte aligned, k bytes per row
+// a multiple of 16, n a multiple of 8. mode 0: out (m, n) int32 / float32 =
+// lhs . (rhs + carry). mode 1: p1 (8, m) and p2 (n, 128) bf16, m even; out
+// (8, 128) float32; partial (m tiles, 8, n) and partial2 (n tiles, 8, 128)
+// float32 scratch; counters (1 + n tiles) uint32, zero; `steps` dependent
+// launches, each moving *carry.
 extern "C" int yolo_probe_dot(const void* lhs, const void* rhs, const void* p1,
                               const void* p2, float* carry, int m, int k, int n,
                               int core, int mode, void* out, float* partial,
                               float* partial2, void* counters, int steps,
                               void* stream) {
-  const int es = core == CORE_MMA_BF16 ? 2 : 1;
+  const int es = core == CORE_WGMMA_BF16 ? 2 : 1;
   if (m < 1 || k < 1 || n < 8 || n % 8 || ((long long)k * es) % 16 ||
       steps < 1 || (n + PD_BN - 1) / PD_BN > 65535 ||
       (mode == MODE_PROJECT && (m % 2 || !p1 || !p2 || !partial || !partial2 ||
@@ -624,8 +838,11 @@ extern "C" int yolo_probe_dot(const void* lhs, const void* rhs, const void* p1,
         return launch_dot_steps<CORE_MMA_S8, MODE_STORE, int>(p, steps, s);
       case CORE_DP4A_S8:
         return launch_dot_steps<CORE_DP4A_S8, MODE_STORE, int>(p, steps, s);
-      case CORE_MMA_BF16:
-        return launch_dot_steps<CORE_MMA_BF16, MODE_STORE, float>(p, steps, s);
+      case CORE_WGMMA_S8:
+        return launch_dot_steps<CORE_WGMMA_S8, MODE_STORE, int>(p, steps, s);
+      case CORE_WGMMA_BF16:
+        return launch_dot_steps<CORE_WGMMA_BF16, MODE_STORE, float>(p, steps,
+                                                                    s);
     }
   } else if (mode == MODE_PROJECT) {
     switch (core) {
@@ -633,9 +850,12 @@ extern "C" int yolo_probe_dot(const void* lhs, const void* rhs, const void* p1,
         return launch_dot_steps<CORE_MMA_S8, MODE_PROJECT, int>(p, steps, s);
       case CORE_DP4A_S8:
         return launch_dot_steps<CORE_DP4A_S8, MODE_PROJECT, int>(p, steps, s);
-      case CORE_MMA_BF16:
-        return launch_dot_steps<CORE_MMA_BF16, MODE_PROJECT, float>(p, steps,
-                                                                    s);
+      case CORE_WGMMA_S8:
+        return launch_dot_steps<CORE_WGMMA_S8, MODE_PROJECT, int>(p, steps,
+                                                                  s);
+      case CORE_WGMMA_BF16:
+        return launch_dot_steps<CORE_WGMMA_BF16, MODE_PROJECT, float>(
+            p, steps, s);
     }
   }
   return (int)cudaErrorInvalidValue;

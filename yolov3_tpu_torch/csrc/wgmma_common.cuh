@@ -1,32 +1,60 @@
-// Building blocks of the port's bf16 kernels on Hopper's warpgroup matrix
-// multiply (wgmma), CUDA C++ for sm_90a: the asynchronous 16-byte copies
-// into shared memory, the 128-byte swizzle and the shared-memory matrix
-// descriptors of K-major bf16 tiles, the wgmma fences, commits and waits,
-// the m64nNk16 products with float32 sums for N = 32, 64, 96 and 128, and
-// the float32 promotion of the tensor cores' sums. Included by
-// conv3x3_mma.cuh (K5) and decode_fused.cu (K4).
+// Building blocks of the port's kernels on Hopper's warpgroup matrix
+// multiply (wgmma), CUDA C++ for sm_90a: the launchers' opt-in to more than
+// 48 KB of dynamic shared memory, the asynchronous 16-byte copies into
+// shared memory, the 128-byte swizzle and the shared-memory matrix
+// descriptors of K-major tiles (swizzled, and without swizzle), the wgmma
+// fences, commits and waits, the bf16 m64nNk16 products with float32 sums
+// for N = 32, 64, 96 and 128 with their float32 promotion, and the int8
+// m64nNk32 products with int32 sums for N = 64, 128 and 256. Included by
+// conv3x3_mma.cuh (K5), decode_fused.cu (K4), block_int8.cu (K6) and
+// probe.cu (T1's wgmma cores).
 //
-// Tile layout: an operand tile is a run of 128-byte rows (64 bf16 channels
-// of one pixel, or of one weight row), K-major, laid out with the 128-byte
-// swizzle that the descriptors name: 16-byte chunk j of row r sits at chunk
-// j ^ (r & 7). A tile starts on a 1,024-byte boundary (eight rows: one
-// period of the swizzle). A product of 16 channels reads 32 bytes of every
-// row; the k-th product of a tile starts 32 * k bytes in, which is +2 in the
-// descriptor's address field.
+// Tile layout: an operand tile is a run of 128-byte rows (64 bf16 or 128
+// int8 channels of one pixel, or of one weight row), K-major, laid out with
+// the 128-byte swizzle that the descriptors name: 16-byte chunk j of row r
+// sits at chunk j ^ (r & 7). A tile starts on a 1,024-byte boundary (eight
+// rows: one period of the swizzle). A product reads 32 bytes of every row
+// (16 bf16 channels, or 32 int8 channels); the k-th product of a tile
+// starts 32 * k bytes in, which is +2 in the descriptor's address field,
+// for either type.
+//
+// int8 products take both operands K-major (wgmma has no transpose for
+// them), so a B operand is stored [N][K], K contiguous.
 //
 // float32 sums: the tensor cores add the products of one K step in float32
 // but truncate when they align the addends, and over K in the thousands
 // that error passes a float32 bar on outputs near zero. So each K step is
 // summed there from zero and the steps are added on the CUDA cores, rounded
-// to nearest (wg_promote).
+// to nearest (wg_promote). int32 sums are exact and need no promotion: the
+// largest an int8 product of K = 9 * 256 reaches is 127 * 127 * 2,304, about
+// 3.7e7, far below 2^31.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define WG_ROW 128  // bytes of one operand tile row: 64 bf16 channels
-#define WG_HALF 64  // channels of one operand tile
+#define WG_ROW 128  // bytes of one operand tile row: 64 bf16 / 128 int8
+#define WG_HALF 64  // bf16 channels of one operand tile
+
+#define WG_MAX_DEVICES 64
+
+// Allow `kernel` `bytes` of dynamic shared memory (above the 48 KB a kernel
+// gets without asking) once per device; `allowed` is the caller's flag per
+// device for this kernel, so that a capture into a CUDA graph after the
+// first call makes no such request (a repeat by a racing thread is
+// harmless).
+template <typename Kernel>
+static inline cudaError_t wg_allow_smem(Kernel kernel, int bytes,
+                                        bool (&allowed)[WG_MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < WG_MAX_DEVICES && allowed[dev])) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < WG_MAX_DEVICES) allowed[dev] = true;
+  return e;
+}
 
 __device__ __forceinline__ uint32_t wg_smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -71,6 +99,20 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
          ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
 }
 
+// wgmma shared-memory descriptor of a K-major tile WITHOUT swizzle (layout
+// type 0): the tile is made of core matrices of 8 rows x 16 bytes, each 128
+// contiguous bytes (row i of a core matrix at +16 * i). A product's 32 bytes
+// of K are two core matrices side by side, `lbo` bytes apart (leading byte
+// offset); the next 8 rows start `sbo` bytes further (stride byte offset).
+// The start address needs only 16-byte alignment, so a tile can begin at
+// any row of a larger array: K6's 3x3 reads each tap's rows this way.
+__device__ __forceinline__ uint64_t wg_desc_plain(uint32_t saddr, uint32_t lbo,
+                                                  uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -87,6 +129,11 @@ template <int R>
 __device__ __forceinline__ void wg_fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void wg_fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // the float32 promotion: one K step's sums (acc) added to the running sums
@@ -219,4 +266,129 @@ __device__ __forceinline__ void wg_mma_m64k16(float (&d)[N / 2],
                                               uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
   WgmmaM64K16<N>::run(d, desc_a, desc_b, scale_d);
+}
+
+// d (64 x N, int32, this warpgroup's fragment: N / 2 values a thread, in the
+// layout of the bf16 form above) = A (64 x 32, int8, K-major in shared
+// memory) * B (N x 32, int8, K-major in shared memory) + (scale_d ? d : 0).
+// The sums are exact.
+template <int N>
+struct WgmmaM64K32S8;
+
+template <>
+struct WgmmaM64K32S8<64> {
+  static __device__ __forceinline__ void run(int (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "%32, %33, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaM64K32S8<128> {
+  static __device__ __forceinline__ void run(int (&d)[64], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+        "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaM64K32S8<256> {
+  static __device__ __forceinline__ void run(int (&d)[128], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+        "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+        "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "
+        "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+          "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+          "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+          "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+          "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+          "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+          "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+          "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+          "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+
+template <int N>
+__device__ __forceinline__ void wg_mma_m64k32_s8(int (&d)[N / 2],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  WgmmaM64K32S8<N>::run(d, desc_a, desc_b, scale_d);
 }

@@ -5,8 +5,8 @@ tools' kernels) compile with ``nvcc`` into ONE shared library with a plain C
 interface, loaded with ``ctypes``; ``decode_common.cuh`` (the decode body),
 ``block_int8_common.cuh`` (K6's arithmetic, shared with the probes),
 ``wgmma_common.cuh`` (the tensor-core building blocks of K4's and K5's bf16
-kernels) and ``conv3x3_mma.cuh`` (K5's tensor-core kernel) are their
-headers. The build
+kernels, K6's int8 kernel and T1's ``wgmma`` cores) and ``conv3x3_mma.cuh``
+(K5's tensor-core kernel) are their headers. The build
 runs at first use from the sources in the checkout and lands in
 ``build/kernels/`` at the repository root (git-ignored): one ``nvcc -c`` per
 source, all started together, then one link. The library's file name carries
@@ -129,7 +129,7 @@ def load_kernels() -> ctypes.CDLL:
         p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, p, p]
     lib.yolo_residual_block_int8.argtypes = [
         p, p, p, p, p, p, p, i32, i32, i32, i32, i32, f32, f32, f32, f32, f32,
-        i32, p, p]
+        i32, p, i32, p]
     lib.yolo_probe_dot.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, p,
                                    p, p, p, i32, p]
     lib.yolo_probe_dot_grid.argtypes = [p, p, p, p, i32, i32, i32, i32, p, p]

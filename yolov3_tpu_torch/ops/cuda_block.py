@@ -1,5 +1,5 @@
 """K6: fused int8 residual block (1×1 → 3×3 → shortcut) — the block plan,
-the CUDA wrapper and its plain version.
+the tile plan, the CUDA wrapper and its plain version.
 
 Port of ``yolov3_tpu/ops/pallas_block.py``. darknet53's residual bottlenecks
 (a 1×1 conv halving channels, a 3×3 conv restoring them, a linear
@@ -14,16 +14,30 @@ block input; fused, device-memory traffic is read-input + write-output.
 reference are the TPU's VMEM fit and padded chain layout and have no
 counterpart: the port's kernel takes the plain (B, H, W, C) NHWC int8
 tensor of any H, W and masks the image edges in its loads, so a chain of
-blocks is simply consecutive launches. :func:`prepare_block_params` packs
-the weights for ``__dp4a`` (four reduction elements per 32-bit word)
-instead of padding lanes.
+blocks is simply consecutive launches.
+
+The kernel runs both integer products on the int8 tensor cores (``wgmma``
+s8, int32 sums): a thread block owns a ``tile_h`` × 8 tile of output pixels
+(:func:`plan_block_tiles`), computes the 1×1 on its halo into an int8 mid
+tile in shared memory and the 3×3 as an implicit GEMM over that tile, with
+w2 streamed from L2 in steps of 128 bytes of K. ``wgmma`` takes int8
+operands K-major only, so :func:`pack_block_weights` stores w1 as
+(cmid_p, C) and w2 as (C, 9·cmid_p) rows, cmid_p = cmid rounded up to 64,
+zero where cmid ends. The kernel takes C ∈ {128, 256} and cmid a multiple
+of 16 up to 256 (:func:`check_block_domain`): every block
+:func:`fused_block_plan` selects in the shipped cfgs. Bound: operations
+(14.2 G int8 operations a yolov3@416 B=8 block of C = 256: 7.2 µs at the
+card's peak); what holds it back is the work no product overlaps, the
+copies and the 1×1 before the 3×3 and the epilogue after it
+(``csrc/block_int8.cu``, ``tools/ablate_block.py``).
 
 **Numerics contract**: the kernel mimics the unfused int8-carrier walk
 (``quant.forward_features_int8_carrier``) op for op, including the
 intermediate quantization of the 3×3 output to its calibrated scale before
-the shortcut add. The integer convolutions are exact and the epilogues are
-the separate float32 operations eager PyTorch runs (no FMA contraction,
-round half to even), so :func:`residual_block_int8` equals
+the shortcut add. The integer products are exact (int32 sums far below
+2^31, whatever order the tensor cores add in) and the epilogues are the
+separate float32 operations eager PyTorch runs (no FMA contraction, round
+half to even), so :func:`residual_block_int8` equals
 :func:`residual_block_int8_reference` exactly on the card. Against the JAX
 kernel the reference's own contract holds: differences only at
 requantization ties, at most one quantization step.
@@ -42,15 +56,18 @@ import torch.nn.functional as F
 
 from ..graph import Graph
 from . import int8_conv
-from ._build import check_launch, load_kernels
+from ._build import check_launch, load_kernels, sm_count
 
 # Blocks with c_in above this stay unfused: the reference fuses only the
 # early, bandwidth-bound stages (c_in 128 / 256), and the port keeps the
 # same plan so both packages run the same program.
 DEFAULT_MAX_CIN = 256
-CHANNEL_MULTIPLE = 16  # the kernel's 16-byte shared-memory reads
-_SMEM_LIMIT = 227 * 1024
-_HALO_PIXELS = 100     # K6_HPX in csrc/block_int8.cu: a 10×10 halo slab
+CHANNELS = (128, 256)  # C: the 3x3's wgmma N, and whole 128-byte K tiles
+CMID_MULTIPLE, CMID_MAX = 16, 256
+TILE_HEIGHTS = (8, 16)  # output rows a block: one or two warpgroups
+TILE_W = 8              # K6_TW: one 8-pixel core matrix a tile row
+SMEM_LIMIT = 232448     # K6_SMEM_LIMIT: the 227 KB a block may use
+_STAGES = 3             # K6_STAGES: w2 steps in the ring
 _OUT_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
@@ -101,13 +118,62 @@ def fused_block_plan(graph: Graph, qparams, tensor_scales,
     return plan
 
 
-def _pack4(w: torch.Tensor) -> torch.Tensor:
-    """(K, N) int8, K % 4 == 0 → (K/4, N) int32 words holding rows
-    4r .. 4r+3 of each column in their bytes (little-endian), the operand
-    form of ``__dp4a``."""
-    k, n = w.shape
-    return w.reshape(k // 4, 4, n).permute(0, 2, 1).contiguous().view(
-        torch.int32).reshape(k // 4, n)
+def _cmid_padded(cmid: int) -> int:
+    return _round_up(cmid, 64)
+
+
+def pack_block_weights(wq1: torch.Tensor, wq2: torch.Tensor):
+    """The int8 HWIO weights of the 1×1 (1, 1, C, cmid) and the 3×3
+    (3, 3, cmid, C) as K6's K-major operands: ``w1k`` (cmid_p, C), row n
+    the weights of mid channel n; ``w2k`` (C, ksteps·128), row o holding
+    output channel o's weights at K = tap·cmid_p + mid channel, ksteps =
+    ceil(9·cmid_p / 128). Zero past cmid and past 9·cmid_p."""
+    cin, cmid = wq1.shape[2], wq1.shape[3]
+    cp = _cmid_padded(cmid)
+    w1k = torch.zeros((cp, cin), dtype=torch.int8, device=wq1.device)
+    w1k[:cmid] = wq1.reshape(cin, cmid).t()
+    w2 = torch.zeros((9, cp, cin), dtype=torch.int8, device=wq2.device)
+    w2[:, :cmid] = wq2.reshape(9, cmid, cin)
+    w2k = torch.zeros((cin, _round_up(9 * cp, 128)), dtype=torch.int8,
+                      device=wq2.device)
+    w2k[:, :9 * cp] = w2.reshape(9 * cp, cin).t()
+    return w1k, w2k
+
+
+def check_block_domain(c: int, cmid: int) -> None:
+    """Raise unless K6 takes a block of ``c`` channels and ``cmid`` mid
+    channels: C ∈ {128, 256}, cmid a multiple of 16 up to 256."""
+    if c not in CHANNELS or cmid % CMID_MULTIPLE or not 0 < cmid <= CMID_MAX:
+        raise ValueError(
+            f"K6 takes C in {CHANNELS} and cmid a multiple of "
+            f"{CMID_MULTIPLE} up to {CMID_MAX}, got C={c}, cmid={cmid}")
+
+
+def block_smem_bytes(tile_h: int, c: int, cmid: int) -> int:
+    """Dynamic shared memory of a K6 block (``k6_smem_bytes`` in
+    ``csrc/block_int8.cu``): alignment slack, the x halo (rows padded to a
+    multiple of 64), w1, the w2 ring, the mid tile, four float vectors."""
+    cp = _cmid_padded(cmid)
+    halo = (tile_h + 2) * (TILE_W + 2)
+    return (1024 + c * _round_up(halo, 64) + cp * c + _STAGES * c * 128
+            + cp * halo + 4 * (2 * cp + 2 * c))
+
+
+def plan_block_tiles(b: int, h: int, w: int, c: int, cmid: int,
+                     sm_count: int) -> int:
+    """Output rows of K6's tiles (``tile_h`` × 8, grid ceil(W/8) ×
+    ceil(H/tile_h) × B) on a card with ``sm_count`` multiprocessors: 16,
+    or 8 while every 8 × 8 tile gets a multiprocessor of its own (K5's
+    rule: a smaller tile re-reads w2 from L2 twice as often per pixel and
+    pays only when it puts idle multiprocessors to work), or where 16 rows
+    do not fit a block's shared memory."""
+    check_block_domain(c, cmid)
+    tiles8 = b * -(-h // 8) * -(-w // TILE_W)
+    for th in ((8,) if tiles8 <= sm_count else (16, 8)):
+        if block_smem_bytes(th, c, cmid) <= SMEM_LIMIT:
+            return th
+    raise ValueError(f"K6's tile for C={c}, cmid={cmid} exceeds a block's "
+                     f"{SMEM_LIMIT} bytes of shared memory")
 
 
 def prepare_block_params(qp1: Dict, qp2: Dict, s_in: float, s_mid: float,
@@ -117,9 +183,9 @@ def prepare_block_params(qp1: Dict, qp2: Dict, s_in: float, s_mid: float,
     ``qp1`` / ``qp2``: the 1×1 and 3×3 convs' int8 qparams ({"wq" HWIO
     int8, "sw" (C,) f32, "b" (C,) f32}). The dequant vectors bake the input
     scales (``sw·float32(s)``, the product ``quant._conv_int8_core`` forms),
-    so the kernel's epilogues are a multiply and an add. ``w1p`` / ``w2p``
-    are the weights packed four reduction elements to a word; ``wq1`` /
-    ``wq2`` are the int8 weights as given (no copy), from which the plain
+    so the kernel's epilogues are a multiply and an add. ``w1k`` / ``w2k``
+    are the kernel's K-major weights (:func:`pack_block_weights`); ``wq1``
+    / ``wq2`` are the int8 weights as given (no copy), from which the plain
     version builds its conv operands at its first call. With ``cache`` (a dict) and
     ``key`` the result is kept and reused while the scales are the same."""
     if cache is not None and key in cache:
@@ -132,13 +198,10 @@ def prepare_block_params(qp1: Dict, qp2: Dict, s_in: float, s_mid: float,
             or wq2.shape[3] != cin):
         raise ValueError(f"not a residual bottleneck: 1×1 weight "
                          f"{tuple(wq1.shape)}, 3×3 weight {tuple(wq2.shape)}")
-    if cin % 4 or cmid % 4:
-        raise ValueError(f"K6 packs the reduction dimension in fours: cin "
-                         f"{cin} and cmid {cmid} must be multiples of 4")
+    w1k, w2k = pack_block_weights(wq1, wq2)
     bp = {
         "s_in": s_in, "s_mid": s_mid, "cin": cin, "cmid": cmid,
-        "w1p": _pack4(wq1.reshape(cin, cmid)),
-        "w2p": _pack4(wq2.reshape(9 * cmid, cin)),
+        "w1k": w1k, "w2k": w2k,
         "deq1": (qp1["sw"] * float(np.float32(s_in))).contiguous(),
         "b1": qp1["b"].float().contiguous(),
         "deq2": (qp2["sw"] * float(np.float32(s_mid))).contiguous(),
@@ -213,26 +276,21 @@ def residual_block_int8(x: torch.Tensor, bp: Dict, *, s_in: float,
         raise ValueError(f"K6 runs on CUDA or CPU tensors, got {x.device}")
     b, h, w, c = x.shape
     cmid = bp["cmid"]
-    if c % CHANNEL_MULTIPLE or cmid % CHANNEL_MULTIPLE:
-        raise ValueError(f"K6 needs cin and cmid in multiples of "
-                         f"{CHANNEL_MULTIPLE}, got {c} and {cmid}")
-    if _HALO_PIXELS * (c + cmid) > _SMEM_LIMIT:
-        raise ValueError(f"K6's halo slab for cin {c}, cmid {cmid} exceeds a "
-                         f"block's {_SMEM_LIMIT} bytes of shared memory")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("K6 needs a contiguous, 16-byte aligned NHWC input")
-    if any(bp[k].device != x.device for k in ("w1p", "w2p", "deq1", "b2")):
+    if any(bp[k].device != x.device for k in ("w1k", "w2k", "deq1", "b2")):
         raise ValueError("K6 needs x and the block operands on one device")
+    tile_h = plan_block_tiles(b, h, w, c, cmid, sm_count(x.get_device()))
     out_dtype = torch.int8 if emit_q else carrier_dtype
     out = torch.empty((b, h, w, c), dtype=out_dtype, device=x.device)
     lib = load_kernels()
     with torch.cuda.device(x.device):
         rc = lib.yolo_residual_block_int8(
-            x.data_ptr(), bp["w1p"].data_ptr(), bp["w2p"].data_ptr(),
+            x.data_ptr(), bp["w1k"].data_ptr(), bp["w2k"].data_ptr(),
             bp["deq1"].data_ptr(), bp["b1"].data_ptr(), bp["deq2"].data_ptr(),
             bp["b2"].data_ptr(), b, h, w, c, cmid, 1.0 / s_mid, 1.0 / s_mid2,
             s_mid2, s_in, (1.0 / s_out if emit_q else 1.0),
-            _OUT_KINDS[out_dtype], out.data_ptr(),
+            _OUT_KINDS[out_dtype], out.data_ptr(), tile_h,
             torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(rc, "residual_block_int8")
     residual_block_int8.launches += 1

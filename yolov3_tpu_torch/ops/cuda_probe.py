@@ -16,12 +16,16 @@ T3d       ``probe_block.py :: probe_mask``            :func:`probe_mask`
 T3e       ``probe_block.py :: probe_epilogue``        :func:`probe_epilogue`
 ========  ==========================================  =====================
 
-T1 / T2 / T3a are tiled matrix products through shared memory on one of
-three cores (:data:`CORES`): the int8 and bf16 tensor cores by ``mma.sync``
-and the integer lanes by ``__dp4a``. They are bound by operations at the
-large shapes and by the launch and the serial finish at the small ones; the
-operands stay in L2. T3b, T3d and T3e run K6's own ``__device__`` functions
-(``csrc/block_int8_common.cuh``) and are bound by the launch at their sizes.
+T1 and T3a are tiled matrix products through shared memory on one of four
+cores (:data:`CORES`): the int8 tensor cores by ``mma.sync`` and by
+``wgmma`` (what K6 runs), the integer lanes by ``__dp4a``, and the bf16
+tensor cores by ``wgmma``; T2 is a bf16 product on ``mma.sync``.
+:func:`dot_product` is T1's kernel in T3a's store mode for any core: the
+bare product, the function a library call computes. They are bound by
+operations at the large shapes and by the launch and the serial finish at
+the small ones; the operands stay in L2. T3b, T3d and T3e run K6's own
+``__device__`` functions (``csrc/block_int8_common.cuh``) and are bound by
+the launch at their sizes.
 
 Every wrapper launches its kernel on the current stream for a CUDA tensor
 (counted in ``<wrapper>.launches``) or raises; for a CPU tensor, and only
@@ -39,7 +43,8 @@ from ..precision import tf32
 from ..weights import resolve_device
 from ._build import check_launch, load_kernels
 
-CORES = {"mma_s8": 0, "dp4a_s8": 1, "mma_bf16": 2}
+# core name -> CORE_* in csrc/probe.cu (2 is T2's mma.sync bf16 core)
+CORES = {"mma_s8": 0, "dp4a_s8": 1, "wgmma_s8": 3, "wgmma_bf16": 4}
 TILE = 64              # PD_BM = PD_BN in csrc/probe.cu
 _STORE, _PROJECT = 0, 1
 CARRY_STEP = 1e-24     # how far one step's result moves the carry
@@ -47,7 +52,7 @@ CARRY_STEP = 1e-24     # how far one step's result moves the carry
 
 def _core_for(dtype: torch.dtype, core: Optional[str]) -> str:
     if core is None:
-        core = "mma_s8" if dtype == torch.int8 else "mma_bf16"
+        core = "wgmma_s8" if dtype == torch.int8 else "wgmma_bf16"
     if core not in CORES:
         raise ValueError(f"core must be one of {sorted(CORES)}, got {core!r}")
     if (dtype == torch.int8) != core.endswith("_s8") or dtype not in (
@@ -165,8 +170,9 @@ def dot_step(carry: torch.Tensor, lhs: torch.Tensor, rhs: torch.Tensor,
     ``p1`` (8, M) and ``p2`` (N, 128) → (8, 128) float32. ``carry[0, 0]``
     (about 0) shifts ``rhs``; with ``steps`` > 1 that many dependent
     launches run back to back, each moving the carry by ``CARRY_STEP`` of
-    its result, and the last result returns. ``core``: ``"mma_s8"`` or
-    ``"dp4a_s8"`` for int8 operands, ``"mma_bf16"`` for bf16."""
+    its result, and the last result returns. ``core``: ``"wgmma_s8"``
+    (the default), ``"mma_s8"`` or ``"dp4a_s8"`` for int8 operands,
+    ``"wgmma_bf16"`` for bf16."""
     m, k, n = _check_dot(lhs, rhs)
     core = _core_for(lhs.dtype, core)
     _check_projections(m, n, p1, p2, lhs)
@@ -227,23 +233,51 @@ def dot_grid(lhs: torch.Tensor, rhs: torch.Tensor, p1: torch.Tensor,
 dot_grid.launches = 0
 
 
+def _store(lhs: torch.Tensor, rhs: torch.Tensor, core: str, m: int, k: int,
+           n: int, what: str) -> torch.Tensor:
+    """T1's kernel in store mode on the card: (M, N) int32 or float32."""
+    out_dtype = torch.int32 if lhs.dtype == torch.int8 else torch.float32
+    out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
+    with torch.cuda.device(lhs.device):
+        rc = load_kernels().yolo_probe_dot(
+            lhs.data_ptr(), rhs.data_ptr(), None, None, None, m, k, n,
+            CORES[core], _STORE, out.data_ptr(), None, None, None, 1,
+            _stream(lhs))
+    check_launch(rc, f"{what} ({core})")
+    return out
+
+
+def dot_product(lhs: torch.Tensor, rhs: torch.Tensor,
+                core: Optional[str] = None) -> torch.Tensor:
+    """T1's kernel in store mode: the bare product (M, K)·(K, N), int8 →
+    exact int32, bf16 → float32 sums, with no projection and no carry, on
+    any of :data:`CORES` (the default as in :func:`dot_step`). It computes
+    the function of ``torch._int_mm`` / ``torch.matmul``, so the two time
+    alike things; with :func:`dot_step` it splits a T1 step into its
+    product and its projections and finish."""
+    m, k, n = _check_dot(lhs, rhs)
+    core = _core_for(lhs.dtype, core)
+    if lhs.device.type == "cpu":
+        return dot_reference(lhs, rhs)
+    out = _store(lhs, rhs, core, m, k, n, "dot_product")
+    dot_product.launches += 1
+    return out
+
+
+dot_product.launches = 0
+
+
 def probe_int8_dot(lhs: torch.Tensor, rhs: torch.Tensor,
-                   core: str = "mma_s8") -> torch.Tensor:
+                   core: str = "wgmma_s8") -> torch.Tensor:
     """T3a: int8 (M, K)·(K, N) → int32 (M, N), integer-exact. ``core``
-    picks the tensor cores or ``__dp4a``."""
+    picks the tensor cores (``wgmma`` or ``mma.sync``) or ``__dp4a``."""
     m, k, n = _check_dot(lhs, rhs)
     if lhs.dtype != torch.int8:
         raise ValueError(f"probe_int8_dot takes int8 operands, got {lhs.dtype}")
     core = _core_for(lhs.dtype, core)
     if lhs.device.type == "cpu":
         return dot_reference(lhs, rhs)
-    out = torch.empty((m, n), dtype=torch.int32, device=lhs.device)
-    with torch.cuda.device(lhs.device):
-        rc = load_kernels().yolo_probe_dot(
-            lhs.data_ptr(), rhs.data_ptr(), None, None, None, m, k, n,
-            CORES[core], _STORE, out.data_ptr(), None, None, None, 1,
-            _stream(lhs))
-    check_launch(rc, f"probe_int8_dot ({core})")
+    out = _store(lhs, rhs, core, m, k, n, "probe_int8_dot")
     probe_int8_dot.launches += 1
     return out
 

@@ -1,12 +1,12 @@
 """Microbenchmark: int8 dot throughput at the residual block's shapes, on the
-tensor cores (``mma.sync``) against the integer lanes (``__dp4a``), with the
-same-shape bf16 dot beside them.
+tensor cores (``wgmma`` and ``mma.sync``) against the integer lanes
+(``__dp4a``), with the same-shape bf16 dot on ``wgmma`` beside them.
 
-Port of the JAX package's ``tools/bench_int8_dot.py``. It is the decision
-input for the fused residual block's redesign: K6 computes its two products
-with ``__dp4a``, and moving them to the tensor cores pays only if a
-tensor-core dot at the block's own tile shapes (M = the 64 or 100 pixels of
-a tile, K = C or 9 Cmid) runs well above the integer lanes' rate.
+Port of the JAX package's ``tools/bench_int8_dot.py``. It measured the
+decision behind the fused residual block's redesign (K6 moved its two
+products from ``__dp4a`` to ``wgmma`` s8) and keeps measuring the tile
+products K6 is made of: M = the 64 or 100 pixels of a tile, K = C or
+9 Cmid.
 
 Clock: ``steps`` dependent launches inside one call (the carry of step s
 shifts the small operand of step s + 1, so no step repeats another's work),
@@ -43,9 +43,10 @@ SHAPES = (
     (100, 256, 128),    # K6 1x1 at C=256
     (64, 1152, 256),    # K6 3x3 at C=256, K = 9 * 128
 )
-VARIANTS = (("int8 mma.sync", torch.int8, "mma_s8", INT8_OPS_PER_S),
+VARIANTS = (("int8 wgmma", torch.int8, "wgmma_s8", INT8_OPS_PER_S),
+            ("int8 mma.sync", torch.int8, "mma_s8", INT8_OPS_PER_S),
             ("int8 __dp4a", torch.int8, "dp4a_s8", INT8_OPS_PER_S),
-            ("bf16 mma.sync", torch.bfloat16, "mma_bf16", BF16_FLOPS_PER_S))
+            ("bf16 wgmma", torch.bfloat16, "wgmma_bf16", BF16_FLOPS_PER_S))
 LENS = (128, 1024)
 
 

@@ -1,6 +1,8 @@
-"""Device clocks shared by the tools: CUDA events around back-to-back work
-on the current stream, and the two-size differential that cancels what a
-call costs whatever its size (launch, the events themselves)."""
+"""Device clocks shared by the tools and ``chip_smoke.py``: CUDA events
+around back-to-back work on the current stream, the same work captured
+into a CUDA graph and replayed (device time alone, without the host's time
+per call), and the two-size differential that cancels what a call costs
+whatever its size (launch, the events themselves)."""
 from __future__ import annotations
 
 from typing import Callable, Sequence
@@ -22,6 +24,28 @@ def event_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> floa
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> float:
+    """Mean device milliseconds of ``fn``: ``iters`` calls captured into one
+    CUDA graph and replayed, so the host's time per call (about 25 us for a
+    ctypes wrapper) does not count."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters

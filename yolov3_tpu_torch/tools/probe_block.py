@@ -4,8 +4,9 @@ Port of the JAX package's ``tools/probe_block.py``. K6's contract is that it
 equals the unfused int8-carrier walk exactly; this tool isolates each
 ingredient that contract rests on, ON THE CARD, against an exact host value:
 
-  1. the int8 x int8 -> int32 dot (tensor cores and ``__dp4a``): exact?
-  2. round / clip (the requantizer): half to even (``rintf``)?
+  1. the int8 x int8 -> int32 dot (tensor cores by ``wgmma`` and by
+     ``mma.sync``, and ``__dp4a``): exact?
+  2. round / clip (the requantizer): half to even, as ``rintf``?
   3. the +1 / -1 row shifts through shared memory: value-exact?
   4. the ``//``, ``%`` edge-mask arithmetic: correct rows and columns?
   5. the float epilogue (multiply, add, leaky, requantize): equal to numpy
@@ -57,7 +58,7 @@ def probe_int8_dot(device=None) -> int:
         lhs = rng.integers(-127, 128, (m, k)).astype(np.int8)
         rhs = rng.integers(-127, 128, (k, n)).astype(np.int8)
         ref = lhs.astype(np.int64) @ rhs.astype(np.int64)
-        for core in ("mma_s8", "dp4a_s8"):
+        for core in ("wgmma_s8", "mma_s8", "dp4a_s8"):
             out = cuda_probe.probe_int8_dot(torch.from_numpy(lhs).to(device),
                                             torch.from_numpy(rhs).to(device),
                                             core=core)

@@ -11,13 +11,25 @@ each raises on failure (the build always runs):
 1. build: require CUDA, print the card's name and power limit, build the
    kernels from ``yolov3_tpu_torch/csrc`` with nvcc (one process per
    source, in parallel);
-2. K1 (packed decode) against its plain version at the yolov3@416 and
-   tiny@416 head shapes, batch 8, on float32 and on bf16 maps: tie-heavy
-   logits, exp-clamped boxes, scores exactly on the threshold;
-3. K1c (compact decode) against its plain version, yolov3@416 B=8;
-4. K2 (suppression) against its plain version, K = 512 and 256, batch 8;
+2. K1 (packed decode, one launch for all the heads) against its plain
+   version at the yolov3@416 and tiny@416 head shapes, batch 8, on float32
+   and on bf16 maps: tie-heavy logits, exp-clamped boxes, scores exactly on
+   the threshold; the one launch against one launch per head (equal to the
+   bit), dense maps against channel-padded and sliced ones (the strided
+   path, equal to the bit), B=1, yolov3@608, 20 and 251 classes, tiny; by
+   graph replay and as eager event means, per head, with 2 and 4 lanes a
+   record, and its staging and its decode alone (``tools/ablate_phases.py``);
+3. K1c (compact decode, the same kernel) against its plain version,
+   yolov3@416 B=8, timed as K1;
+4. K2 (suppression) against its plain version, keep masks and phase 1's
+   scratch (``conflict_bits_reference``) exact, at K = 1, 33, 256, 300, 512
+   and 1024 on clustered boxes, with 10% valid, with no conflicts, with
+   nothing valid and with NaN and overflowing boxes, batch 8; timed at K =
+   256, 512 and 1024 by graph replay and as eager event means, each phase
+   alone from ablated builds, with the longest chain of kept candidates and
+   the time a kept step;
 5. K3 (full decode) against the plain decode on the three yolov3@416 B=8
-   heads, float32 and bf16 maps: exact;
+   heads, float32 and bf16 maps: exact; by graph replay;
 6. K4 (head-fused decode: the tensor-core kernel at bf16, the CUDA-core
    kernel at float32) at the three yolov3@416 B=8 pre-head shapes, float32
    and bf16 operands (bf16 over four seeds), then off the main path at
@@ -50,7 +62,9 @@ each raises on failure (the build always runs):
     bf16 maps), bf16 with the fused head (K4), bf16 with the fused head and
     fused convs (K4, K5), None on the compact route, and yolov3-tiny; the
     three bf16 routes by stage, their walks' and decodes' device time from
-    replayed CUDA graphs, K5's launches per call; ``forward_compact`` through K1c
+    replayed CUDA graphs, K5's launches per call, which of K1's paths the
+    heads took and K2 on the selection's real candidates (exact, each phase
+    timed); ``forward_compact`` through K1c
     against the plain compact decode; ``Darknet(x)`` through K3; and the
     bf16 parity bar against "highest";
 12. int8, the full-width int8 tier: ``quantize_int8`` of yolov3 on 8 seeded
@@ -85,9 +99,12 @@ each raises on failure (the build always runs):
     ``/detect`` where cv2 is installed), ``/healthz``, ``/stats``,
     ``/metrics``, then a graceful shutdown that releases the port.
 
-Every kernel's launch count is zeroed just before phases 11, 12 and 17, in
-16 just before one ``detect_mixed`` call and before the pipelined batches,
-in 13 and 14 before the tools' runs, and read just after. The last two
+Every kernel's launch count is zeroed just before phases 11, 12 and 17 (in
+17 after the server's own warm-up), in 16 just before one ``detect_mixed``
+call and before the pipelined batches, in 13 and 14 before the tools' runs,
+and read just after. A Detector call launches K2 once and, on the K1 route,
+K1 once for all its heads: checked call by call in 11 and 12, and in 16 and
+17 against the calls and device batches made. The last two
 lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}`` (printed only when every phase
 ran). Exits non-zero, and prints neither, when CUDA is unavailable or the
@@ -180,20 +197,22 @@ def head_spec(graph):
             graph.yolo_nodes[0].classes)
 
 
-def k1_inputs(graph, seed: int):
-    """Head maps at the graph's 416 shapes: class and objectness logits on
-    a 1/8 grid (exact ties, exact in bf16 too), some tw/th past the clamp
-    at 60."""
+def k1_inputs(graph, seed: int, size: int = 416, bsz: int = BATCH,
+              ncls=None):
+    """Head maps at the graph's shapes for a ``size`` input (with ``ncls``
+    classes in place of the graph's when given): class and objectness
+    logits on a 1/8 grid (exact ties, exact in bf16 too), some tw/th past
+    the clamp at 60."""
     rng = np.random.default_rng(seed)
     heads = []
     for node, stride in zip(graph.yolo_nodes, graph.head_strides()):
-        g = 416 // stride
-        a, per = len(node.anchors), 5 + node.classes
-        f = rng.normal(0, 2, (BATCH, g, g, a, per)).astype(np.float32)
+        g = size // stride
+        a, per = len(node.anchors), 5 + (ncls or node.classes)
+        f = rng.normal(0, 2, (bsz, g, g, a, per)).astype(np.float32)
         f[..., 4:] = np.round(f[..., 4:] * 8) / 8
         big = rng.uniform(0, 1, f[..., 2:4].shape) < 0.01
         f[..., 2:4] = np.where(big, rng.uniform(60, 100, big.shape), f[..., 2:4])
-        heads.append(f.reshape(BATCH, g, g, a * per))
+        heads.append(f.reshape(bsz, g, g, a * per))
     return heads
 
 
@@ -228,6 +247,78 @@ def check_records(got, want, what: str) -> float:
     return float(err.max())
 
 
+def k1_times(feats, anchors, strides, ncls, compact: bool = False):
+    """K1 (K1c with ``compact``) over the heads at prob_thresh 0.3: the
+    all-heads wrapper by graph replay and as the event mean of eager calls
+    (taken first: eager timings after a capture read slower), each head's
+    wrapper by graph replay, the plain version both ways, and the bound
+    (map bytes read once, records written once, at 3.35 TB/s)."""
+    import torch
+    from yolov3_tpu_torch.ops import cuda_decode as cd
+
+    if compact:
+        def every():
+            return cd.decode_compact(feats, anchors, strides, ncls, 0.3)
+
+        def plain():
+            return [cd.decode_compact_head_reference(f, a, s, ncls, 0.3)
+                    for f, a, s in zip(feats, anchors, strides)]
+        out = every()
+        one = lambda f, a, s, off: cd.decode_compact_head(  # noqa: E731
+            f, a, s, ncls, 0.3, off, out=out)
+        rec_bytes = 24
+    else:
+        def every():
+            return cd.decode_packed(feats, anchors, strides, ncls, 0.3)
+
+        def plain():
+            return decode_plain(feats, anchors, strides, ncls, 0.3)
+        out = every()[0]
+        one = lambda f, a, s, off: cd.decode_packed_head(  # noqa: E731
+            f, a, s, ncls, 0.3, off, out=out)
+        rec_bytes = 32
+    t = {"ms_eager": cuda_ms(every), "plain_ms_eager": cuda_ms(plain)}
+    t["ms"] = graph_ms(every)
+    t["plain_ms"] = graph_ms(plain, iters=5)
+    heads, off = [], 0
+    for f, a, s in zip(feats, anchors, strides):
+        heads.append(graph_ms(lambda f=f, a=a, s=s, off=off: one(f, a, s, off)))
+        off += len(a) * f.shape[1] * f.shape[2]
+    t["heads_ms"] = heads
+    # the one launch with each number of lanes a record (K1_GROUP is the
+    # default the wrappers use)
+    outs = list(out) if compact else [out]
+    offsets = cd.candidate_offsets(feats, anchors)
+    t["group_ms"] = {g: graph_ms(lambda g=g: cd.launch_decode(
+        feats, anchors, strides, ncls, 0.3, offsets, outs,
+        "K1c" if compact else "K1", group=g)) for g in cd.K1_GROUPS}
+    t["group"] = cd.K1_GROUP[feats[0].dtype]
+    if not compact:  # the staging alone and the decode alone
+        from yolov3_tpu_torch.tools.ablate_phases import decode_phase_times
+
+        ph = decode_phase_times(feats, anchors, strides, ncls, 0.3)
+        t["copy_ms"], t["decode_ms"] = ph["copy"], ph["decode"]
+    nbytes = (sum(f.numel() * f.element_size() for f in feats)
+              + rec_bytes * feats[0].shape[0] * off)
+    t["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    t["bytes"] = nbytes
+    torch.cuda.synchronize()
+    return t
+
+
+def k1_line(t) -> str:
+    return (f"one call {t['ms']:.4f} ms by graph replay ({t['ms_eager']:.4f} "
+            f"eager), per head " + " / ".join(f"{h:.4f}" for h in t["heads_ms"])
+            + " ms, one call with G lanes a record " + ", ".join(
+                f"G={g} {v:.4f}" for g, v in t["group_ms"].items())
+            + f" ms (G={t['group']} by default)"
+            + (f"; ablated builds: staging alone {t['copy_ms']:.4f}, decode "
+               f"alone {t['decode_ms']:.4f} ms" if "copy_ms" in t else "")
+            + f"; plain {t['plain_ms']:.4f} ms ({t['plain_ms_eager']:.4f} "
+            f"eager); bound {t['bound_ms']:.4f} ms ({t['bytes'] / 1e6:.2f} MB "
+            f"at 3.35 TB/s), {t['bound_ms'] / t['ms']:.1%} of it reached")
+
+
 def phase_k1(graph, name: str, dtype_name: str = "float32"):
     import torch
     from yolov3_tpu_torch.ops.cuda_decode import decode_packed
@@ -250,42 +341,136 @@ def phase_k1(graph, name: str, dtype_name: str = "float32"):
         f"records, class/cand exact, {n_on} scores exactly on "
         f"prob_thresh={thresh!r} kept identically, max |err| {max_err!r} "
         f"(bar {K1_RTOL:.3g} rel + {K1_ATOL} px)")
-    ms = cuda_ms(lambda: decode_packed(feats, anchors, strides, ncls, 0.3))
-    plain_ms = cuda_ms(lambda: decode_plain(feats, anchors, strides, ncls, 0.3))
-    log(f"[K1] {name}@416 B={BATCH} {dtype_name} all heads: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return max_err, ms, plain_ms
+    t = k1_times(feats, anchors, strides, ncls)
+    log(f"[K1] {name}@416 B={BATCH} {dtype_name}: " + k1_line(t))
+    return max_err, t
+
+
+def compact_plain(feats, anchors, strides, ncls, prob_thresh):
+    """K1c's plain version over the heads, concatenated."""
+    import torch
+    from yolov3_tpu_torch.ops.cuda_decode import decode_compact_head_reference
+
+    parts = [decode_compact_head_reference(f, a, s, ncls, prob_thresh)
+             for f, a, s in zip(feats, anchors, strides)]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+
+
+def compact_record(out):
+    """K1c's three outputs as K1-style records (no candidate lane), so that
+    ``check_records`` holds them to K1's bars."""
+    import torch
+
+    if out[2].dtype != torch.int32:
+        raise AssertionError(f"K1c classes are {out[2].dtype}, not int32")
+    return torch.cat([out[0], out[1][..., None], out[2].float()[..., None]],
+                     dim=-1)
 
 
 def phase_k1c(graph):
     import torch
-    from yolov3_tpu_torch.ops.cuda_decode import (decode_compact,
-                                                  decode_compact_head_reference)
+    from yolov3_tpu_torch.ops.cuda_decode import decode_compact
 
     anchors, strides, ncls = head_spec(graph)
     feats = [torch.from_numpy(h).to(DEVICE) for h in k1_inputs(graph, seed=2)]
-
-    def plain(prob):
-        parts = [decode_compact_head_reference(f, a, s, ncls, prob)
-                 for f, a, s in zip(feats, anchors, strides)]
-        return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
-
     max_err = 0.0
     for prob in (0.0, 0.3):
-        got, want = decode_compact(feats, anchors, strides, ncls, prob), plain(prob)
-        # the same bars as K1, on the record rebuilt from the three outputs
-        as_rec = lambda o: torch.cat([o[0], o[1][..., None],  # noqa: E731
-                                      o[2].float()[..., None]], dim=-1)
-        if got[2].dtype != torch.int32:
-            raise AssertionError(f"K1c classes are {got[2].dtype}, not int32")
-        max_err = max(max_err, check_records(as_rec(got), as_rec(want),
-                                             f"K1c prob={prob}"))
-    ms = cuda_ms(lambda: decode_compact(feats, anchors, strides, ncls))
-    plain_ms = cuda_ms(lambda: plain(0.0))
+        got = decode_compact(feats, anchors, strides, ncls, prob)
+        want = compact_plain(feats, anchors, strides, ncls, prob)
+        max_err = max(max_err, check_records(
+            compact_record(got), compact_record(want), f"K1c prob={prob}"))
+    t = k1_times(feats, anchors, strides, ncls, compact=True)
     log(f"[K1c] yolov3@416 B={BATCH}: boxes {tuple(got[0].shape)}, scores, "
-        f"int32 classes exact, max |err| {max_err!r}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return max_err, ms, plain_ms
+        f"int32 classes exact, max |err| {max_err!r}; " + k1_line(t))
+    return max_err, t
+
+
+def k1_strided(f):
+    """Two strided views holding the values of ``f``: channel-padded (the
+    pixel stride 8 channels wider than the channels decoded) and a spatial
+    slice of a wider map."""
+    import torch
+
+    b, gy, gx, c = f.shape
+    padded = torch.zeros((b, gy, gx, c + 8), dtype=f.dtype, device=f.device)
+    padded[..., :c] = f
+    wide = torch.zeros((b, gy, gx + 3, c), dtype=f.dtype, device=f.device)
+    wide[:, :, 1:gx + 1] = f
+    return {"channel-padded": padded[..., :c], "sliced": wide[:, :, 1:gx + 1]}
+
+
+def phase_k1_cases(graph, tiny):
+    """K1 and K1c off the timed shapes: the one launch against a launch per
+    head (equal to the bit), dense against strided maps (channel-padded and
+    sliced views decode to the same bits by the strided path), at float32
+    and bf16; then B=1, yolov3@608 (a 76x76 head), 20 and 251 classes and
+    tiny, against the plain versions within K1's bars."""
+    import torch
+    from yolov3_tpu_torch.ops import cuda_decode as cd
+
+    anchors, strides, ncls = head_spec(graph)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        feats = [torch.from_numpy(h).to(DEVICE, dtype)
+                 for h in k1_inputs(graph, seed=4)]
+        offsets = cd.candidate_offsets(feats, anchors)
+        one, _ = cd.decode_packed(feats, anchors, strides, ncls, 0.3)
+        per = torch.empty_like(one)
+        c_one = cd.decode_compact(feats, anchors, strides, ncls, 0.3)
+        c_per = tuple(torch.empty_like(t) for t in c_one)
+        for f, a, st, off in zip(feats, anchors, strides, offsets):
+            cd.decode_packed_head(f, a, st, ncls, 0.3, off, out=per)
+            cd.decode_compact_head(f, a, st, ncls, 0.3, off, out=c_per)
+        torch.cuda.synchronize()
+        if not (torch.equal(one, per)
+                and all(torch.equal(x, y) for x, y in zip(c_one, c_per))):
+            raise AssertionError(f"K1 / K1c {name}: the one launch differs "
+                                 f"from the launches per head")
+        plans = cd.plan_decode(feats, anchors, ncls, offsets)
+        if len(plans) != 1 or not all(r.dense for r in plans[0].rows):
+            raise AssertionError(f"K1 {name}: contiguous yolov3 heads are not "
+                                 f"one launch on the dense path: {plans}")
+        for kind in ("channel-padded", "sliced"):
+            views = [k1_strided(f)[kind] for f in feats]
+            if any(r.dense for p in cd.plan_decode(views, anchors, ncls, offsets)
+                   for r in p.rows):
+                raise AssertionError(f"K1: a {kind} map took the dense path")
+            got, _ = cd.decode_packed(views, anchors, strides, ncls, 0.3)
+            gotc = cd.decode_compact(views, anchors, strides, ncls, 0.3)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, one)
+                    and all(torch.equal(x, y) for x, y in zip(gotc, c_one))):
+                raise AssertionError(f"K1 / K1c {name}: the {kind} map "
+                                     f"(strided path) differs from the dense")
+        want, _ = decode_plain(feats, anchors, strides, ncls, 0.3)
+        worst = max(worst, check_records(one, want, f"K1 {name}"))
+    log(f"[K1] yolov3@416 B={BATCH}, float32 and bf16: one launch == three "
+        "launches of one head each, bit for bit (K1 and K1c); contiguous "
+        "heads dense, channel-padded and sliced views strided, equal to the "
+        "dense path bit for bit")
+    cases = (("yolov3@416 B=1", graph, 416, 1, None),
+             ("yolov3@608 B=8 (76x76 head)", graph, 608, BATCH, None),
+             ("yolov3@416 B=8 20 classes", graph, 416, BATCH, 20),
+             ("yolov3@416 B=2 251 classes", graph, 416, 2, 251),
+             ("yolov3-tiny@416 B=1", tiny, 416, 1, None))
+    for what, g, size, bsz, nc in cases:
+        a_, s_, c_ = head_spec(g)
+        nc = nc or c_
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = [torch.from_numpy(h).to(DEVICE, dtype)
+                     for h in k1_inputs(g, seed=5, size=size, bsz=bsz, ncls=nc)]
+            got, _ = cd.decode_packed(feats, a_, s_, nc, 0.3)
+            want, _ = decode_plain(feats, a_, s_, nc, 0.3)
+            worst = max(worst, check_records(got, want, f"K1 {what} {dtype}"))
+            got = cd.decode_compact(feats, a_, s_, nc, 0.3)
+            want = compact_plain(feats, a_, s_, nc, 0.3)
+            worst = max(worst, check_records(
+                compact_record(got), compact_record(want), f"K1c {what} {dtype}"))
+        plans = cd.plan_decode(feats, a_, nc, cd.candidate_offsets(feats, a_))
+        log(f"[K1] {what}, float32 and bf16: K1 and K1c within the bars, "
+            f"{len(plans)} launch(es)")
+    return worst
 
 
 def k2_inputs(k: int, seed: int):
@@ -307,30 +492,139 @@ def k2_inputs(k: int, seed: int):
     return boxes.astype(np.float32), classes, valid
 
 
-def phase_k2():
+def k2_check(b, c, v, iou: float, what: str):
+    """K2's keep mask against its plain version, exactly, and phase 1's
+    scratch against ``conflict_bits_reference`` bit for bit on every word
+    the kernel writes; returns the keep mask."""
     import torch
-    from yolov3_tpu_torch.ops.cuda_nms import suppress, suppress_reference
+    from yolov3_tpu_torch.ops.cuda_nms import (conflict_bits_reference,
+                                               suppress_bits,
+                                               suppress_reference,
+                                               written_words)
 
-    times, max_err = {}, 0.0
-    for k in (512, 256):
-        b, c, v = (torch.from_numpy(a).to(DEVICE) for a in k2_inputs(k, seed=k))
+    got, bits = suppress_bits(b, c, v, iou)
+    want = suppress_reference(b, c, v, iou)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        n = int((got != want).sum())
+        raise AssertionError(f"K2 keep mask differs in {n} slots: {what} "
+                             f"iou={iou}")
+    mask = written_words(b.shape[1], b.device)
+    want_bits = conflict_bits_reference(b, c, iou)
+    if not torch.equal(bits[:, mask], want_bits[:, mask]):
+        n = int((bits[:, mask] != want_bits[:, mask]).sum())
+        raise AssertionError(f"K2 phase 1: {n} words of the scratch differ "
+                             f"from conflict_bits_reference: {what} iou={iou}")
+    return got
+
+
+def k2_special(k: int, kind: str, seed: int):
+    """Other K2 inputs, numpy (boxes, classes, valid): "sparse" (clustered,
+    10% valid), "disjoint" (a grid of boxes that never overlap, all valid:
+    every candidate is kept, the longest chain), "empty" (nothing valid),
+    "nonfinite" (clustered, with NaN corners and exp-clamped boxes whose
+    areas overflow to inf)."""
+    boxes, classes, valid = k2_inputs(k, seed)
+    rng = np.random.default_rng(seed)
+    if kind == "sparse":
+        valid = rng.uniform(0, 1, valid.shape) < 0.1
+    elif kind == "disjoint":
+        i = np.arange(k)
+        x, y = (i % 32) * 13.0, (i // 32) * 13.0
+        boxes[:] = np.stack([x, y, x + 10, y + 10], -1)[None]
+        classes[:] = 0
+        valid[:] = True
+    elif kind == "empty":
+        valid[:] = False
+    elif kind == "nonfinite":
+        pick = rng.uniform(0, 1, valid.shape)
+        boxes[pick < 0.05, rng.integers(0, 4)] = np.nan
+        big = (pick > 0.9)[..., None]
+        # exp(60) * anchor-sized half extents around the centres
+        c = (boxes[..., :2] + boxes[..., 2:]) / 2
+        huge = np.concatenate([c - 3e28, c + 3e28], -1).astype(np.float32)
+        boxes = np.where(big, huge, boxes).astype(np.float32)
+    return boxes, classes, valid
+
+
+def phase_k2():
+    """K2 exact against its plain version (and phase 1's scratch against
+    ``conflict_bits_reference``) at K = 1 to 1024 on clustered boxes, a
+    sparse-valid, a no-conflict, an all-invalid and a non-finite case;
+    timed at K = 256, 512 and 1024, B=8, by graph replay and as eager event
+    means, with each phase alone from the ablated builds
+    (``tools/ablate_phases.py``) and the longest chain of kept candidates (the
+    walk's sequential steps). The no-conflict case at K = 1024 (every
+    candidate kept) against the all-invalid one (none) gives the time a
+    kept step."""
+    import torch
+    from yolov3_tpu_torch.ops.cuda_nms import (bits_blocks, suppress,
+                                               suppress_reference)
+    from yolov3_tpu_torch.tools.ablate_phases import nms_phase_times
+
+    def to_dev(arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                     for a in arrays)
+
+    for k in (1, 33, 300):
+        b, c, v = to_dev(k2_inputs(k, seed=k))
         for iou in (0.3, 0.45, 0.7):
-            got = suppress(b, c, v, iou)
-            want = suppress_reference(b, c, v, iou)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                n = int((got != want).sum())
-                raise AssertionError(f"K2 keep mask differs in {n} slots "
-                                     f"at K={k} iou={iou}")
-            max_err = max(max_err, float((got.int() - want.int()).abs().max()))
-        kept = int(got.sum())
-        ms = cuda_ms(lambda: suppress(b, c, v, 0.45))
-        plain_ms = cuda_ms(lambda: suppress_reference(b, c, v, 0.45), iters=3,
-                           warmup=1)
-        times[k] = (ms, plain_ms)
-        log(f"[K2] K={k} B={BATCH}: keep masks exact at iou 0.3/0.45/0.7 "
-            f"({kept} kept at 0.7); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return max_err, times
+            k2_check(b, c, v, iou, f"K={k}")
+    for k, kind in ((512, "sparse"), (1024, "disjoint"), (1024, "empty"),
+                    (300, "nonfinite"), (512, "nonfinite")):
+        b, c, v = to_dev(k2_special(k, kind, seed=k))
+        for iou in (0.3, 0.45):
+            got = k2_check(b, c, v, iou, f"K={k} {kind}")
+        if kind == "disjoint" and not bool(got.all()):
+            raise AssertionError("K2: disjoint boxes were suppressed")
+    log(f"[K2] keep masks exact and phase 1's scratch bit for bit at K = 1, "
+        f"33, 300 (clustered), K=512 10% valid, K=1024 no conflicts (all "
+        f"kept) and nothing valid, K = 300 and 512 with NaN and overflowing "
+        f"boxes; phase 1 on {bits_blocks(BATCH, 512)} blocks at B={BATCH} "
+        f"K=512, {bits_blocks(BATCH, 1024)} at K=1024")
+
+    times = {}
+    for k, kind in ((256, None), (512, None), (1024, None), (1024, "disjoint"),
+                    (1024, "empty")):
+        arrays = k2_inputs(k, seed=k) if kind is None else k2_special(k, kind, k)
+        b, c, v = to_dev(arrays)
+        if kind is None:
+            for iou in (0.3, 0.7):
+                got = k2_check(b, c, v, iou, f"K={k}")
+            kept_07 = int(got.sum())
+        got = k2_check(b, c, v, 0.45, f"K={k} {kind or ''}")
+        t = {"ms_eager": cuda_ms(lambda: suppress(b, c, v, 0.45)),
+             "plain_ms_eager": cuda_ms(lambda: suppress_reference(b, c, v, 0.45),
+                                       iters=3, warmup=1)}
+        t["ms"] = graph_ms(lambda: suppress(b, c, v, 0.45))
+        t["plain_ms"] = graph_ms(lambda: suppress_reference(b, c, v, 0.45),
+                                 iters=1, warmup=1)
+        ph = nms_phase_times(b, c, v, 0.45)
+        t.update(phase1_ms=ph["phase1"], phase2_ms=ph["phase2"],
+                 whole_ms=ph["whole"],
+                 chain_max=int(got.sum(1).max()),
+                 phase1_blocks=bits_blocks(BATCH, k))
+        # every pair's IoU once (about 20 float32 operations)
+        t["bound_ms"] = max(BATCH * k * 22 / HBM_BYTES_PER_S,
+                            BATCH * k * (k - 1) / 2 * 20 / FP32_FLOPS_PER_S) * 1e3
+        times[k if kind is None else f"{k} {kind}"] = t
+        log(f"[K2] K={k} B={BATCH} {kind or 'clustered'}: keep masks exact"
+            + (f" at iou 0.3/0.45/0.7 ({kept_07} kept at 0.7)" if kind is None
+               else " at iou 0.45")
+            + f"; at 0.45 the longest chain of kept candidates "
+            f"{t['chain_max']}; {t['ms']:.4f} ms by graph replay "
+            f"({t['ms_eager']:.4f} eager); phase 1 alone {t['phase1_ms']:.4f} "
+            f"({t['phase1_blocks']} blocks), phase 2 alone "
+            f"{t['phase2_ms']:.4f} ms (ablated builds, graph replay; whole "
+            f"{t['whole_ms']:.4f}); plain {t['plain_ms']:.4f} ms "
+            f"({t['plain_ms_eager']:.4f} eager); bound {t['bound_ms']:.4f} ms")
+    step = (times["1024 disjoint"]["phase2_ms"]
+            - times["1024 empty"]["phase2_ms"]) / 1024
+    log(f"[K2] the walk's time a kept step: {step * 1e6:.1f} ns (phase 2 "
+        f"alone at K=1024: 1,024 kept a image against none)")
+    for t in times.values():
+        t["step_ns"] = step * 1e6
+    return 0.0, times
 
 
 def k4_heads(graph, size: int, bsz: int, rng, ncls=None, dtype=None):
@@ -750,15 +1044,21 @@ def phase_k3(graph):
                                      anchors, strides, ncls)
     if not torch.equal(got16, want16):
         raise AssertionError("K3 on bf16 maps differs from its plain version")
-    ms = cuda_ms(lambda: decode_all(feats, anchors, strides, ncls))
-    plain_ms = cuda_ms(lambda: plain_decode.decode_all(feats, anchors, strides, ncls))
+    ms_eager = cuda_ms(lambda: decode_all(feats, anchors, strides, ncls))
+    plain_eager = cuda_ms(lambda: plain_decode.decode_all(feats, anchors,
+                                                          strides, ncls))
+    ms = graph_ms(lambda: decode_all(feats, anchors, strides, ncls))
     nbytes = 2 * 4 * sum(f.numel() for f in feats)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # the plain decode copies its anchors from the host, which a CUDA graph
+    # capture refuses: its time is the eager event mean
     log(f"[K3] yolov3@416 B={BATCH}: {tuple(got.shape)} float32 exact against "
-        f"the plain decode (float32 and bf16 maps); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
-        f"3.35 TB/s, {bound_ms / ms:.0%} of the bound reached)")
-    return err, ms, plain_ms, bound_ms
+        f"the plain decode (float32 and bf16 maps); {ms:.4f} ms by graph "
+        f"replay ({ms_eager:.4f} eager), plain {plain_eager:.4f} ms (eager), "
+        f"bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {bound_ms / ms:.0%} of the "
+        f"bound reached)")
+    return err, ms, plain_eager, bound_ms, ms_eager
 
 
 def _int8_qp(rng, k: int, cin: int, cout: int, device):
@@ -1006,9 +1306,16 @@ def phase_golden():
 
 def run_main_path(det, name: str, frames: np.ndarray, card: str,
                   calls: int = 10):
+    """``det.detect_batch`` timed over ``calls`` calls after a warmup, its
+    detections checked for plausibility, and its launches a call: K2 once,
+    and K1 once (all the heads in one launch) on the K1 route."""
     import torch
+    from yolov3_tpu_torch.ops import cuda_decode, cuda_nms
 
     det.warmup(BATCH, SRC_HW)
+    wrappers = {"decode_packed": cuda_decode.decode_packed,
+                "nms_suppress": cuda_nms.suppress}
+    before = {n: w.launches for n, w in wrappers.items()}
     host, dev = [], []
     for _ in range(calls):
         start = torch.cuda.Event(enable_timing=True)
@@ -1020,6 +1327,11 @@ def run_main_path(det, name: str, frames: np.ndarray, card: str,
         end.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         dev.append(start.elapsed_time(end))
+    per_call = {n: (w.launches - before[n]) / calls for n, w in wrappers.items()}
+    want = {"decode_packed": int(det.route == "pallas"), "nms_suppress": 1}
+    if per_call != want:
+        raise AssertionError(f"{name} ({det.route}): launches a call "
+                             f"{per_call}, expected {want}")
     for d in out:
         n = len(d.class_prob)
         if not (0 < n <= det.max_results and np.isfinite(d.bbox_tlbr).all()
@@ -1034,7 +1346,8 @@ def run_main_path(det, name: str, frames: np.ndarray, card: str,
         f"uint8, precision={net.precision}, decode_impl={det.route}, "
         f"conv_impl={net.conv_impl}: per call median {np.median(dev):.3f} ms "
         f"(CUDA events), {np.median(host):.3f} ms (host clock), {calls} "
-        f"calls, on {card}; survivors/image {[len(d.class_prob) for d in out]}")
+        f"calls, on {card}; survivors/image {[len(d.class_prob) for d in out]}; "
+        f"launches a call {want}")
     return out
 
 
@@ -1122,8 +1435,8 @@ def phase_main(card: str):
     tiny.set_params(fold_raw(random_raw(tiny.graph, seed=0)))
     frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3),
                                                dtype=np.uint8)
-    kernels = {"decode_packed_head": cuda_decode.decode_packed_head,
-               "decode_compact_head": cuda_decode.decode_compact_head,
+    kernels = {"decode_packed": cuda_decode.decode_packed,
+               "decode_compact": cuda_decode.decode_compact,
                "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
                "conv3x3_fused": cuda_conv.conv3x3_fused,
                "decode_head": cuda_decode.decode_head,
@@ -1198,6 +1511,8 @@ def phase_main(card: str):
             walk_ms = graph_ms(lambda: walk(x), iters=5)
             heads = walk(x)
             decode_ms = graph_ms(lambda: decode(heads))
+            if det.route == "pallas":
+                k1_main_path(det, heads, name)
         log(f"[main] yolov3@416 B={BATCH} {name}: stage split ms (CUDA "
             f"events, median of 10) " + ", ".join(
                 f"{k} {v:.3f}" for k, v in split.items())
@@ -1231,6 +1546,37 @@ def phase_main(card: str):
     check_parity(runs["highest"], runs["none"], "yolov3@416 None (TF32) "
                  "against \"highest\"", strict=False)
     return launches
+
+
+def k1_main_path(det, heads, name: str) -> None:
+    """On the main path's own head maps: which of K1's paths each head took
+    (the planner's choice), and K2 on the real candidates that the
+    selection hands it, exact against its plain version (keep mask and
+    phase 1's scratch), with each phase's time alone."""
+    from yolov3_tpu_torch.ops import cuda_decode
+    from yolov3_tpu_torch.ops.nms import _select_pairmax_payload
+    from yolov3_tpu_torch.tools.ablate_phases import nms_phase_times
+
+    anchors, strides, ncls = head_spec(det.net.graph)
+    plans = cuda_decode.plan_decode(
+        heads, anchors, ncls, cuda_decode.candidate_offsets(heads, anchors))
+    paths = [("dense" if r.dense else "strided") for p in plans for r in p.rows]
+    payload, scores = cuda_decode.decode_packed(heads, anchors, strides, ncls,
+                                                det.prob_thresh)
+    k = min(det.top_k, scores.shape[1])
+    boxes, _, classes, valid = _select_pairmax_payload(
+        payload, scores, k, group=det.select_group)
+    keep = k2_check(boxes, classes, valid, det.iou_thresh,
+                    f"yolov3@416 {name} real candidates")
+    t = nms_phase_times(boxes, classes, valid, det.iou_thresh)
+    log(f"[main] yolov3@416 B={BATCH} {name}: K1's heads "
+        f"{[tuple(h.shape) for h in heads]} {heads[0].dtype}: {paths} path, "
+        f"{len(plans)} launch; K2 on the "
+        f"selection's K={k} real candidates ({int(valid.sum())} valid in "
+        f"{BATCH} images): keep "
+        f"masks and scratch exact, longest chain {int(keep.sum(1).max())}, "
+        f"{t['whole'] * 1e3:.2f} us by graph replay (phase 1 alone "
+        f"{t['phase1'] * 1e3:.2f}, phase 2 alone {t['phase2'] * 1e3:.2f})")
 
 
 def prenms_bar(ref, test, what: str, strict: bool = True) -> None:
@@ -1398,7 +1744,7 @@ def phase_int8(card: str):
     if len(plan) != K6_BLOCKS_YOLOV3:
         raise AssertionError(f"fused_block_plan found {len(plan)} blocks on "
                              f"yolov3.cfg, expected {K6_BLOCKS_YOLOV3}")
-    kernels = {"decode_packed_head": cuda_decode.decode_packed_head,
+    kernels = {"decode_packed": cuda_decode.decode_packed,
                "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
                "residual_block_int8": cuda_block.residual_block_int8,
                "nms_suppress": cuda_nms.suppress}
@@ -1862,7 +2208,7 @@ def phase_entry(card: str):
     frames = [rng.integers(0, 256, (*ENTRY_SHAPES[i % 4], 3), dtype=np.uint8)
               for i in range(BATCH)]
     hws = [f.shape[:2] for f in frames]
-    kernels = {"decode_packed_head": cuda_decode.decode_packed_head,
+    kernels = {"decode_packed": cuda_decode.decode_packed,
                "nms_suppress": cuda_nms.suppress}
 
     def counted(fn, want):
@@ -1878,9 +2224,9 @@ def phase_entry(card: str):
 
     det = Detector(net)
     det.warmup(BATCH, (416, 416), host_preprocessed=True)
-    # one device batch: K1 once per head, K2 once
+    # one device batch: K1 once for all the heads, K2 once
     mixed, launches = counted(lambda: det.detect_mixed(frames),
-                              {"decode_packed_head": 3, "nms_suppress": 1})
+                              {"decode_packed": 1, "nms_suppress": 1})
     stages = dict(det.last_stage_s)
     canvases = det._build_canvases(frames)
     pre = det.detect_preletterboxed(canvases, hws)
@@ -1997,7 +2343,7 @@ def phase_entry(card: str):
         return out + pipe.flush()
 
     t0 = time.perf_counter()
-    got, piped = counted(pipelined, {"decode_packed_head": 3 * len(batches),
+    got, piped = counted(pipelined, {"decode_packed": len(batches),
                                      "nms_suppress": len(batches)})
     t_pipe = (time.perf_counter() - t0) / len(batches) * 1e3
     if len(got) != len(want) or not all(same_detections(g, w)
@@ -2044,13 +2390,14 @@ def phase_serve(card: str):
         t0 = time.perf_counter()
         det.detect_batch(frames[0])
         b1.append((time.perf_counter() - t0) * 1e3)
-    kernels = {"decode_packed_head": cuda_decode.decode_packed_head,
-               "nms_suppress": cuda_nms.suppress}
-    for k in kernels.values():
-        k.launches = 0
     server = serve_mod.serve(det, class_names=None, host="127.0.0.1", port=0,
                              warmup_hw=ENTRY_SHAPES[0], batch_window_s=0.005,
                              max_batch=8)
+    # zeroed after serve()'s own warm-up: the counts are the requests'
+    kernels = {"decode_packed": cuda_decode.decode_packed,
+               "nms_suppress": cuda_nms.suppress}
+    for k in kernels.values():
+        k.launches = 0
     port = server.server_address[1]
     url = f"http://127.0.0.1:{port}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -2126,9 +2473,12 @@ def phase_serve(card: str):
     except OSError:
         pass
     launches = {name: k.launches for name, k in kernels.items()}
-    for kernel, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the serving path never launched {kernel}")
+    # one device batch, one detect call: K1 once for all heads, K2 once
+    n_batches = sum(sizes.values())
+    if launches != {"decode_packed": n_batches, "nms_suppress": n_batches}:
+        raise AssertionError(f"the serving path's launches {launches}, "
+                             f"expected one of each for each of its "
+                             f"{n_batches} device batches")
     conc = np.asarray([ms for ms, _ in answers])
     fill = sum(s * n for s, n in sizes.items()) / sum(sizes.values())
     post = "run" if cv2 is not None else "not run: no cv2"
@@ -2227,6 +2577,8 @@ def main() -> int:
         res["k1"] = phase_k1(yolo, "yolov3")
         phase_k1(load_graph(REPO / "models" / "yolov3-tiny.cfg"), "yolov3-tiny")
         res["k1_bf16"] = phase_k1(yolo, "yolov3", "bfloat16")
+        res["k1_cases"] = phase_k1_cases(
+            yolo, load_graph(REPO / "models" / "yolov3-tiny.cfg"))
     if "k1c" in phases:
         res["k1c"] = phase_k1c(yolo)
     if "k2" in phases:
@@ -2261,7 +2613,8 @@ def main() -> int:
         log(f"phases run: {phases}; no result printed for a partial run")
         return 0
     launches = res["main"]
-    k1_err = max(res["k1"][0], res["k1_bf16"][0])
+    k1_err = max(res["k1"][0], res["k1_bf16"][0], res["k1_cases"])
+    k1, k1b, k1c = res["k1"][1], res["k1_bf16"][1], res["k1c"][1]
     k2_err, k2 = res["k2"]
     k4_err, k4 = res["k4"]
     k5_err, k5 = res["k5"]
@@ -2270,10 +2623,7 @@ def main() -> int:
     # bounds: the larger of bytes over the memory rate (each input read
     # once, each output written once) and operations over the unit's peak
     grids = [416 // s for s in yolo.head_strides()]
-    per = 5 + yolo.yolo_nodes[0].classes
     n_cand = sum(len(n.anchors) * g * g for n, g in zip(yolo.yolo_nodes, grids))
-    map_elems = BATCH * sum(len(n.anchors) * per * g * g
-                            for n, g in zip(yolo.yolo_nodes, grids))
 
     def bound(nbytes: float, ops: float = 0.0, peak: float = FP32_FLOPS_PER_S):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
@@ -2293,36 +2643,44 @@ def main() -> int:
     k6_forward = [sum(n * k6[shape][i] for n, shape in zip((2, 8), K6_SHAPES))
                   for i in (0, 1, 2, 4)]
     kernels = {"kernels": [
-        {"name": "decode_packed_head", "route": "cuda",
+        {"name": "decode_packed", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_packed.cu",
+         "headers": ["yolov3_tpu_torch/csrc/decode_common.cuh",
+                     "yolov3_tpu_torch/csrc/wgmma_common.cuh"],
          "replaces": "yolov3_tpu/ops/pallas_decode.py:626",
-         "launches": launches["decode_packed_head"],
-         "launches_int8_path": res["int8"]["decode_packed_head"],
-         "max_abs_err": k1_err,
-         "ms": res["k1"][1], "plain_ms": res["k1"][2],
-         **bound(4 * map_elems + 32 * BATCH * n_cand), "library_ms": None},
+         "launches": launches["decode_packed"],
+         "launches_int8_path": res["int8"]["decode_packed"],
+         "max_abs_err": k1_err, "ms": k1["ms"], "ms_eager": k1["ms_eager"],
+         "plain_ms": k1["plain_ms"], **bound(k1["bytes"]), "library_ms": None,
+         "heads_ms": k1["heads_ms"], "ms_bf16": k1b["ms"],
+         "ms_eager_bf16": k1b["ms_eager"], "plain_ms_bf16": k1b["plain_ms"],
+         "bound_ms_bf16": bound(k1b["bytes"])["bound_ms"],
+         "heads_ms_bf16": k1b["heads_ms"]},
         {"name": "nms_suppress", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/nms_suppress.cu",
          "replaces": "yolov3_tpu/ops/pallas_nms.py:65",
          "launches": launches["nms_suppress"],
          "launches_int8_path": res["int8"]["nms_suppress"],
-         "max_abs_err": k2_err,
-         "ms": k2[512][0], "plain_ms": k2[512][1],
+         "max_abs_err": k2_err, "ms": k2[512]["ms"],
+         "ms_eager": k2[512]["ms_eager"], "plain_ms": k2[512]["plain_ms"],
          # K = 512: every pair's IoU once (about 20 float32 operations)
          **bound(BATCH * 512 * 22, BATCH * 512 * 511 / 2 * 20),
-         "library_ms": None},
-        {"name": "decode_compact_head", "route": "cuda",
+         "library_ms": None, "phase1_ms": k2[512]["phase1_ms"],
+         "phase2_ms": k2[512]["phase2_ms"], "chain_max": k2[512]["chain_max"],
+         "by_k": {str(k): v for k, v in k2.items()}},
+        {"name": "decode_compact", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_packed.cu",
          "replaces": "yolov3_tpu/ops/pallas_decode.py:731",
-         "launches": launches["decode_compact_head"],
-         "max_abs_err": res["k1c"][0], "ms": res["k1c"][1],
-         "plain_ms": res["k1c"][2],
-         **bound(4 * map_elems + 24 * BATCH * n_cand), "library_ms": None},
+         "launches": launches["decode_compact"],
+         "max_abs_err": res["k1c"][0], "ms": k1c["ms"],
+         "ms_eager": k1c["ms_eager"], "plain_ms": k1c["plain_ms"],
+         **bound(k1c["bytes"]), "library_ms": None},
         {"name": "decode_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_full.cu",
          "replaces": "yolov3_tpu/ops/pallas_decode.py:121",
          "launches": launches["decode_head"], "max_abs_err": res["k3"][0],
-         "ms": res["k3"][1], "plain_ms": res["k3"][2],
+         "ms": res["k3"][1], "ms_eager": res["k3"][4],
+         "plain_ms": res["k3"][2], "plain_ms_of": "eager event mean",
          "bound_ms": res["k3"][3], "bound_by": "bytes", "library_ms": None},
         {"name": "decode_packed_fused_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_fused.cu",

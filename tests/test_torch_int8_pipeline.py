@@ -26,7 +26,8 @@ torch.set_num_threads(1)
 DATA = Path(__file__).parent / "data"
 WIDE = str(DATA / "port_wide.cfg")
 BLOCK = str(DATA / "port_block.cfg")
-KERNELS = (cuda_decode.decode_packed_head, cuda_decode.decode_compact_head,
+KERNELS = (cuda_decode.decode_packed, cuda_decode.decode_compact,
+           cuda_decode.decode_packed_head, cuda_decode.decode_compact_head,
            cuda_decode.decode_packed_fused_head, cuda_decode.decode_head,
            cuda_conv.conv3x3_fused, cuda_block.residual_block_int8,
            cuda_nms.suppress)

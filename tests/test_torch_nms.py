@@ -159,3 +159,93 @@ def test_suppress_wrapper_rejects_bad_input():
     with pytest.raises(ValueError, match="group"):
         tnms._select_pairmax_payload(torch.zeros(1, 8, 8), torch.zeros(1, 8),
                                      4, group=1)
+
+
+def _k2_case(name):
+    """(boxes (1, K, 4), classes (1, K), valid (1, K)) numpy, score-sorted
+    by construction, for the conflict-bits tests."""
+    rng = np.random.default_rng(K2_CASES.index(name) + 7)
+    k = {"k1": 1, "k31": 31, "k33": 33, "k300": 300, "k512": 512}.get(name, 300)
+    det = _random_det(rng, k, 3, quantize=name == "ties")
+    boxes = _payload(det, 0.0)[0, :, :4]
+    classes = det[:, 5:].argmax(1).astype(np.int32)
+    valid = rng.uniform(0, 1, k) > 0.15
+    if name == "ties":  # quantized boxes: exact duplicates and shared edges
+        boxes = np.concatenate([boxes, boxes[:20]])[:k]
+    elif name == "nonfinite":
+        boxes[rng.uniform(0, 1, k) < 0.05, 1] = np.nan
+        big = rng.uniform(0, 1, k) < 0.1
+        c = (boxes[big, :2] + boxes[big, 2:]) / 2
+        boxes[big] = np.concatenate([c - 3e28, c + 3e28], 1)  # areas overflow
+        boxes[rng.uniform(0, 1, k) < 0.03, 2] = np.inf
+    elif name == "invalid":
+        valid[:] = False
+    elif name == "disjoint":
+        i = np.arange(k)
+        x, y = (i % 20) * 21.0, (i // 20) * 21.0
+        boxes = np.stack([x, y, x + 20, y + 20], 1)
+        classes[:] = 0
+        valid[:] = True
+    return (boxes.astype(np.float32)[None], classes[None], valid[None])
+
+
+K2_CASES = ("k1", "k31", "k33", "k300", "k512", "ties", "nonfinite",
+            "invalid", "disjoint")
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 65, 300, 512, 1024])
+def test_conflict_bits_layout(k):
+    """The packed triangle in the kernel's layout: rows of row_words(K)
+    words (a multiple of four); bit t of word w of row i is conflict(i,
+    32 w + t) on the words the kernel writes (from the row's 64-row
+    diagonal tile to the last tile), zero past K and on every other word."""
+    rng = np.random.default_rng(k)
+    xy = rng.uniform(0, 200, (2, k, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(10, 60, (2, k, 2))], -1).astype(np.float32))
+    classes = torch.from_numpy(rng.integers(0, 2, (2, k)).astype(np.int32))
+    bits = cuda_nms.conflict_bits_reference(boxes, classes, 0.2)
+    rw = cuda_nms.row_words(k)
+    assert rw % 4 == 0 and 32 * rw >= k > 32 * (rw - 4)
+    assert bits.shape == (2, k, rw) and bits.dtype == torch.int32
+    mask = cuda_nms.written_words(k)
+    tiles = -(-k // 64)
+    for i in {0, k // 2, k - 1}:
+        assert mask[i].tolist() == [2 * (i // 64) <= w < 2 * tiles
+                                    for w in range(rw)]
+    words = bits.numpy().astype(np.int64) & 0xFFFFFFFF
+    unpacked = (words[..., None] >> np.arange(32)) & 1          # (2, k, rw, 32)
+    full = cuda_nms.conflict_matrix(boxes, classes, 0.2).numpy()
+    want = np.zeros((2, k, 32 * rw), bool)
+    want[..., :k] = full
+    want = want.reshape(2, k, rw, 32) & mask.numpy()[None, :, :, None]
+    np.testing.assert_array_equal(unpacked.astype(bool), want)
+    assert cuda_nms.bits_blocks(8, k) == 8 * tiles * (tiles + 1) // 2
+
+
+@pytest.mark.parametrize("iou", [0.3, 0.6])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_conflict_bits_walk_matches_greedy(case, iou):
+    """The kernel's skip walk over the packed triangle (walk_reference on
+    conflict_bits_reference) keeps what K2's plain version and the JAX
+    package's scalar greedy keep."""
+    from yolov3_tpu.ops.nms import _greedy_suppress, iou_matrix
+
+    boxes, classes, valid = _k2_case(case)
+    tb, tc, tv = (torch.from_numpy(a) for a in (boxes, classes, valid))
+    walked = cuda_nms.walk_reference(
+        cuda_nms.conflict_bits_reference(tb, tc, iou), tv)
+    plain = cuda_nms.suppress_reference(tb, tc, tv, iou)
+    want = np.asarray(_greedy_suppress(
+        iou_matrix(jnp.asarray(boxes[0])),
+        jnp.asarray(classes[0][:, None] == classes[0][None, :]),
+        jnp.asarray(valid[0]), iou))
+    np.testing.assert_array_equal(walked[0].numpy(), want)
+    np.testing.assert_array_equal(plain[0].numpy(), want)
+    keep, bits = cuda_nms.suppress_bits(tb, tc, tv, iou)  # CPU: plain versions
+    assert torch.equal(keep, plain)
+    assert torch.equal(bits, cuda_nms.conflict_bits_reference(tb, tc, iou))
+    if case == "invalid":
+        assert not want.any()
+    if case == "disjoint":
+        assert want.all()

@@ -22,7 +22,8 @@ DATA = Path(__file__).parent / "data"
 MODELS = Path(__file__).parent.parent / "models"
 SMALL_CFG = str(DATA / "port_small.cfg")
 WIDE_CFG = str(DATA / "port_wide.cfg")
-KERNELS = (cuda_decode.decode_packed_head, cuda_decode.decode_compact_head,
+KERNELS = (cuda_decode.decode_packed, cuda_decode.decode_compact,
+           cuda_decode.decode_packed_head, cuda_decode.decode_compact_head,
            cuda_decode.decode_packed_fused_head, cuda_conv.conv3x3_fused,
            cuda_nms.suppress)
 
@@ -78,6 +79,7 @@ def test_golden_replay(fixture):
 
 
 def test_cpu_path_launches_no_kernel():
+    cuda_decode.decode_packed.launches = 0
     cuda_decode.decode_packed_head.launches = 0
     cuda_nms.suppress.launches = 0
     net = Darknet(SMALL_CFG, precision="highest", device="cpu")
@@ -85,6 +87,7 @@ def test_cpu_path_launches_no_kernel():
     frames = np.zeros((2, 64, 64, 3), np.uint8)
     out = inference(net, frames, prob_thresh=0.05)
     assert len(out) == 2 and all(len(t) == 3 for t in out)
+    assert cuda_decode.decode_packed.launches == 0
     assert cuda_decode.decode_packed_head.launches == 0
     assert cuda_nms.suppress.launches == 0
 

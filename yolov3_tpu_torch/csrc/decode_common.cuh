@@ -3,9 +3,9 @@
 // The TPU kernels share one body too (yolov3_tpu/ops/pallas_decode.py ::
 // _decode_ft_records); here it is k1_decode_anchor_group, a device function
 // that a group of lanes runs for one (cell, anchor) with the kernel's own
-// row loader: the whole warp in K1, K1c and K4's float32 kernel
-// (k1_decode_anchor), two or four lanes in K4's bf16 kernel, so their record
-// math cannot drift apart. For one (cell, anchor) it computes
+// row loader: G lanes in K1 and K1c (decode_packed.cu) and in K4's bf16
+// kernel, the whole warp in K4's float32 kernel (k1_decode_anchor), so
+// their record math cannot drift apart. For one (cell, anchor) it computes
 //
 //   cx = (sig(tx) + col) * stride,   w = exp(min(tw, 60)) * anchor_w,
 //   x0 = cx - w * 0.5,  x1 = cx + w * 0.5,  (same for y)
@@ -62,11 +62,12 @@ struct K1Record {
 
 // Decode anchor channels [base, base + 5 + n_classes) of one cell with a
 // group of G adjacent lanes (G a power of two, at most 32): lane j of the
-// group takes class logits j, j + G, ...; every lane of the WARP calls it
-// together (the class reduction shuffles) and every lane of the group gets
-// the record. `load(c)` returns channel c of the cell's row as float. The
-// max and its first argmax do not depend on the order of the reduction:
-// equal values keep the lower index, and a NaN never wins.
+// group takes class logits j, j + G, ... and a share of the sigmoids and
+// exps; every lane of the WARP calls it together (the reductions shuffle)
+// and every lane of the group gets the record. `load(c)` returns channel c
+// of the cell's row as float. The max and its first argmax do not depend on
+// the order of the reduction: equal values keep the lower index, and a NaN
+// never wins.
 template <int G, class Load>
 __device__ __forceinline__ K1Record k1_decode_anchor_group(
     const Load& load, int base, int n_classes, int j, int col, int row,
@@ -92,14 +93,40 @@ __device__ __forceinline__ K1Record k1_decode_anchor_group(
       best_i = oi;
     }
   }
-  const float tx = load(base + 0), ty = load(base + 1);
+  // the record's six transcendental values, sigmoid of tx, ty, obj and
+  // the best logit and exp of the clamped tw and th, spread over the
+  // group: lane j computes sigmoid input j mod 4 (and j + 2 with two
+  // lanes) and exp input j mod 2, then the group shares them by shuffles.
+  // Every lane still gets every value, bit for bit the one it would
+  // compute itself, at a half to a third of the lanes' work.
   const float tw = load(base + 2), th = load(base + 3);
-  const float obj = load(base + 4);
-  const float cx = (k1_sigmoid(tx) + (float)col) * stride;
-  const float cy = (k1_sigmoid(ty) + (float)row) * stride;
-  const float w = expf(k1_clamp60(tw)) * anchor_w;
-  const float h = expf(k1_clamp60(th)) * anchor_h;
-  float score = k1_sigmoid(obj) * k1_sigmoid(best);
+  float sig[4], ex[2];
+  if constexpr (G == 1) {
+    sig[0] = k1_sigmoid(load(base + 0));
+    sig[1] = k1_sigmoid(load(base + 1));
+    sig[2] = k1_sigmoid(load(base + 4));
+    sig[3] = k1_sigmoid(best);
+    ex[0] = expf(k1_clamp60(tw));
+    ex[1] = expf(k1_clamp60(th));
+  } else {
+    // sigmoid inputs 0..3: tx, ty, obj, the best logit
+    auto sig_in = [&](int q) {
+      return q == 3 ? best : load(base + (q == 2 ? 4 : q));
+    };
+    const float e = expf(k1_clamp60((j & 1) ? th : tw));
+    const float s0 = k1_sigmoid(sig_in(j & 3));
+    const float s1 = G == 2 ? k1_sigmoid(sig_in((j & 1) + 2)) : s0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      sig[q] = __shfl_sync(0xffffffffu, G == 2 && q >= 2 ? s1 : s0, q % G, G);
+    ex[0] = __shfl_sync(0xffffffffu, e, 0, G);
+    ex[1] = __shfl_sync(0xffffffffu, e, 1, G);
+  }
+  const float cx = (sig[0] + (float)col) * stride;
+  const float cy = (sig[1] + (float)row) * stride;
+  const float w = ex[0] * anchor_w;
+  const float h = ex[1] * anchor_h;
+  float score = sig[2] * sig[3];
   score = score >= prob_thresh ? score : 0.0f;
   K1Record r;
   r.x0 = cx - w * 0.5f;
@@ -111,8 +138,8 @@ __device__ __forceinline__ K1Record k1_decode_anchor_group(
   return r;
 }
 
-// The warp-wide decode of K1, K1c and K4's float32 kernel: all 32 lanes
-// decode one cell's anchor together.
+// The warp-wide decode of K4's float32 kernel: all 32 lanes decode one
+// cell's anchor together.
 template <class Load>
 __device__ __forceinline__ K1Record k1_decode_anchor(
     const Load& load, int base, int n_classes, int lane, int col, int row,
@@ -136,7 +163,7 @@ __device__ __forceinline__ float k1_record_lane(const K1Record& r, int lane,
   }
 }
 
-// K1's epilogue: lanes 0..7 store the 8-float record
+// K4's float32 epilogue: lanes 0..7 store the 8-float record
 // [x0, y0, x1, y1, score, class, cand, 0] as one 32-byte coalesced store.
 __device__ __forceinline__ void k1_store_packed(const K1Record& r, int lane,
                                                 int cand, float* rec8) {

@@ -7,7 +7,8 @@
 // for N = 32, 64, 96 and 128 with their float32 promotion, and the int8
 // m64nNk32 products with int32 sums for N = 64, 128 and 256. Included by
 // conv3x3_mma.cuh (K5), decode_fused.cu (K4), block_int8.cu (K6) and
-// probe.cu (T1's wgmma cores).
+// probe.cu (T1's wgmma cores); decode_packed.cu (K1, K1c) and
+// nms_suppress.cu (K2) take the opt-in and the asynchronous copies.
 //
 // Tile layout: an operand tile is a run of 128-byte rows (64 bf16 or 128
 // int8 channels of one pixel, or of one weight row), K-major, laid out with

@@ -112,19 +112,16 @@ def load_kernels() -> ctypes.CDLL:
     p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
     anchors = ctypes.POINTER(ctypes.c_float)
-    lib.yolo_decode_packed_head.argtypes = [
-        p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, f32,
-        i32, i32, p, p]
-    lib.yolo_decode_compact_head.argtypes = [
-        p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, f32,
-        i32, i32, p, p, p, p]
+    lib.yolo_decode_heads.argtypes = [
+        ctypes.POINTER(ctypes.c_longlong), anchors, i32, anchors, i32, i32,
+        i32, i32, i32, i32, i32, i32, f32, i32, p, p, p, p, p]
     lib.yolo_decode_packed_fused_head.argtypes = [
         p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, anchors,
         f32, f32, i32, i32, i32, i32, i32, p, p]
     lib.yolo_conv3x3_fused.argtypes = [
         p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
         p, p]
-    lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p]
+    lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p, p]
     lib.yolo_decode_full_head.argtypes = [
         p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, p, p]
     lib.yolo_residual_block_int8.argtypes = [
@@ -140,7 +137,7 @@ def load_kernels() -> ctypes.CDLL:
     for fn in (lib.yolo_probe_dot, lib.yolo_probe_dot_grid,
                lib.yolo_probe_round_clip, lib.yolo_probe_roll,
                lib.yolo_probe_mask, lib.yolo_probe_epilogue,
-               lib.yolo_decode_packed_head, lib.yolo_decode_compact_head,
+               lib.yolo_decode_heads,
                lib.yolo_decode_packed_fused_head, lib.yolo_conv3x3_fused,
                lib.yolo_nms_suppress, lib.yolo_decode_full_head,
                lib.yolo_residual_block_int8):

@@ -2,9 +2,9 @@
 
 Ports of ``yolov3_tpu/ops/pallas_decode.py``:
 
-* K1 ``decode_packed_head`` (``decode_packed_head_pallas``): each head map
-  (B, gy, gx, C ≥ A·(5+C_cls)), float32 or bf16, channels-last, becomes
-  candidate records
+* K1 ``decode_packed`` / ``decode_packed_head`` (``decode_packed_pallas`` /
+  ``decode_packed_head_pallas``): each head map (B, gy, gx, C ≥ A·(5+C_cls)),
+  float32 or bf16, channels-last, becomes candidate records
 
       payload[b, head_offset + a·gy·gx + cell] =
           [x0, y0, x1, y1, score·[score ≥ prob_thresh], first-argmax class,
@@ -12,10 +12,14 @@ Ports of ``yolov3_tpu/ops/pallas_decode.py``:
 
   (anchor-major within a head, heads in cfg order), the input that
   ``ops.nms.batched_nms_packed`` selects from. ``scores`` is the view
-  ``payload[..., 4]``.
-* K1c ``decode_compact_head`` (``decode_compact_head_pallas``): the same
-  records split into boxes (B, n, 4), scores (B, n) and int32 classes
-  (B, n), with no candidate lane; ``forward_compact(decode_impl="pallas")``.
+  ``payload[..., 4]``. All the heads of a call are ONE launch
+  (``csrc/decode_packed.cu``: a head table in the parameter block, laid out
+  by :func:`plan_decode`; tiles of cells staged in shared memory, G lanes a
+  record); ``decode_packed_head`` launches the same kernel with one head.
+* K1c ``decode_compact`` / ``decode_compact_head``
+  (``decode_compact_head_pallas``): the same kernel storing the records
+  split into boxes (B, n, 4), scores (B, n) and int32 classes (B, n), with
+  no candidate lane; ``forward_compact(decode_impl="pallas")``.
 * K4 ``decode_packed_fused_head`` (``decode_packed_head_fused_pallas``): K1's
   records computed from the PRE-head activation (B, gy, gx, Cin) and the 1×1
   head conv's weights (Cout, Cin) + bias, float32 sums; the head map never
@@ -58,6 +62,16 @@ FUSED_CIN_MULTIPLE = 128  # ``fused_head_supported``'s lane boundary
 K4_MAX_CHANNELS = 1024  # 4 * K4_THREADS in csrc/decode_fused.cu (float32)
 K4_MMA_MAX_PER = 256  # 5 + C of the bf16 kernel: the widest wgmma N
 MAP_DTYPES = (torch.float32, torch.bfloat16)
+# K1 / K1c (csrc/decode_packed.cu): heads a launch's table holds, the cells
+# of a block's tile (the first that fits shared memory), the lanes that
+# decode one (cell, anchor) and the planner's choice of them by map type
+# (measured by chip_smoke.py's k1 phase at yolov3@416 B=8, PERF.md), and a
+# block's most shared memory on the H100
+K1_MAX_HEADS = 8
+K1_TILES = (32, 16)
+K1_GROUPS = (2, 4)
+K1_GROUP = {torch.float32: 4, torch.bfloat16: 2}
+K1_SMEM_LIMIT = 232448
 
 
 def supported(anchors_per_head: Sequence[Anchors]) -> bool:
@@ -168,6 +182,137 @@ def _check_kernel_io(feat: torch.Tensor, outs: Sequence[torch.Tensor],
         raise ValueError("candidate indices must stay below 2^24 to be exact in f32")
 
 
+class HeadRow(NamedTuple):
+    head: int         # index of the head in the call
+    dense: bool       # the map's tile is one contiguous range (cp.async)
+    first_block: int  # the head's first block in its launch
+    blocks: int       # ceil(B·gy·gx / tile_cells)
+    anchor0: int      # the head's first anchor in the launch's anchor table
+    head_offset: int  # its first candidate slot
+
+
+class DecodePlan(NamedTuple):
+    """One launch of K1 / K1c (``csrc/decode_packed.cu``): its head table."""
+    rows: Tuple[HeadRow, ...]
+    tile_cells: int   # cells a block: 32, or 16 where 32 rows do not fit
+    group: int        # lanes that decode one (cell, anchor)
+    blocks: int
+
+
+def dense_map(feat: torch.Tensor, n_anchors: int, num_classes: int) -> bool:
+    """True when K1's tile of ``feat`` is one contiguous, 16-byte aligned
+    range: channels-last with the pixel stride equal to the A·(5+C)
+    channels decoded, rows and images packed (strides of size-1 dims
+    ignored), and a 16-byte aligned base. A channel-padded map or a sliced
+    view is not: it takes the kernel's strided element path."""
+    need = n_anchors * (5 + num_classes)
+    if feat.shape[3] != need or feat.data_ptr() % 16:
+        return False
+    want = (feat.shape[1] * feat.shape[2] * need, feat.shape[2] * need, need, 1)
+    return all(st == w for st, w, n in zip(feat.stride(), want, feat.shape)
+               if n > 1)
+
+
+def plan_decode(feats: Sequence[torch.Tensor],
+                anchors_per_head: Sequence[Anchors], num_classes: int,
+                head_offsets: Sequence[int], group: Optional[int] = None
+                ) -> List[DecodePlan]:
+    """The launches of K1 / K1c for these heads: one for a graph's heads
+    (consecutive heads of one map type share a launch while they fit its
+    table: ``K1_MAX_HEADS`` heads, ``MAX_ANCHORS`` anchors). Within a
+    launch, head h's blocks follow head h-1's and block t of a head takes
+    cells [t·tile_cells, (t+1)·tile_cells) of its flattened (image·gy·gx +
+    cell) index, so every (image, cell) falls in exactly one block.
+    ``tile_cells`` is 32 where 32 rows of the widest head's A·(5+C)
+    channels fit ``K1_SMEM_LIMIT`` bytes of shared memory, else 16; wider
+    rows raise. ``group``: lanes a record, ``K1_GROUP`` of the map type by
+    default."""
+    if group is not None and group not in K1_GROUPS:
+        raise ValueError(f"K1 decodes a record with {K1_GROUPS} lanes, "
+                         f"got {group}")
+    per = 5 + num_classes
+    chunks: List[List[int]] = []
+    for h, (f, a) in enumerate(zip(feats, anchors_per_head)):
+        last = chunks[-1] if chunks else None
+        if (last is None or len(last) == K1_MAX_HEADS
+                or feats[last[0]].dtype != f.dtype
+                or sum(len(anchors_per_head[i]) for i in last) + len(a)
+                > MAX_ANCHORS):
+            chunks.append([h])
+        else:
+            last.append(h)
+    plans = []
+    for chunk in chunks:
+        size = feats[chunk[0]].element_size()
+        widest = max(len(anchors_per_head[h]) for h in chunk) * per * size
+        tile = next((t for t in K1_TILES if t * widest <= K1_SMEM_LIMIT), None)
+        if tile is None:
+            raise ValueError(f"K1 stages {min(K1_TILES)} cells of A*(5+C) "
+                             f"channels in {K1_SMEM_LIMIT} bytes of shared "
+                             f"memory: {widest} bytes a cell do not fit")
+        rows, first, anchor0 = [], 0, 0
+        for h in chunk:
+            f, a = feats[h], anchors_per_head[h]
+            n = -(-f.shape[0] * f.shape[1] * f.shape[2] // tile)
+            rows.append(HeadRow(h, dense_map(f, len(a), num_classes), first,
+                                n, anchor0, head_offsets[h]))
+            first += n
+            anchor0 += len(a)
+        plans.append(DecodePlan(tuple(rows), tile, group or K1_GROUP[
+            feats[chunk[0]].dtype], first))
+    return plans
+
+
+def launch_decode(feats: Sequence[torch.Tensor],
+                  anchors_per_head: Sequence[Anchors],
+                  strides: Sequence[int], num_classes: int,
+                  prob_thresh: float, head_offsets: Sequence[int],
+                  outs: Sequence[torch.Tensor], kernel: str,
+                  group: Optional[int] = None, lib=None) -> int:
+    """Launch K1 (``outs`` = [payload]) or K1c (``outs`` = [boxes, scores,
+    classes]) over CUDA head maps as :func:`plan_decode` plans them (with
+    ``group`` lanes a record); return the number of launches (1 for every
+    published cfg). The wrappers' launcher; ``chip_smoke.py`` times each
+    ``group`` through it, and ``tools/ablate_phases.py`` its builds
+    (``lib``: a library other than the package's)."""
+    b = feats[0].shape[0]
+    for f, a in zip(feats, anchors_per_head):
+        _check_kernel_io(f, outs, len(a), kernel)
+        if f.shape[0] != b or f.device != outs[0].device:
+            raise ValueError(f"{kernel}: every head map must have batch {b} "
+                             f"and lie on {outs[0].device}")
+    if any(o.data_ptr() % 16 for o in outs):
+        raise ValueError(f"{kernel} stores records in 16-byte pieces: its "
+                         f"outputs must be 16-byte aligned")
+    lib = lib or load_kernels()
+    packed = len(outs) == 1
+    ptrs = ([outs[0].data_ptr(), 0, 0, 0] if packed
+            else [0, *(o.data_ptr() for o in outs)])
+    plans = plan_decode(feats, anchors_per_head, num_classes, head_offsets,
+                        group)
+    for plan in plans:
+        args, strides_c, anchors = [], [], []
+        for row in plan.rows:
+            f = feats[row.head]
+            a = anchors_per_head[row.head]
+            args += [f.data_ptr(), f.stride(0), f.stride(1), f.stride(2),
+                     f.shape[1], f.shape[2], len(a), row.anchor0,
+                     row.head_offset, row.first_block, int(row.dense)]
+            strides_c.append(float(strides[row.head]))
+            anchors += [float(v) for wh in a for v in wh]
+        with torch.cuda.device(outs[0].device):
+            rc = lib.yolo_decode_heads(
+                (ctypes.c_longlong * len(args))(*args),
+                (ctypes.c_float * len(strides_c))(*strides_c), len(plan.rows),
+                (ctypes.c_float * len(anchors))(*anchors), len(anchors) // 2,
+                int(feats[plan.rows[0].head].dtype == torch.bfloat16),
+                int(packed), plan.group, plan.tile_cells, plan.blocks, b,
+                num_classes, float(prob_thresh), outs[0].shape[1], *ptrs,
+                _stream(outs[0].device))
+        check_launch(rc, kernel)
+    return len(plans)
+
+
 def decode_packed_head(feat: torch.Tensor, anchors: Anchors, stride: int,
                        num_classes: int, prob_thresh: float = 0.0,
                        head_offset: int = 0,
@@ -176,32 +321,35 @@ def decode_packed_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     of a (B, N, 8) float32 payload (allocated when ``out`` is None, with
     N = head_offset + a·gy·gx); returns the payload.
 
-    CUDA tensor: launches the K1 kernel on the current stream (counted in
-    ``decode_packed_head.launches``) or raises. CPU tensor: the plain
-    version."""
+    CUDA tensor: launches the K1 kernel with a one-head table on the
+    current stream (counted in ``decode_packed_head.launches``) or raises.
+    CPU tensor: the plain version."""
     _check_head(feat, anchors, num_classes)
     b, gy, gx, _ = feat.shape
-    a = len(anchors)
-    n_head = a * gy * gx
+    n_head = len(anchors) * gy * gx
     out = _payload_out(out, b, head_offset + n_head, feat.device)
     if _check_device(feat, "K1"):
         out[:, head_offset:head_offset + n_head] = decode_packed_head_reference(
             feat, anchors, stride, num_classes, prob_thresh, head_offset)
         return out
-    _check_kernel_io(feat, [out], a, "K1")
-    lib = load_kernels()
-    with torch.cuda.device(feat.device):
-        rc = lib.yolo_decode_packed_head(
-            feat.data_ptr(), feat.stride(0), feat.stride(1), feat.stride(2),
-            int(feat.dtype == torch.bfloat16), b, gy, gx, a, num_classes,
-            _anchors_c(anchors), float(stride), float(prob_thresh),
-            head_offset, out.shape[1], out.data_ptr(), _stream(feat.device))
-    check_launch(rc, "decode_packed_head")
-    decode_packed_head.launches += 1
+    decode_packed_head.launches += launch_decode(
+        [feat], [anchors], [stride], num_classes, prob_thresh, [head_offset],
+        [out], "K1")
     return out
 
 
 decode_packed_head.launches = 0
+
+
+def candidate_offsets(feats: Sequence[torch.Tensor],
+                      anchors_per_head: Sequence[Anchors]) -> List[int]:
+    """Each head's first candidate slot, heads in order with a·gy·gx
+    candidates each, then the total N."""
+    offsets, off = [], 0
+    for f, a in zip(feats, anchors_per_head):
+        offsets.append(off)
+        off += len(a) * f.shape[1] * f.shape[2]
+    return offsets + [off]
 
 
 def decode_packed(feats: Sequence[torch.Tensor], anchors_per_head: Sequence[Anchors],
@@ -209,18 +357,29 @@ def decode_packed(feats: Sequence[torch.Tensor], anchors_per_head: Sequence[Anch
                   prob_thresh: float = 0.0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 over every head → (payload (B, N, 8), scores (B, N)). One payload
-    allocation; each head writes its slice in place, so no concat follows.
-    ``scores`` is the view ``payload[..., 4]``."""
-    sizes: List[int] = [len(a) * f.shape[1] * f.shape[2]
-                        for f, a in zip(feats, anchors_per_head)]
-    payload = torch.empty((feats[0].shape[0], sum(sizes), 8),
+    allocation, written in place, so no concat follows. ``scores`` is the
+    view ``payload[..., 4]``.
+
+    CUDA tensors: ONE launch of the K1 kernel for all the heads (counted in
+    ``decode_packed.launches``) or raises. CPU tensors: the plain version
+    head by head."""
+    for f, a in zip(feats, anchors_per_head):
+        _check_head(f, a, num_classes)
+    offsets = candidate_offsets(feats, anchors_per_head)
+    payload = torch.empty((feats[0].shape[0], offsets[-1], 8),
                           dtype=torch.float32, device=feats[0].device)
-    off = 0
-    for f, a, s, n in zip(feats, anchors_per_head, strides, sizes):
-        decode_packed_head(f, a, s, num_classes, prob_thresh=prob_thresh,
-                           head_offset=off, out=payload)
-        off += n
+    if _check_device(feats[0], "K1"):
+        for f, a, s, off in zip(feats, anchors_per_head, strides, offsets):
+            decode_packed_head(f, a, s, num_classes, prob_thresh=prob_thresh,
+                               head_offset=off, out=payload)
+    else:
+        decode_packed.launches += launch_decode(
+            feats, anchors_per_head, strides, num_classes, prob_thresh,
+            offsets, [payload], "K1")
     return payload, payload[..., 4]
+
+
+decode_packed.launches = 0
 
 
 # ---------------------------------------------------------------- K1c
@@ -266,33 +425,25 @@ def decode_compact_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     of (boxes (B, N, 4), scores (B, N), classes (B, N) int32) (allocated
     when ``out`` is None); returns the three.
 
-    CUDA tensor: launches the K1c kernel on the current stream (counted in
+    CUDA tensor: launches the K1c kernel (K1's, storing three ways) with a
+    one-head table on the current stream (counted in
     ``decode_compact_head.launches``) or raises. CPU tensor: the plain
     version."""
     _check_head(feat, anchors, num_classes)
     b, gy, gx, _ = feat.shape
-    a = len(anchors)
-    n_head = a * gy * gx
-    boxes, scores, classes = _compact_out(out, b, head_offset + n_head,
-                                          feat.device)
+    n_head = len(anchors) * gy * gx
+    out = _compact_out(out, b, head_offset + n_head, feat.device)
     if _check_device(feat, "K1c"):
+        boxes, scores, classes = out
         sl = slice(head_offset, head_offset + n_head)
         boxes[:, sl], scores[:, sl], classes[:, sl] = (
             decode_compact_head_reference(feat, anchors, stride, num_classes,
                                           prob_thresh))
-        return boxes, scores, classes
-    _check_kernel_io(feat, [boxes, scores, classes], a, "K1c")
-    lib = load_kernels()
-    with torch.cuda.device(feat.device):
-        rc = lib.yolo_decode_compact_head(
-            feat.data_ptr(), feat.stride(0), feat.stride(1), feat.stride(2),
-            int(feat.dtype == torch.bfloat16), b, gy, gx, a, num_classes,
-            _anchors_c(anchors), float(stride), float(prob_thresh),
-            head_offset, boxes.shape[1], boxes.data_ptr(), scores.data_ptr(),
-            classes.data_ptr(), _stream(feat.device))
-    check_launch(rc, "decode_compact_head")
-    decode_compact_head.launches += 1
-    return boxes, scores, classes
+        return out
+    decode_compact_head.launches += launch_decode(
+        [feat], [anchors], [stride], num_classes, prob_thresh, [head_offset],
+        out, "K1c")
+    return out
 
 
 decode_compact_head.launches = 0
@@ -304,16 +455,27 @@ def decode_compact(feats: Sequence[torch.Tensor],
                    prob_thresh: float = 0.0) -> CompactOut:
     """K1c over every head → (boxes (B, N, 4), scores (B, N), classes (B, N)
     int32), anchor-major within each head, heads in cfg order: the same
-    detection sets as ``ops.decode.decode_compact`` (cell-major)."""
-    sizes = [len(a) * f.shape[1] * f.shape[2]
-             for f, a in zip(feats, anchors_per_head)]
-    out = _compact_out(None, feats[0].shape[0], sum(sizes), feats[0].device)
-    off = 0
-    for f, a, s, n in zip(feats, anchors_per_head, strides, sizes):
-        decode_compact_head(f, a, s, num_classes, prob_thresh=prob_thresh,
-                            head_offset=off, out=out)
-        off += n
+    detection sets as ``ops.decode.decode_compact`` (cell-major).
+
+    CUDA tensors: ONE launch of the K1c kernel for all the heads (counted
+    in ``decode_compact.launches``) or raises. CPU tensors: the plain
+    version head by head."""
+    for f, a in zip(feats, anchors_per_head):
+        _check_head(f, a, num_classes)
+    offsets = candidate_offsets(feats, anchors_per_head)
+    out = _compact_out(None, feats[0].shape[0], offsets[-1], feats[0].device)
+    if _check_device(feats[0], "K1c"):
+        for f, a, s, off in zip(feats, anchors_per_head, strides, offsets):
+            decode_compact_head(f, a, s, num_classes, prob_thresh=prob_thresh,
+                                head_offset=off, out=out)
+    else:
+        decode_compact.launches += launch_decode(
+            feats, anchors_per_head, strides, num_classes, prob_thresh,
+            offsets, out, "K1c")
     return out
+
+
+decode_compact.launches = 0
 
 
 # ---------------------------------------------------------------- K4

@@ -28,8 +28,12 @@ each raises on failure (the build always runs):
    256, 512 and 1024 by graph replay and as eager event means, each phase
    alone from ablated builds, with the longest chain of kept candidates and
    the time a kept step;
-5. K3 (full decode) against the plain decode on the three yolov3@416 B=8
-   heads, float32 and bf16 maps: exact; by graph replay;
+5. K3 (full decode, one launch for the heads into the concatenated
+   output) against the plain decode, exact, on float32 and bf16 maps: the
+   three yolov3@416 B=8 heads, channel-padded maps, channel-slice and
+   spatial-slice views, each head alone, yolov3@608, B=1; one launch a call;
+   by graph replay at both map types, with its math and its stores each
+   taken out (``tools/ablate_phases.py``) and the share of the bound;
 6. K4 (head-fused decode: the tensor-core kernel at bf16, the CUDA-core
    kernel at float32) at the three yolov3@416 B=8 pre-head shapes, float32
    and bf16 operands (bf16 over four seeds), then off the main path at
@@ -65,8 +69,8 @@ each raises on failure (the build always runs):
     replayed CUDA graphs, K5's launches per call, which of K1's paths the
     heads took and K2 on the selection's real candidates (exact, each phase
     timed); ``forward_compact`` through K1c
-    against the plain compact decode; ``Darknet(x)`` through K3; and the
-    bf16 parity bar against "highest";
+    against the plain compact decode; ``Darknet(x)`` through ONE K3 launch;
+    and the bf16 parity bar against "highest";
 12. int8, the full-width int8 tier: ``quantize_int8`` of yolov3 on 8 seeded
     frames on the card, then ``detect_batch`` through the int8 carrier with
     K6 blocks (K1 and K4 decode), with unfused blocks, the asymmetric
@@ -78,14 +82,18 @@ each raises on failure (the build always runs):
     ``mma.sync`` and on ``__dp4a``, round / clip, the row shifts, the edge
     mask, the float epilogue) against their plain versions and the tool's
     exact host values, then ``tools.probe_block``'s full blocks and chain
-    prefixes: 0 differences everywhere;
+    prefixes: 0 differences everywhere; T3a-e by graph replay beside their
+    wrapper times;
 14. dots: T1 (int8 ``wgmma``, int8 ``mma.sync``, int8 ``__dp4a``, bf16
     ``wgmma``) and T2 over the tools' shape lists, checked against their
     plain versions, then timed by the tools' own clocks: time per step,
     useful rate, share of the card's peak (above 100% fails), the library's
     product at the same shape; T1's step, its store mode (the bare product,
     exact at int8) and the library products also as device time alone
-    (replayed CUDA graphs), shape by shape;
+    (replayed CUDA graphs), shape by shape; T2 (all three products on
+    ``wgmma``) by graph replay whole and as its bare products (the
+    ``-DT2_SKIP_PROJECT`` build), the library's product by graph replay, the
+    tile plan and the useful share of the issued products;
 15. native: the C++ host loader built with g++ (required here), its
     letterbox and stretch held to the device preprocess on seeded frames;
 16. entry, the entry-point path at full width (yolov3@416, bf16, batch 8,
@@ -1021,44 +1029,105 @@ def phase_k5(graph):
     return max_err, totals
 
 
-def phase_k3(graph):
-    """K3 (full decode) against its plain version on the three yolov3@416
-    B=8 heads: exact."""
+def k3_views(f):
+    """Maps that are not dense, holding the values of ``f``: the
+    channel-padded map itself (8 channels past the A·(5+C) decoded), a
+    channel-slice view 3 channels into a wider map (pixel stride above
+    A·(5+C), a base off the 16-byte grid) and a spatial slice."""
     import torch
+
+    b, gy, gx, c = f.shape
+    padded = torch.full((b, gy, gx, c + 8), 9.0, dtype=f.dtype, device=f.device)
+    padded[..., :c] = f
+    wide = torch.full((b, gy, gx, c + 11), -9.0, dtype=f.dtype,
+                      device=f.device)
+    wide[..., 3:3 + c] = f
+    return {"channel-padded": padded, "channel slice": wide[..., 3:3 + c],
+            "spatial slice": k1_strided(f)["sliced"]}
+
+
+def phase_k3(graph):
+    """K3 (full decode, one launch for the heads into the concatenated
+    output) against its plain version: exact on float32 and bf16 maps at
+    the three yolov3@416 B=8 heads, on channel-padded maps, channel-slice
+    and spatial-slice views, at yolov3@608 and at B=1; one launch a call;
+    each head's one-row table equal to its rows of the call; by graph
+    replay at both map types, with the ablated builds (no math, no stores:
+    ``tools/ablate_phases.py``) and the share of the bound."""
+    import torch
+    from yolov3_tpu_torch.ops import cuda_decode as cd
     from yolov3_tpu_torch.ops import decode as plain_decode
-    from yolov3_tpu_torch.ops.cuda_decode import decode_all
+    from yolov3_tpu_torch.tools.ablate_phases import full_decode_phase_times
 
     anchors, strides, ncls = head_spec(graph)
-    feats = [torch.from_numpy(h).to(DEVICE) for h in k1_inputs(graph, seed=3)]
-    got = decode_all(feats, anchors, strides, ncls)
-    want = plain_decode.decode_all(feats, anchors, strides, ncls)
-    torch.cuda.synchronize()
-    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"K3: shape {tuple(got.shape)} vs {tuple(want.shape)} "
-                             f"or non-finite values")
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"K3 differs from its plain version, max |err| {err}")
-    got16 = decode_all([f.bfloat16() for f in feats], anchors, strides, ncls)
-    want16 = plain_decode.decode_all([f.bfloat16().float() for f in feats],
-                                     anchors, strides, ncls)
-    if not torch.equal(got16, want16):
-        raise AssertionError("K3 on bf16 maps differs from its plain version")
-    ms_eager = cuda_ms(lambda: decode_all(feats, anchors, strides, ncls))
-    plain_eager = cuda_ms(lambda: plain_decode.decode_all(feats, anchors,
-                                                          strides, ncls))
-    ms = graph_ms(lambda: decode_all(feats, anchors, strides, ncls))
-    nbytes = 2 * 4 * sum(f.numel() for f in feats)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    # the plain decode copies its anchors from the host, which a CUDA graph
-    # capture refuses: its time is the eager event mean
-    log(f"[K3] yolov3@416 B={BATCH}: {tuple(got.shape)} float32 exact against "
-        f"the plain decode (float32 and bf16 maps); {ms:.4f} ms by graph "
-        f"replay ({ms_eager:.4f} eager), plain {plain_eager:.4f} ms (eager), "
-        f"bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {bound_ms / ms:.0%} of the "
-        f"bound reached)")
-    return err, ms, plain_eager, bound_ms, ms_eager
+
+    def exact(feats, what: str) -> None:
+        before = cd.decode_all.launches
+        got = cd.decode_all(feats, anchors, strides, ncls)
+        want = plain_decode.decode_all([f.float() for f in feats], anchors,
+                                       strides, ncls)
+        torch.cuda.synchronize()
+        if cd.decode_all.launches - before != 1:
+            raise AssertionError(f"K3 {what}: "
+                                 f"{cd.decode_all.launches - before} launches")
+        if got.shape != want.shape or not torch.equal(got, want):
+            bad = int((got != want).sum()) if got.shape == want.shape else -1
+            raise AssertionError(f"K3 {what}: {bad} elements differ from the "
+                                 f"plain decode")
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = [torch.from_numpy(h).to(DEVICE, dtype)
+                 for h in k1_inputs(graph, seed=3)]
+        exact(feats, f"yolov3@416 B={BATCH} {dtype}")
+        for name in ("channel-padded", "channel slice", "spatial slice"):
+            views = [k3_views(f)[name] for f in feats]
+            if any(r.dense for p in cd.plan_full_decode(
+                    views, anchors, ncls, [0] * len(views)) for r in p.rows):
+                raise AssertionError(f"K3 {name}: planned as a dense map")
+            exact(views, f"{name} {dtype}")
+        # one head alone (a one-row table) is its rows of the call
+        got = cd.decode_all(feats, anchors, strides, ncls)
+        offs = cd.candidate_offsets(feats, anchors)
+        for h, (f, a, st) in enumerate(zip(feats, anchors, strides)):
+            if not torch.equal(cd.decode_head(f, a, st, ncls),
+                               got[:, offs[h]:offs[h + 1]]):
+                raise AssertionError(f"K3 head {h} alone differs from the call")
+        for size, bsz in ((608, BATCH), (416, 1), (608, 1)):
+            exact([torch.from_numpy(h).to(DEVICE, dtype) for h in k1_inputs(
+                graph, seed=size + bsz, size=size, bsz=bsz)],
+                f"yolov3@{size} B={bsz} {dtype}")
+        cases += 8
+    log(f"[K3] exact against the plain decode in {cases} cases (float32 and "
+        f"bf16 maps: dense, channel-padded, channel slice, spatial slice, "
+        f"each head alone, yolov3@608 B={BATCH}, B=1 at 416 and 608), one "
+        f"launch a call")
+    res = {"max_abs_err": 0.0}
+    feats32 = [torch.from_numpy(h).to(DEVICE) for h in k1_inputs(graph, seed=3)]
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = [f.to(dtype) for f in feats32]
+        key = "" if dtype == torch.float32 else "_bf16"
+        # eager first: eager timings taken after a capture read slower
+        ms_eager = cuda_ms(lambda: cd.decode_all(feats, anchors, strides, ncls))
+        plain = cuda_ms(lambda: plain_decode.decode_all(
+            [f.float() for f in feats], anchors, strides, ncls))
+        ms = graph_ms(lambda: cd.decode_all(feats, anchors, strides, ncls))
+        ablated = full_decode_phase_times(feats, anchors, strides, ncls)
+        n = sum(f.numel() for f in feats)
+        nbytes = n * (feats[0].element_size() + 4)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res.update({f"ms{key}": ms, f"ms_eager{key}": ms_eager,
+                    f"plain_ms{key}": plain, f"bound_ms{key}": bound_ms,
+                    f"ablated{key}": ablated})
+        # the plain decode copies its anchors from the host, which a CUDA
+        # graph capture refuses: its time is the eager event mean
+        log(f"[K3] yolov3@416 B={BATCH} {dtype} maps: {ms:.4f} ms by graph "
+            f"replay ({ms_eager:.4f} eager), plain {plain:.4f} ms (eager), "
+            f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s, "
+            f"{bound_ms / ms:.1%} of the bound reached); ablated builds by "
+            f"graph replay: " + ", ".join(f"{k} {v:.4f} ms"
+                                          for k, v in ablated.items()))
+    return res
 
 
 def _int8_qp(rng, k: int, cin: int, cout: int, device):
@@ -1439,7 +1508,7 @@ def phase_main(card: str):
                "decode_compact": cuda_decode.decode_compact,
                "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
                "conv3x3_fused": cuda_conv.conv3x3_fused,
-               "decode_head": cuda_decode.decode_head,
+               "decode_all": cuda_decode.decode_all,
                "nms_suppress": cuda_nms.suppress}
     for k in kernels.values():
         k.launches = 0
@@ -1476,15 +1545,23 @@ def phase_main(card: str):
     from yolov3_tpu_torch.ops import decode as plain_decode
 
     with torch.inference_mode():
+        before = cuda_decode.decode_all.launches, cuda_decode.decode_head.launches
         full = net(x)
+        k3_calls = (cuda_decode.decode_all.launches - before[0],
+                    cuda_decode.decode_head.launches - before[1])
         want = plain_decode.decode_all(
             [h.float() for h in forward_features(net.graph, net.params, x)],
             *head_spec(net.graph))
     if full.shape != (BATCH, 10647, 85) or not torch.equal(full, want):
         raise AssertionError(f"Darknet(x): {tuple(full.shape)} differs from the "
                              f"plain decode of its head maps")
-    log(f"[main] yolov3@416 Darknet(x) B={BATCH}: {tuple(full.shape)} through K3, "
-        f"equal to the plain decode of the same head maps")
+    if k3_calls != (1, 0):
+        raise AssertionError(f"Darknet(x): {k3_calls[0]} launches of K3 for "
+                             f"the heads and {k3_calls[1]} one-head launches; "
+                             f"one launch for the three heads expected")
+    log(f"[main] yolov3@416 Darknet(x) B={BATCH}: {tuple(full.shape)} through "
+        f"ONE K3 launch for the three heads, equal to the plain decode of the "
+        f"same head maps")
 
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"[main] kernel launches in the main-path run: {launches}")
@@ -1920,6 +1997,18 @@ def phase_probes():
                       plain_ms=cuda_ms(lambda: cp.probe_epilogue_reference(
                           acc, deq, b, inv)),
                       nbytes=8 * acc.numel() + 8 * deq.numel(), ops=6 * acc.numel())
+    # T3b-e as device time alone (CUDA graph replay), beside the wrapper
+    # times above (about 25 us of host work a call)
+    rec["T3b"]["graph_ms"] = graph_ms(lambda: cp.probe_round(x))
+    rec["T3c"]["graph_ms"] = graph_ms(lambda: cp.probe_roll(xr))
+    rec["T3d"]["graph_ms"] = graph_ms(
+        lambda: cp.probe_mask(*mask_args, 3, device=dev))
+    rec["T3e"]["graph_ms"] = graph_ms(
+        lambda: cp.probe_epilogue(acc, deq, b, inv))
+    log("[probes] T3b-e, one launch each: " + ", ".join(
+        f"{key} {rec[key]['graph_ms'] * 1e3:.2f} us by graph replay "
+        f"({rec[key]['ms'] * 1e3:.2f} us a wrapper call)"
+        for key in ("T3b", "T3c", "T3d", "T3e")))
     log("[probes] T3a-e equal their plain versions on the card (T3a at "
         f"{len(dots)} shapes, wgmma, mma.sync and __dp4a)")
     # the tool's path: exact host values, the reference's wording
@@ -2049,6 +2138,28 @@ def phase_dots(card: str):
             log(f"[dots]   {name} {r['shape']}: step {r['graph_ms'] * 1e3:.2f} "
                 f"us, store {r['store_graph_ms'] * 1e3:.2f} us, library "
                 f"{r['library_graph_ms'] * 1e3:.2f} us")
+    # T2: the library's bare product also by graph replay, and T2's time a
+    # product by graph replay of a 1,024-step launch, whole and as the bare
+    # products (the -DT2_SKIP_PROJECT build of tools/ablate_phases.py)
+    from yolov3_tpu_torch.tools.ablate_phases import grid_phase_times
+
+    for r, args in zip(rec["grid"]["rows"], t2_cases):
+        r["library_graph_ms"] = graph_ms(lambda: torch.matmul(args[0], args[1]))
+        t = grid_phase_times(args)
+        r["graph_us"], r["product_us"] = t["whole"] * 1e3, t["product"] * 1e3
+    rows = rec["grid"]["rows"]
+    log(f"[dots] T2, {len(rows)} shapes, one product each, by graph replay: "
+        f"whole {sum(r['graph_us'] for r in rows):.3f} us, bare products "
+        f"(no projection) {sum(r['product_us'] for r in rows):.3f} us; "
+        f"library {sum(r['library_graph_ms'] for r in rows) * 1e3:.2f} us "
+        f"(torch.matmul, one launch a product) on {card}")
+    for r in rows:
+        m, k, n = r["shape"]
+        t = cp.plan_grid_tiles(m, n)
+        log(f"[dots]   T2 {r['shape']}: tile {t.block_m}x{t.block_n}, "
+            f"{t.stages} stages, {t.smem} B; whole {r['graph_us']:.3f} us, "
+            f"bare products {r['product_us']:.3f} us, "
+            f"{r['issued_share']:.1%} of the issued products useful")
     # bound of one step inside the timed call. The operands are the same on
     # every step and stay in L2, so device memory sees them once per call:
     # a step's bytes are its share of them (the larger timed size) plus its
@@ -2365,6 +2476,7 @@ def phase_serve(card: str):
     graceful shutdown."""
     import socket
     import threading
+    import urllib.error
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2402,10 +2514,24 @@ def phase_serve(card: str):
     url = f"http://127.0.0.1:{port}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
+    get_ms, retried = {}, []
     try:
         def get(path):
-            with urllib.request.urlopen(url + path, timeout=30) as r:
-                return r.read().decode()
+            """GET ``path`` within the /detect requests' 120 s. A connect
+            that times out before the request is sent is tried once more on
+            a new socket and logged; the answer is checked either way."""
+            for attempt in (0, 1):
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(url + path, timeout=120) as r:
+                        body = r.read().decode()
+                except urllib.error.URLError as e:
+                    if attempt or not isinstance(e.reason, TimeoutError):
+                        raise
+                    retried.append(f"{path} after {time.perf_counter() - t0:.1f} s")
+                    continue
+                get_ms[path] = round((time.perf_counter() - t0) * 1e3, 2)
+                return body
 
         if cv2 is not None:
             bodies = []
@@ -2489,7 +2615,8 @@ def phase_serve(card: str):
         f"{np.percentile(conc, 50):.2f} ms, p95 {np.percentile(conc, 95):.2f} ms; "
         f"all answers equal detect_mixed; device batches by size {sizes}, mean "
         f"fill {fill:.2f} of 8; /stats requests 24, stages "
-        f"{ {k: v['mean_ms'] for k, v in stats['stages'].items()} } ms; drained "
+        f"{ {k: v['mean_ms'] for k, v in stats['stages'].items()} } ms; GETs "
+        f"{get_ms} ms, retried {retried or 'none'}; drained "
         f"and port released; kernel launches {launches} on {card}")
     return dict(launches, post_detect=post, p50_single=float(np.median(single)),
                 p50=float(np.percentile(conc, 50)), p95=float(np.percentile(conc, 95)))
@@ -2523,7 +2650,11 @@ def probe_records(dots, probes, bound):
             **({"graph_ms": sum(r["graph_ms"] for r in rows),
                 "store_graph_ms": sum(r["store_graph_ms"] for r in rows),
                 "library_graph_ms": sum(r["library_graph_ms"] for r in rows)}
-               if core != "grid" else {}),
+               if core != "grid" else
+               {"graph_ms": sum(r["graph_us"] for r in rows) / 1e3,
+                "product_graph_ms": sum(r["product_us"] for r in rows) / 1e3,
+                "library_graph_ms": sum(r["library_graph_ms"] for r in rows),
+                "best_tflops": max(r["tops"] for r in rows)}),
             "best_share_of_peak": max(r["share"] for r in rows)})
     lines = {"T3a": ("probe_int8_dot", "tools/probe_block.py:55"),
              "T3b": ("probe_round_clip", "tools/probe_block.py:78"),
@@ -2537,7 +2668,8 @@ def probe_records(dots, probes, bound):
                  "max_abs_err": v["max_abs_err"], "ms": v["ms"],
                  "plain_ms": v["plain_ms"],
                  **bound(v["nbytes"], v["ops"], v.get("peak", FP32_FLOPS_PER_S)),
-                 "library_ms": v.get("library_ms")}
+                 "library_ms": v.get("library_ms"),
+                 "graph_ms": v["graph_ms"]}
         if "ms_dp4a" in v:
             for key in ("ms_mma", "ms_dp4a", "graph_ms", "graph_ms_mma",
                         "library_graph_ms"):
@@ -2619,6 +2751,7 @@ def main() -> int:
     k4_err, k4 = res["k4"]
     k5_err, k5 = res["k5"]
     k6_err, k6 = res["k6"]
+    k3 = res["k3"]
     bf16 = torch.bfloat16
     # bounds: the larger of bytes over the memory rate (each input read
     # once, each output written once) and operations over the unit's peak
@@ -2675,13 +2808,18 @@ def main() -> int:
          "max_abs_err": res["k1c"][0], "ms": k1c["ms"],
          "ms_eager": k1c["ms_eager"], "plain_ms": k1c["plain_ms"],
          **bound(k1c["bytes"]), "library_ms": None},
-        {"name": "decode_head", "route": "cuda",
+        {"name": "decode_all", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_full.cu",
+         "headers": ["yolov3_tpu_torch/csrc/decode_common.cuh",
+                     "yolov3_tpu_torch/csrc/wgmma_common.cuh"],
          "replaces": "yolov3_tpu/ops/pallas_decode.py:121",
-         "launches": launches["decode_head"], "max_abs_err": res["k3"][0],
-         "ms": res["k3"][1], "ms_eager": res["k3"][4],
-         "plain_ms": res["k3"][2], "plain_ms_of": "eager event mean",
-         "bound_ms": res["k3"][3], "bound_by": "bytes", "library_ms": None},
+         "launches": launches["decode_all"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "ms_eager": k3["ms_eager"],
+         "plain_ms": k3["plain_ms"], "plain_ms_of": "eager event mean",
+         "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "ms_bf16": k3["ms_bf16"], "plain_ms_bf16": k3["plain_ms_bf16"],
+         "bound_ms_bf16": k3["bound_ms_bf16"], "ablated": k3["ablated"],
+         "ablated_bf16": k3["ablated_bf16"]},
         {"name": "decode_packed_fused_head", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_fused.cu",
          "headers": ["yolov3_tpu_torch/csrc/wgmma_common.cuh",

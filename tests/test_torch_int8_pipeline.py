@@ -29,8 +29,8 @@ BLOCK = str(DATA / "port_block.cfg")
 KERNELS = (cuda_decode.decode_packed, cuda_decode.decode_compact,
            cuda_decode.decode_packed_head, cuda_decode.decode_compact_head,
            cuda_decode.decode_packed_fused_head, cuda_decode.decode_head,
-           cuda_conv.conv3x3_fused, cuda_block.residual_block_int8,
-           cuda_nms.suppress)
+           cuda_decode.decode_all, cuda_conv.conv3x3_fused,
+           cuda_block.residual_block_int8, cuda_nms.suppress)
 
 
 def _pair(cfg, precision="highest", seed=6, native=False, **qkw):

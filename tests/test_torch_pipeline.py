@@ -24,8 +24,8 @@ SMALL_CFG = str(DATA / "port_small.cfg")
 WIDE_CFG = str(DATA / "port_wide.cfg")
 KERNELS = (cuda_decode.decode_packed, cuda_decode.decode_compact,
            cuda_decode.decode_packed_head, cuda_decode.decode_compact_head,
-           cuda_decode.decode_packed_fused_head, cuda_conv.conv3x3_fused,
-           cuda_nms.suppress)
+           cuda_decode.decode_packed_fused_head, cuda_decode.decode_all,
+           cuda_conv.conv3x3_fused, cuda_nms.suppress)
 
 
 def _assert_same_detections(got, want):

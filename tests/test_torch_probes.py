@@ -265,3 +265,98 @@ def test_dot_product_store_mode_is_the_bare_product(dtype, core):
         np.testing.assert_array_equal(got.numpy(), (a @ b) / 4096.0)
         assert torch.equal(cp.dot_product(lhs, rhs), got)
     assert cp.dot_product.launches == 0   # CPU: the plain version
+
+
+# ------------------------------------------------------------- T2's tiles
+
+def test_t2_tile_plan_over_the_tools_shapes():
+    """T2's planner at every shape of the tool: 128-row tiles (two
+    warpgroups) above M = 64, else 64 rows and 256 columns where N > 128;
+    two blocks fit a multiprocessor's shared memory; the issued product pads
+    M = 32 to 64 rows, K = 72 to 80 and N = 2944 to the 256-column tile."""
+    want = {64: (64, 256, 2), 128: (128, 128, 3), 256: (128, 128, 3)}
+    for m, k, n in bench_dot.SHAPES:
+        t = cp.plan_grid_tiles(m, n)
+        bm = 64 if m <= 64 else 128
+        assert (t.block_m, t.block_n, t.stages) == (
+            want[max(m, 64)] if n > 128 else (bm, 128, 3))
+        assert t.resident >= 2
+        assert 2 * (t.smem + cp.SMEM_RESERVED) <= cp.SMEM_PER_SM
+        # the ring holds the stages, the acc tile and p2's rows
+        stage = t.block_m * 128 + 64 * t.block_n * 2
+        ring = t.smem - 1024 - (t.block_m + t.block_n) // 64 * 1024
+        assert ring >= max(t.stages * stage, t.block_m * t.block_n * 2,
+                           t.block_n * 256)
+        mp, kp, np_ = cp.grid_issued(m, k, n)
+        assert mp % t.block_m == 0 and np_ % t.block_n == 0 and kp % 16 == 0
+        assert 0 <= mp - m < t.block_m and 0 <= kp - k < 16
+        assert 0 <= np_ - n < t.block_n
+    assert cp.grid_issued(32, 72, 2944) == (64, 80, 3072)
+    assert cp.grid_issued(256, 384, 2560) == (256, 384, 2560)
+    assert cp.plan_grid_tiles(64, 128).block_n == 128
+
+
+def _grid_by_tiles(lhs, rhs, p1, p2):
+    """T2's arithmetic walked tile by tile as the kernel walks it (numpy,
+    float32 sums): each N tile's d1 summed over the M tiles of bf16(acc),
+    zero-padded; bf16(d1) times that tile's rows of p2 added into o."""
+    m, n = lhs.shape[0], rhs.shape[1]
+    t = cp.plan_grid_tiles(m, n)
+    f32 = lambda a: a.float().numpy()                      # noqa: E731
+    bf = lambda a: torch.from_numpy(a).bfloat16().float().numpy()  # noqa: E731
+    a, b, q1, q2 = f32(lhs), f32(rhs), f32(p1), f32(p2)
+    o = np.zeros((8, 128), np.float32)
+    for n0 in range(0, n, t.block_n):
+        d1 = np.zeros((8, t.block_n), np.float32)
+        for m0 in range(0, m, t.block_m):
+            tile_a = np.zeros((t.block_m, a.shape[1]), np.float32)
+            rows = a[m0:m0 + t.block_m]
+            tile_a[:len(rows)] = rows
+            tile_b = np.zeros((b.shape[0], t.block_n), np.float32)
+            cols = b[:, n0:n0 + t.block_n]
+            tile_b[:, :cols.shape[1]] = cols
+            tile_p1 = np.zeros((8, t.block_m), np.float32)
+            tile_p1[:, :len(rows)] = q1[:, m0:m0 + t.block_m]
+            d1 += tile_p1 @ bf(tile_a @ tile_b)
+        tile_p2 = np.zeros((t.block_n, 128), np.float32)
+        p2_rows = q2[n0:n0 + t.block_n]
+        tile_p2[:len(p2_rows)] = p2_rows
+        o += bf(d1) @ tile_p2
+    return bf(o)
+
+
+@pytest.mark.parametrize("m,k,n", [(96, 136, 200), (50, 24, 264),
+                                   (130, 200, 136)])
+def test_t2_ragged_against_timed_grid(calls, m, k, n):
+    """T2 at ragged M, K and N (an M tile part zero, a last K step of 8, an
+    N tile of 8 columns) against the JAX tool's kernel in interpret mode;
+    its tile walk (the plan's zero padding, the sums per tile) within the
+    same bar of the plain version."""
+    grid = 2
+    with jax.disable_jit():
+        jbench_dot.timed_grid(m, k, n, grid)
+    (lhs, rhs, p1, p2), want = calls[0]
+    targs = [_t(x) for x in (lhs, rhs, p1, p2)]
+    got = cp.dot_grid(*targs, grid)
+    assert got.dtype == torch.bfloat16 and got.shape == (grid, 8, 128)
+    want32 = want.astype(np.float32)
+    bar = 2 * DOT_RTOL * float(np.abs(want32).max())
+    assert float((got.float() - torch.from_numpy(want32)).abs().max()) <= bar
+    assert torch.equal(got[0], got[1])
+    walked = _grid_by_tiles(*targs)
+    plain = got[0].float().numpy()
+    assert float(np.abs(walked - plain).max()) <= 2 * DOT_RTOL * float(
+        np.abs(plain).max())
+
+
+def test_ablation_macros_guard_code_in_their_sources():
+    """Every ablated build of ``tools/ablate_phases.py`` names a macro its
+    source tests, so no build times the whole kernel by mistake."""
+    from yolov3_tpu_torch.tools import ablate_phases
+
+    for kernel in ablate_phases.VARIANTS:
+        source, entry, macros = ablate_phases.variants(kernel)
+        text = source.read_text()
+        assert f'extern "C" int {entry}(' in text
+        for macro in macros.values():
+            assert f"#ifdef {macro}" in text or f"#ifndef {macro}" in text

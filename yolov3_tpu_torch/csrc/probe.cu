@@ -12,7 +12,7 @@
 // The wrappers, plain versions and launch counts are in ops/cuda_probe.py.
 //
 // The dots. The TPU kernels hold whole operands in VMEM and run one MXU
-// dot. Here a product (M, K) . (K, N) is tiled 64 x 64 over thread blocks of
+// dot. T1's product (M, K) . (K, N) is tiled 64 x 64 over thread blocks of
 // four warps (one warpgroup) and multiplied with one of four cores:
 //   CORE_MMA_S8     mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
 //   CORE_DP4A_S8    __dp4a on the integer lanes (K6's core until its
@@ -31,15 +31,17 @@
 // operand's transpose is a 4 x 4 byte or 2 x 2 halfword transpose in
 // registers, so that four / two consecutive K elements of a column share a
 // 32-bit word. Ragged M, N and K are zero-filled in the loads (cp.async
-// with source size 0 for the (M, K) operand). The bf16 product for T2 stays
-// on mma.sync (CORE_MMA_BF16).
+// with source size 0 for the (M, K) operand). T2 (bf16 only) runs all three
+// of its products on wgmma with its (K, N) operand MN-major as it lies (the
+// transpose flag): probe_dot_grid_kernel below.
 //
 // As in the TPU kernels every element of the product is consumed: the tile's
 // sums, rounded to bf16, go through two small projections p1 (8, M) and
 // p2 (N, 128), out = bf16(p1 . bf16(acc)) . p2, float32 sums. p1 runs on the
-// tensor cores in both kernels; p2 does so in T2, while in T1 it is a scalar
-// loop on the CUDA cores of the block that finishes a column of tiles (its
-// operand exists only once the M tiles are summed). T1 keeps its per-step
+// tensor cores in both kernels (mma.sync in T1, wgmma in T2); p2 does so in
+// T2, while in T1 it is a scalar loop on the CUDA cores of the block that
+// finishes a column of tiles (its operand exists only once the M tiles are
+// summed). T1 keeps its per-step
 // dependency: a runtime carry (about 0) is added to the small (K, N) operand
 // while it is staged, and each step moves the carry by 1e-24 of its result,
 // so step s + 1 cannot start before step s has finished and no step repeats
@@ -59,7 +61,12 @@
 //
 // What bounds them: T1 / T2 / T3a operations at large shapes, launch and the
 // serial finish at the small ones (bytes never: the operands stay in L2);
-// T3b-e bytes, and at their sizes the launch.
+// T3b-e bytes, and at their sizes the launch. T2 reads both operands once per
+// tile from L2, 2 M K N (1 / BN + 1 / BM) bytes a product.
+//
+// Ablation macro (yolov3_tpu_torch/tools/ablate_phases.py):
+// -DT2_SKIP_PROJECT keeps T2's products and drops both projections (each
+// thread sums its tile's values and stores that): the bare product's time.
 //
 // Float contract: as everywhere in this library (-fmad=false, rounding half
 // to even).
@@ -77,10 +84,8 @@
 #define PD_LDS 80           // shared row stride in bytes: conflict-free frags
 #define PD_THREADS 128
 #define PD_CS_LD 72         // bf16 elements per row of the consumed tile
-#define PD_PS_LD 72
 #define CORE_MMA_S8 0
 #define CORE_DP4A_S8 1
-#define CORE_MMA_BF16 2     // T2's core; T1 takes the other four
 #define CORE_WGMMA_S8 3
 #define CORE_WGMMA_BF16 4
 #define MODE_STORE 0
@@ -135,26 +140,24 @@ struct StageRegs {
   uint32_t valid;   // bit i: b[i] lies inside (K, N); zero-fill stays zero
 };
 
-// Load rows m0 .. m0+63, K bytes kb0 .. kb0+63 of the row-major lhs (16-byte
-// loads) and K rows k0 .., columns n0 .. n0+63 of the row-major rhs (32-bit
-// words of 4 int8 / 2 bf16 columns; a thread takes 4 / 2 consecutive K rows
-// of its columns, which stage_store transposes); zero past M, N or K.
+// Load rows m0 .. m0+63, K bytes kb0 .. kb0+63 of the row-major int8 lhs
+// (16-byte loads) and K rows k0 .., columns n0 .. n0+63 of the row-major
+// rhs (32-bit words of 4 columns; a thread takes 4 consecutive K rows of its
+// columns, which stage_store transposes); zero past M, N or K.
 template <int CORE>
 __device__ __forceinline__ void stage_load(StageRegs& r,
                                            const unsigned char* lhs,
                                            const unsigned char* rhs, int m,
                                            int k, int n, int m0, int n0,
                                            int k0, int tid) {
-  constexpr int ES = CORE == CORE_MMA_BF16 ? 2 : 1;
-  constexpr int ROWS = 4 / ES;      // K rows that share a 32-bit word
-  const long long kbytes = (long long)k * ES, kb0 = (long long)k0 * ES;
+  constexpr int ROWS = 4;           // K rows that share a 32-bit word
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int c = tid + i * PD_THREADS, row = c >> 2, ch = c & 3;
     r.a[i] = make_int4(0, 0, 0, 0);
-    if (m0 + row < m && kb0 + ch * 16 < kbytes)
+    if (m0 + row < m && k0 + ch * 16 < k)
       r.a[i] = __ldg(reinterpret_cast<const int4*>(
-          lhs + (long long)(m0 + row) * kbytes + kb0 + ch * 16));
+          lhs + (long long)(m0 + row) * k + k0 + ch * 16));
   }
   r.valid = 0;
 #pragma unroll
@@ -168,7 +171,7 @@ __device__ __forceinline__ void stage_load(StageRegs& r,
       r.b[i * ROWS + rr] = 0;
       if (krow < k && col < n) {
         r.b[i * ROWS + rr] = __ldg(reinterpret_cast<const uint32_t*>(
-            rhs + ((long long)krow * n + col) * ES));
+            rhs + (long long)krow * n + col));
         r.valid |= 1u << (i * ROWS + rr);
       }
     }
@@ -176,10 +179,9 @@ __device__ __forceinline__ void stage_load(StageRegs& r,
 }
 
 // Registers -> shared memory: As[row][PD_LDS] as loaded; the rhs words moved
-// by the carry (int8: byte-wise with wrap-around; bf16: float32 sum rounded
-// to bf16 once) and transposed into Bs[col][PD_LDS], K contiguous, so that a
-// 32-bit word of a column holds the 4 / 2 consecutive K elements an mma B
-// fragment (and __dp4a) wants.
+// by the carry (byte-wise with wrap-around) and transposed into
+// Bs[col][PD_LDS], K contiguous, so that a 32-bit word of a column holds the
+// 4 consecutive K elements an mma B fragment (and __dp4a) wants.
 template <int CORE>
 __device__ __forceinline__ void stage_store(const StageRegs& r,
                                             unsigned char* As,
@@ -190,48 +192,28 @@ __device__ __forceinline__ void stage_store(const StageRegs& r,
     const int c = tid + i * PD_THREADS, row = c >> 2, ch = c & 3;
     *reinterpret_cast<int4*>(As + row * PD_LDS + ch * 16) = r.a[i];
   }
-  if constexpr (CORE == CORE_MMA_BF16) {
-    const float cb = bf16_float(bf16_bits(carry));
+  const uint32_t c4 = (uint32_t)((int)carry & 0xff) * 0x01010101u;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int item = tid + i * PD_THREADS, kg = item >> 5, nw = item & 31;
-      uint32_t w[2];
+  for (int i = 0; i < 2; ++i) {
+    const int item = tid + i * PD_THREADS, kg = item >> 4, nw = item & 15;
+    uint32_t w[4];
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const uint32_t v = r.b[i * 2 + rr];
-        const uint32_t lo = bf16_bits(__uint_as_float(v << 16) + cb);
-        const uint32_t hi = bf16_bits(__uint_as_float(v & 0xffff0000u) + cb);
-        w[rr] = (r.valid >> (i * 2 + rr)) & 1u ? (lo | (hi << 16)) : 0u;
-      }
-      unsigned char* dst = Bs + (nw * 2) * PD_LDS + kg * 4;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(w[0], w[1], 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + PD_LDS) =
-          __byte_perm(w[0], w[1], 0x7632);
-    }
-  } else {
-    const uint32_t c4 = (uint32_t)((int)carry & 0xff) * 0x01010101u;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int item = tid + i * PD_THREADS, kg = item >> 4, nw = item & 15;
-      uint32_t w[4];
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-        w[rr] = (r.valid >> (i * 4 + rr)) & 1u ? __vadd4(r.b[i * 4 + rr], c4)
-                                               : 0u;
-      // 4 x 4 byte transpose: word j of the result holds byte j of w[0..3]
-      const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
-      const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
-      const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-      unsigned char* dst = Bs + (nw * 4) * PD_LDS + kg * 4;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + PD_LDS) =
-          __byte_perm(lo01, lo23, 0x7632);
-      *reinterpret_cast<uint32_t*>(dst + 2 * PD_LDS) =
-          __byte_perm(hi01, hi23, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + 3 * PD_LDS) =
-          __byte_perm(hi01, hi23, 0x7632);
-    }
+    for (int rr = 0; rr < 4; ++rr)
+      w[rr] = (r.valid >> (i * 4 + rr)) & 1u ? __vadd4(r.b[i * 4 + rr], c4)
+                                             : 0u;
+    // 4 x 4 byte transpose: word j of the result holds byte j of w[0..3]
+    const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
+    const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
+    const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
+    unsigned char* dst = Bs + (nw * 4) * PD_LDS + kg * 4;
+    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + PD_LDS) =
+        __byte_perm(lo01, lo23, 0x7632);
+    *reinterpret_cast<uint32_t*>(dst + 2 * PD_LDS) =
+        __byte_perm(hi01, hi23, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + 3 * PD_LDS) =
+        __byte_perm(hi01, hi23, 0x7632);
   }
 }
 
@@ -242,8 +224,7 @@ __device__ __forceinline__ void tile_product(
     AccT (&acc)[8][4], unsigned char* As, unsigned char* Bs, const void* lhs,
     const void* rhs, int m, int k, int n, int m0, int n0, float carry,
     int tid) {
-  constexpr int ES = CORE == CORE_MMA_BF16 ? 2 : 1;
-  constexpr int KSTEP = PD_BKB / ES;  // K elements per staged step
+  constexpr int KSTEP = PD_BKB;  // K elements per staged step
   const unsigned char* lhs8 = static_cast<const unsigned char*>(lhs);
   const unsigned char* rhs8 = static_cast<const unsigned char*>(rhs);
   const int lane = tid & 31, warp = tid >> 5;
@@ -280,7 +261,7 @@ __device__ __forceinline__ void tile_product(
       }
     } else {
       // warp (wm, wn): rows wm*32 + mi*16, columns wn*32 + ni*8; a k-step
-      // of either mma is 32 bytes of K
+      // of the mma is 32 bytes of K
 #pragma unroll
       for (int ks = 0; ks < PD_BKB / 32; ++ks) {
         uint32_t a[2][4], b[4][2];
@@ -304,10 +285,7 @@ __device__ __forceinline__ void tile_product(
         for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
           for (int ni = 0; ni < 4; ++ni) {
-            if constexpr (CORE == CORE_MMA_S8)
-              mma_s8(acc[mi * 4 + ni], a[mi], b[ni]);
-            else
-              mma_bf16(acc[mi * 4 + ni], a[mi], b[ni]);
+            mma_s8(acc[mi * 4 + ni], a[mi], b[ni]);
           }
       }
     }
@@ -659,78 +637,290 @@ probe_dot_step_kernel(const ProbeDot p) {
   if (tid == 0) p.counters[0] = 0;
 }
 
-// T2: blockIdx.x is one step of the TPU grid, a whole (M, K) . (K, N) bf16
-// product with its projections -> out[step] (8, 128) bf16.
-__global__ void __launch_bounds__(PD_THREADS)
-probe_dot_grid_kernel(const void* lhs, const void* rhs,
+// ---- T2 on wgmma. A block is one step of the TPU grid: the whole product
+// (M, K) . (K, N) with its projections -> out[step] (8, 128) bf16. The tile
+// plan (ops/cuda_probe.py :: plan_grid_tiles) picks W warpgroups (BM = 64 W
+// rows of the product, one 64-row slab each) and BN columns; the block
+// walks the N tiles, and inside each the M tiles:
+//
+//   product   acc (BM x BN) = lhs[m0.., :] . rhs[:, n0..] on wgmma, K in
+//             steps of 64 through a ring of PgTiles::STAGES stages: lhs
+//             K-major as it lies, rhs MN-major as it lies (the transpose
+//             flag), both by cp.async into the 128-byte swizzle, ragged
+//             M, N and K zero-filled (source size 0); the last step issues
+//             only the k16 products K reaches
+//   proj1     d1^T (BN x 8) += bf16(acc)^T . p1[:, m0..]^T: bf16(acc) goes
+//             into the free ring row-major, which is the MN-major A operand
+//             of an m64n8k16 product; p1's rows are its K-major B operand
+//   proj2     o^T (128 x 8) += p2[n0.., :]^T . bf16(d1)^T once the M tiles
+//             are summed: p2's rows, MN-major, by cp.async into the ring;
+//             bf16(d1) K-major beside it
+//
+// so out = bf16(p1 . bf16(acc)) . p2 with float32 sums, every product on
+// the tensor cores and no operand transposed in registers. The ring, the
+// acc tile and the p2 tile share one region (each is free once the phase
+// before it has waited for its products and passed a barrier).
+
+#define PG_STEP 64    // K elements of a ring stage: one 128-byte row
+#define PG_ATOM 1024  // bytes of one swizzle atom: eight 128-byte rows
+
+template <int W, int BN>
+struct PgTiles {
+  static constexpr int BM = 64 * W;
+  static constexpr int THREADS = 128 * W;
+  static constexpr int A_BYTES = BM * WG_ROW;      // (BM, 64 k), K-major
+  static constexpr int B_BYTES = PG_STEP * BN * 2;  // (64 k, BN), MN-major
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int STAGES = STAGE <= 32768 ? 3 : 2;
+  static constexpr int C_BYTES = BM * BN * 2;       // bf16(acc), MN-major
+  static constexpr int P2_BYTES = BN * 128 * 2;     // p2's rows, MN-major
+  static constexpr int RING =
+      STAGES * STAGE > C_BYTES
+          ? (STAGES * STAGE > P2_BYTES ? STAGES * STAGE : P2_BYTES)
+          : (C_BYTES > P2_BYTES ? C_BYTES : P2_BYTES);
+  static constexpr int P1_BYTES = (BM / 64) * PG_ATOM;  // (8, BM), K-major
+  static constexpr int D1_BYTES = (BN / 64) * PG_ATOM;  // (8, BN), K-major
+  static constexpr int SMEM = 1024 + RING + P1_BYTES + D1_BYTES;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)bf16_bits(lo) | ((uint32_t)bf16_bits(hi) << 16);
+}
+
+// byte offset of element (row, e) of an 8-row K-major tile of 16-bit
+// elements whose row is split into 64-element atoms (p1's and bf16(d1)'s
+// tiles: row = i, e = m or n)
+__device__ __forceinline__ int pg_kmajor8(int row, int e) {
+  return (e >> 6) * PG_ATOM + row * WG_ROW + ((((e >> 3) & 7) ^ row) << 4) +
+         (e & 7) * 2;
+}
+
+template <int W, int BN>
+__global__ void __launch_bounds__(128 * W)
+probe_dot_grid_kernel(const unsigned short* lhs, const unsigned short* rhs,
                       const unsigned short* p1, const unsigned short* p2,
                       int m, int k, int n, unsigned short* out) {
-  __shared__ __align__(16) unsigned char As[PD_BM * PD_LDS];
-  __shared__ __align__(16) unsigned char Bs[PD_BN * PD_LDS];
-  __shared__ __align__(16) unsigned short Cs[PD_BN * PD_CS_LD];
-  __shared__ __align__(16) unsigned short Ps[8 * PD_PS_LD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float o[4][4];
+  using G = PgTiles<W, BN>;
+  constexpr int NH = BN / 128;        // m64n128 products a k16 step
+  constexpr int D1B = BN / 64 / W;    // this warpgroup's 64-row blocks of d1^T
+  constexpr int OB = 2 / W;           // ... and of o^T
+  extern __shared__ unsigned char pg_smem[];
+  const uint32_t raw = wg_smem_u32(pg_smem);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  unsigned char* ring_ptr = pg_smem + (ring - raw);
+  const uint32_t p1s = ring + G::RING, d1s = p1s + G::P1_BYTES;
+  unsigned char* p1s_ptr = ring_ptr + G::RING;
+  unsigned char* d1s_ptr = p1s_ptr + G::P1_BYTES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int steps = (k + PG_STEP - 1) / PG_STEP;
+  const int last_k16 = ((k - (steps - 1) * PG_STEP) + 15) >> 4;
+
+  float o[OB][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < OB; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
-  for (int n0 = 0; n0 < n; n0 += PD_BN) {
-    float d[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-    for (int m0 = 0; m0 < m; m0 += PD_BM) {
-      float acc[8][4];
-      tile_product<CORE_MMA_BF16, float>(acc, As, Bs, lhs, rhs, m, k, n, m0,
-                                         n0, 0.0f, tid);
+#ifdef T2_SKIP_PROJECT
+  float keep = 0.0f;
+#endif
+  for (int n0 = 0; n0 < n; n0 += BN) {
+    float d1[D1B][4];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        int row, col;
-        tile_coords<CORE_MMA_BF16>(i, tid, &row, &col);
-        Cs[col * PD_CS_LD + row] = bf16_bits(acc[i >> 2][i & 3]);
-      }
-      __syncthreads();
-      project_p1(d, Cs, p1, m, m0, tid);
-      __syncthreads();
-    }
-    // bf16(p1 . acc) for these 64 columns -> Ps (8, 64), the A operand of
-    // the second projection
+    for (int j = 0; j < D1B; ++j)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int e = 0; e < 4; ++e) d1[j][e] = 0.0f;
+    for (int m0 = 0; m0 < m; m0 += G::BM) {
+      // ---- the product: acc = lhs[m0.., :] . rhs[:, n0..]
+      float acc[NH][64];
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        Ps[g * PD_PS_LD + warp * 16 + j * 8 + 2 * t + e] = bf16_bits(d[j][e]);
-    __syncthreads();
-    // o += Ps . p2[n0 .. n0+63, :]; the warp owns 32 of the 128 columns
+      for (int h = 0; h < NH; ++h)
 #pragma unroll
-    for (int kk = 0; kk < PD_BN; kk += 16) {
-      uint32_t a[4] = {0, 0, 0, 0};
-      a[0] = *reinterpret_cast<const uint32_t*>(&Ps[g * PD_PS_LD + kk + 2 * t]);
-      a[2] = *reinterpret_cast<const uint32_t*>(
-          &Ps[g * PD_PS_LD + kk + 2 * t + 8]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = warp * 32 + j * 8 + g;
-        uint32_t b[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = n0 + kk + 2 * t + 8 * h;
-          const uint32_t lo =
-              row < n ? __ldg(&p2[(long long)row * 128 + col]) : 0;
-          const uint32_t hi =
-              row + 1 < n ? __ldg(&p2[(long long)(row + 1) * 128 + col]) : 0;
-          b[h] = lo | (hi << 16);
+        for (int i = 0; i < 64; ++i) acc[h][i] = 0.0f;
+      int ld = 0;
+      auto load = [&](int st) {
+        if (ld < steps) {
+          const uint32_t sa = ring + st * G::STAGE, sb = sa + G::A_BYTES;
+          const int k0 = ld * PG_STEP;
+          for (int c = tid; c < G::BM * 8; c += G::THREADS) {
+            const int row = c >> 3, ch = c & 7;
+            const bool ok = m0 + row < m && k0 + ch * 8 < k;
+            wg_cp_async16(sa + row * WG_ROW + ((ch ^ (row & 7)) << 4),
+                          ok ? lhs + (long long)(m0 + row) * k + k0 + ch * 8
+                             : lhs,
+                          ok ? 16 : 0);
+          }
+          // rhs row k0 + kr, columns n0 + 8 cn ..: atom (cn / 8, kr / 8)
+          // at (gn * 8 + kg) * PG_ATOM, row kr % 8
+          for (int c = tid; c < PG_STEP * (BN / 8); c += G::THREADS) {
+            const int kr = c / (BN / 8), cn = c % (BN / 8);
+            const int r = kr & 7, ch = cn & 7;
+            const bool ok = k0 + kr < k && n0 + cn * 8 < n;
+            wg_cp_async16(sb + ((cn >> 3) * 8 + (kr >> 3)) * PG_ATOM +
+                              r * WG_ROW + ((ch ^ r) << 4),
+                          ok ? rhs + (long long)(k0 + kr) * n + n0 + cn * 8
+                             : rhs,
+                          ok ? 16 : 0);
+          }
+          ++ld;
         }
-        mma_bf16(o[j], a, b);
+        wg_cp_async_commit();
+      };
+#pragma unroll
+      for (int st = 0; st < G::STAGES - 1; ++st) load(st);
+      int st = 0;
+      for (int s = 0; s < steps; ++s) {
+        // stage st was last read by step s - STAGES, which every warpgroup
+        // has finished: it passed the barrier of step s - 1 after its wait
+        wg_cp_async_wait<G::STAGES - 2>();
+        wg_fence_async_proxy();
+        __syncthreads();
+        const uint32_t sa = ring + st * G::STAGE + wg * 64 * WG_ROW;
+        const uint32_t sb = ring + st * G::STAGE + G::A_BYTES;
+        const int nk = s + 1 < steps ? PG_STEP / 16 : last_k16;
+#pragma unroll
+        for (int h = 0; h < NH; ++h) wg_fence_acc(acc[h]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < PG_STEP / 16; ++kk) {
+          if (kk < nk) {
+#pragma unroll
+            for (int h = 0; h < NH; ++h)
+              wg_mma_m64k16<128, 0, 1>(
+                  acc[h], wg_desc(sa + 32 * kk),
+                  wg_desc_mn(sb + (h * 16 + kk * 2) * PG_ATOM, 8 * PG_ATOM,
+                             PG_ATOM),
+                  1);
+          }
+        }
+        wg_commit();
+        // while the products run: the step STAGES - 1 ahead into the stage
+        // step s - 1 has left
+        load(st == 0 ? G::STAGES - 1 : st - 1);
+        wg_wait<0>();
+#pragma unroll
+        for (int h = 0; h < NH; ++h) wg_fence_acc(acc[h]);
+        st = st + 1 == G::STAGES ? 0 : st + 1;
       }
+      wg_cp_async_wait<0>();
+      __syncthreads();  // every warpgroup's products are done: the ring is free
+#ifdef T2_SKIP_PROJECT
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) keep += acc[h][i];
     }
-    __syncthreads();
   }
+  if (tid < 1024) out[(long long)blockIdx.x * 1024 + tid] = bf16_bits(keep);
+#else
+      // ---- bf16(acc) row-major into the ring: element (ml, nl) in atom
+      // (nl / 64, ml / 8) at (gn * BM / 8 + km) * PG_ATOM, row ml % 8
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+      for (int h = 0; h < NH; ++h)
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      out[((long long)blockIdx.x * 8 + g) * 128 + warp * 32 + j * 8 + 2 * t +
-          e] = bf16_bits(o[j][e]);
+        for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int ml = 64 * wg + 16 * warp + (lane >> 2) + 8 * hr;
+            const int nl = 128 * h + 8 * nb + 2 * (lane & 3);
+            const int r = ml & 7;
+            *reinterpret_cast<uint32_t*>(
+                ring_ptr + ((nl >> 6) * (G::BM / 8) + (ml >> 3)) * PG_ATOM +
+                r * WG_ROW + ((((nl >> 3) & 7) ^ r) << 4) + (nl & 7) * 2) =
+                pack_bf16x2(acc[h][nb * 4 + hr * 2],
+                            acc[h][nb * 4 + hr * 2 + 1]);
+          }
+      // p1[:, m0 .. m0 + BM) as 8 K-major rows (zero past M; M is even)
+      for (int w = tid; w < 4 * G::BM; w += G::THREADS) {
+        const int i = w / (G::BM / 2), mm = 2 * (w % (G::BM / 2));
+        const uint32_t v =
+            m0 + mm < m ? __ldg(reinterpret_cast<const uint32_t*>(
+                              p1 + (long long)i * m + m0 + mm))
+                        : 0u;
+        *reinterpret_cast<uint32_t*>(p1s_ptr + pg_kmajor8(i, mm)) = v;
+      }
+      wg_fence_async_proxy();
+      __syncthreads();
+      // ---- proj1: d1^T (n x 8) += bf16(acc)^T (n x m) . p1^T (m x 8)
+#pragma unroll
+      for (int j = 0; j < D1B; ++j) wg_fence_acc(d1[j]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::BM / 16; ++kk) {
+        const uint64_t db = wg_desc(p1s + (kk >> 2) * PG_ATOM + 32 * (kk & 3));
+#pragma unroll
+        for (int j = 0; j < D1B; ++j)
+          wg_mma_m64k16<8, 1, 0>(
+              d1[j],
+              wg_desc_mn(ring + ((wg + j * W) * (G::BM / 8) + 2 * kk) *
+                                    PG_ATOM,
+                         (G::BM / 8) * PG_ATOM, PG_ATOM),
+              db, 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int j = 0; j < D1B; ++j) wg_fence_acc(d1[j]);
+      __syncthreads();  // the acc and p1 tiles are read
+    }
+    // ---- bf16(d1) as 8 K-major rows, p2[n0 .. n0 + BN) MN-major into the
+    // ring: row nn in atom (j / 64, nn / 8) at (gj * BN / 8 + kn) * PG_ATOM
+#pragma unroll
+    for (int j = 0; j < D1B; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int nl = 64 * (wg + j * W) + 16 * warp + (lane >> 2) + 8 * hr;
+          *reinterpret_cast<unsigned short*>(
+              d1s_ptr + pg_kmajor8(2 * (lane & 3) + e, nl)) =
+              bf16_bits(d1[j][hr * 2 + e]);
+        }
+    for (int q = tid; q < BN * 16; q += G::THREADS) {
+      const int nn = q >> 4, cj = q & 15, r = nn & 7;
+      const bool ok = n0 + nn < n;
+      wg_cp_async16(ring + ((cj >> 3) * (BN / 8) + (nn >> 3)) * PG_ATOM +
+                        r * WG_ROW + (((cj & 7) ^ r) << 4),
+                    ok ? p2 + (long long)(n0 + nn) * 128 + cj * 8 : p2,
+                    ok ? 16 : 0);
+    }
+    wg_cp_async_commit();
+    wg_cp_async_wait<0>();
+    wg_fence_async_proxy();
+    __syncthreads();
+    // ---- proj2: o^T (128 x 8) += p2^T (128 x n) . bf16(d1)^T (n x 8)
+#pragma unroll
+    for (int j = 0; j < OB; ++j) wg_fence_acc(o[j]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t db = wg_desc(d1s + (kk >> 2) * PG_ATOM + 32 * (kk & 3));
+#pragma unroll
+      for (int j = 0; j < OB; ++j)
+        wg_mma_m64k16<8, 1, 0>(
+            o[j],
+            wg_desc_mn(ring + ((wg + j * W) * (BN / 8) + 2 * kk) * PG_ATOM,
+                       (BN / 8) * PG_ATOM, PG_ATOM),
+            db, 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int j = 0; j < OB; ++j) wg_fence_acc(o[j]);
+    __syncthreads();  // the p2 and bf16(d1) tiles are read
+  }
+  // ---- out[step] (8, 128) = bf16(o); o^T's rows are out's columns
+#pragma unroll
+  for (int j = 0; j < OB; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 64 * (wg + j * W) + 16 * warp + (lane >> 2) + 8 * hr;
+        out[((long long)blockIdx.x * 8 + 2 * (lane & 3) + e) * 128 + col] =
+            bf16_bits(o[j][hr * 2 + e]);
+      }
+#endif
 }
 
 // T3b: clip(round-half-even(x), -127, 127), K6's requantizer at scale 1.
@@ -861,19 +1051,46 @@ extern "C" int yolo_probe_dot(const void* lhs, const void* rhs, const void* p1,
   return (int)cudaErrorInvalidValue;
 }
 
-// T2. lhs (m, k), rhs (k, n), p1 (8, m), p2 (n, 128) bf16, 16-byte aligned,
-// k a multiple of 8, n of 8, m even; out (grid, 8, 128) bf16.
+template <int W, int BN>
+static int launch_dot_grid(const void* lhs, const void* rhs, const void* p1,
+                           const void* p2, int m, int k, int n, int grid,
+                           void* out, cudaStream_t s) {
+  static bool allowed[WG_MAX_DEVICES] = {};
+  const cudaError_t e = wg_allow_smem(probe_dot_grid_kernel<W, BN>,
+                                      PgTiles<W, BN>::SMEM, allowed);
+  if (e != cudaSuccess) return (int)e;
+  probe_dot_grid_kernel<W, BN>
+      <<<grid, PgTiles<W, BN>::THREADS, PgTiles<W, BN>::SMEM, s>>>(
+          static_cast<const unsigned short*>(lhs),
+          static_cast<const unsigned short*>(rhs),
+          static_cast<const unsigned short*>(p1),
+          static_cast<const unsigned short*>(p2), m, k, n,
+          static_cast<unsigned short*>(out));
+  return (int)cudaGetLastError();
+}
+
+// T2. lhs (m, k), rhs (k, n), p2 (n, 128) bf16, 16-byte aligned; p1 (8, m)
+// bf16, 4-byte aligned; k and n multiples of 8, m even; out (grid, 8, 128)
+// bf16. (block_m, block_n): the tile plan, (64, 128), (64, 256) or
+// (128, 128).
 extern "C" int yolo_probe_dot_grid(const void* lhs, const void* rhs,
                                    const void* p1, const void* p2, int m, int k,
-                                   int n, int grid, void* out, void* stream) {
-  if (m < 2 || m % 2 || k < 8 || k % 8 || n < 8 || n % 8 || grid < 1)
+                                   int n, int grid, int block_m, int block_n,
+                                   void* out, void* stream) {
+  if (m < 2 || m % 2 || k < 8 || k % 8 || n < 8 || n % 8 || grid < 1 ||
+      reinterpret_cast<uintptr_t>(lhs) % 16 ||
+      reinterpret_cast<uintptr_t>(rhs) % 16 ||
+      reinterpret_cast<uintptr_t>(p2) % 16 ||
+      reinterpret_cast<uintptr_t>(p1) % 4)
     return (int)cudaErrorInvalidValue;
-  probe_dot_grid_kernel<<<grid, PD_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      lhs, rhs, static_cast<const unsigned short*>(p1),
-      static_cast<const unsigned short*>(p2), m, k, n,
-      static_cast<unsigned short*>(out));
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_m == 64 && block_n == 128)
+    return launch_dot_grid<1, 128>(lhs, rhs, p1, p2, m, k, n, grid, out, s);
+  if (block_m == 64 && block_n == 256)
+    return launch_dot_grid<1, 256>(lhs, rhs, p1, p2, m, k, n, grid, out, s);
+  if (block_m == 128 && block_n == 128)
+    return launch_dot_grid<2, 128>(lhs, rhs, p1, p2, m, k, n, grid, out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int yolo_probe_round_clip(const float* x, float* out, int n,

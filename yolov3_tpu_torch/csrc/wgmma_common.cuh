@@ -2,13 +2,15 @@
 // multiply (wgmma), CUDA C++ for sm_90a: the launchers' opt-in to more than
 // 48 KB of dynamic shared memory, the asynchronous 16-byte copies into
 // shared memory, the 128-byte swizzle and the shared-memory matrix
-// descriptors of K-major tiles (swizzled, and without swizzle), the wgmma
-// fences, commits and waits, the bf16 m64nNk16 products with float32 sums
-// for N = 32, 64, 96 and 128 with their float32 promotion, and the int8
-// m64nNk32 products with int32 sums for N = 64, 128 and 256. Included by
-// conv3x3_mma.cuh (K5), decode_fused.cu (K4), block_int8.cu (K6) and
-// probe.cu (T1's wgmma cores); decode_packed.cu (K1, K1c) and
-// nms_suppress.cu (K2) take the opt-in and the asynchronous copies.
+// descriptors of K-major tiles (swizzled, and without swizzle) and of
+// MN-major swizzled tiles, the wgmma fences, commits and waits, the bf16
+// m64nNk16 products with float32 sums for N = 8, 32, 64, 96 and 128 (either
+// operand K-major or, by the transpose flag, MN-major) with their float32
+// promotion, and the int8 m64nNk32 products with int32 sums for N = 64, 128
+// and 256. Included by conv3x3_mma.cuh (K5), decode_fused.cu (K4),
+// block_int8.cu (K6) and probe.cu (T1's wgmma cores, T2); decode_packed.cu
+// (K1, K1c), decode_full.cu (K3) and nms_suppress.cu (K2) take the opt-in
+// and the asynchronous copies.
 //
 // Tile layout: an operand tile is a run of 128-byte rows (64 bf16 or 128
 // int8 channels of one pixel, or of one weight row), K-major, laid out with
@@ -20,7 +22,9 @@
 // for either type.
 //
 // int8 products take both operands K-major (wgmma has no transpose for
-// them), so a B operand is stored [N][K], K contiguous.
+// them), so a B operand is stored [N][K], K contiguous. A bf16 operand may
+// stay MN-major, as a row-major (K, N) matrix lies: its tile is 128-byte
+// rows of 64 N elements, one row per k, in the same swizzle.
 //
 // float32 sums: the tensor cores add the products of one K step in float32
 // but truncate when they align the addends, and over K in the thousands
@@ -114,6 +118,20 @@ __device__ __forceinline__ uint64_t wg_desc_plain(uint32_t saddr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32);
 }
 
+// wgmma shared-memory descriptor of an MN-major ("transposed") 16-bit tile
+// with the 128-byte swizzle, for the A or B operand of a bf16 product with
+// its transpose flag set: a 128-byte row holds 64 consecutive M (or N)
+// elements of one k, eight rows of consecutive k make a 1,024-byte swizzle
+// atom (chunk j of row r at j ^ r, as for K-major tiles). `lbo` is the byte
+// stride between atoms along M / N (64 elements apart), `sbo` between atoms
+// along K (8 k apart); layout type 1 (128-byte swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t wg_desc_mn(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -147,15 +165,34 @@ __device__ __forceinline__ void wg_promote(float (&sum)[R],
 }
 
 // d (64 x N, float32, this warpgroup's fragment: N / 2 values a thread) =
-// A (64 x 16, bf16, K-major in shared memory) * B (N x 16, bf16, K-major in
-// shared memory) + (scale_d ? d : 0). Fragment layout: thread (warp, lane)
-// of the warpgroup holds rows warp * 16 + lane / 4 (+ 8), columns
-// nb * 8 + (lane % 4) * 2 (+ 1) in d[nb * 4 + hr * 2 + e].
-template <int N>
+// A (64 x 16, bf16 in shared memory) * B (N x 16, bf16 in shared memory) +
+// (scale_d ? d : 0). Both operands are K-major unless TA / TB is 1: then
+// that operand is MN-major (wg_desc_mn), the transpose wgmma offers for
+// 16-bit types only. Fragment layout: thread (warp, lane) of the warpgroup
+// holds rows warp * 16 + lane / 4 (+ 8), columns nb * 8 + (lane % 4) * 2
+// (+ 1) in d[nb * 4 + hr * 2 + e].
+template <int N, int TA = 0, int TB = 0>
 struct WgmmaM64K16;
 
-template <>
-struct WgmmaM64K16<32> {
+template <int TA, int TB>
+struct WgmmaM64K16<8, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[4], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, %7, %8;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct WgmmaM64K16<32, TA, TB> {
   static __device__ __forceinline__ void run(float (&d)[16], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -165,18 +202,18 @@ struct WgmmaM64K16<32> {
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n"
+        "%16, %17, p, 1, 1, %19, %20;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
-template <>
-struct WgmmaM64K16<64> {
+template <int TA, int TB>
+struct WgmmaM64K16<64, TA, TB> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -187,7 +224,7 @@ struct WgmmaM64K16<64> {
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
         "%28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n"
+        "%32, %33, p, 1, 1, %35, %36;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -196,12 +233,12 @@ struct WgmmaM64K16<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
-template <>
-struct WgmmaM64K16<96> {
+template <int TA, int TB>
+struct WgmmaM64K16<96, TA, TB> {
   static __device__ __forceinline__ void run(float (&d)[48], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -213,7 +250,7 @@ struct WgmmaM64K16<96> {
         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
         "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
         "%42, %43, %44, %45, %46, %47}, "
-        "%48, %49, p, 1, 1, 0, 0;\n"
+        "%48, %49, p, 1, 1, %51, %52;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -225,12 +262,12 @@ struct WgmmaM64K16<96> {
           "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
           "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
-template <>
-struct WgmmaM64K16<128> {
+template <int TA, int TB>
+struct WgmmaM64K16<128, TA, TB> {
   static __device__ __forceinline__ void run(float (&d)[64], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -243,7 +280,7 @@ struct WgmmaM64K16<128> {
         "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
         "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n"
+        "%64, %65, p, 1, 1, %67, %68;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -258,15 +295,15 @@ struct WgmmaM64K16<128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
-template <int N>
+template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wg_mma_m64k16(float (&d)[N / 2],
                                               uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
-  WgmmaM64K16<N>::run(d, desc_a, desc_b, scale_d);
+  WgmmaM64K16<N, TA, TB>::run(d, desc_a, desc_b, scale_d);
 }
 
 // d (64 x N, int32, this warpgroup's fragment: N / 2 values a thread, in the

@@ -122,14 +122,16 @@ def load_kernels() -> ctypes.CDLL:
         p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
         p, p]
     lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p, p]
-    lib.yolo_decode_full_head.argtypes = [
-        p, i64, i64, i64, i32, i32, i32, i32, i32, i32, anchors, f32, p, p]
+    lib.yolo_decode_full.argtypes = [
+        ctypes.POINTER(ctypes.c_longlong), anchors, i32, anchors, i32, i32,
+        i32, i32, i32, p, p]
     lib.yolo_residual_block_int8.argtypes = [
         p, p, p, p, p, p, p, i32, i32, i32, i32, i32, f32, f32, f32, f32, f32,
         i32, p, i32, p]
     lib.yolo_probe_dot.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, p,
                                    p, p, p, i32, p]
-    lib.yolo_probe_dot_grid.argtypes = [p, p, p, p, i32, i32, i32, i32, p, p]
+    lib.yolo_probe_dot_grid.argtypes = [p, p, p, p, i32, i32, i32, i32, i32,
+                                        i32, p, p]
     lib.yolo_probe_round_clip.argtypes = [p, p, i32, p]
     lib.yolo_probe_roll.argtypes = [p, p, i32, i32, i32, p]
     lib.yolo_probe_mask.argtypes = [p, i32, i32, i32, i32, i32, i32, p]
@@ -139,7 +141,7 @@ def load_kernels() -> ctypes.CDLL:
                lib.yolo_probe_mask, lib.yolo_probe_epilogue,
                lib.yolo_decode_heads,
                lib.yolo_decode_packed_fused_head, lib.yolo_conv3x3_fused,
-               lib.yolo_nms_suppress, lib.yolo_decode_full_head,
+               lib.yolo_nms_suppress, lib.yolo_decode_full,
                lib.yolo_residual_block_int8):
         fn.restype = i32
     return lib

@@ -27,9 +27,14 @@ Ports of ``yolov3_tpu/ops/pallas_decode.py``:
   GEMM on the tensor cores (``wgmma``) with the decode as its epilogue, one
   block per (tile of cells, anchor), tiled by :func:`plan_fused_tiles`;
   float32 operands a CUDA-core kernel (TF32 would miss the float32 bar).
-* K3 ``decode_head`` (``decode_head_pallas``): the full decode, one head map
-  → the reference ``Darknet.forward`` tensor (B, gy·gx·A, 5+C), cell-major
-  (``csrc/decode_full.cu``; plain version ``ops.decode.decode_head``).
+* K3 ``decode_all`` / ``decode_head`` (``decode_all_pallas`` /
+  ``decode_head_pallas``): the full decode, the head maps → the reference
+  ``Darknet.forward`` tensor (B, N, 5+C), cell-major within a head, heads
+  concatenated. All the heads of a call are ONE launch writing straight into
+  the concatenated output (``csrc/decode_full.cu``: a head table laid out by
+  :func:`plan_full_decode`; blocks of ``K3_TILE`` output elements staged
+  through shared memory in 16-byte pieces); ``decode_head`` launches the
+  same kernel with one head. Plain version ``ops.decode.decode_all``.
   ``model.forward``.
 
 K1, K1c and K4 share one decode body (``csrc/decode_common.cuh``), and K3
@@ -72,6 +77,10 @@ K1_TILES = (32, 16)
 K1_GROUPS = (2, 4)
 K1_GROUP = {torch.float32: 4, torch.bfloat16: 2}
 K1_SMEM_LIMIT = 232448
+# K3 (csrc/decode_full.cu): heads a launch's table holds, and the output
+# elements a block owns
+K3_MAX_HEADS = 8
+K3_TILE = 4096
 
 
 def supported(anchors_per_head: Sequence[Anchors]) -> bool:
@@ -213,16 +222,34 @@ def dense_map(feat: torch.Tensor, n_anchors: int, num_classes: int) -> bool:
                if n > 1)
 
 
+def _launch_chunks(feats: Sequence[torch.Tensor],
+                   anchors_per_head: Sequence[Anchors],
+                   max_heads: int) -> List[List[int]]:
+    """The heads of each launch of a head-table kernel (K1, K3):
+    consecutive heads of one map type share a launch while they fit its
+    table, ``max_heads`` heads and ``MAX_ANCHORS`` anchors."""
+    chunks: List[List[int]] = []
+    for h, (f, a) in enumerate(zip(feats, anchors_per_head)):
+        last = chunks[-1] if chunks else None
+        if (last is None or len(last) == max_heads
+                or feats[last[0]].dtype != f.dtype
+                or sum(len(anchors_per_head[i]) for i in last) + len(a)
+                > MAX_ANCHORS):
+            chunks.append([h])
+        else:
+            last.append(h)
+    return chunks
+
+
 def plan_decode(feats: Sequence[torch.Tensor],
                 anchors_per_head: Sequence[Anchors], num_classes: int,
                 head_offsets: Sequence[int], group: Optional[int] = None
                 ) -> List[DecodePlan]:
     """The launches of K1 / K1c for these heads: one for a graph's heads
-    (consecutive heads of one map type share a launch while they fit its
-    table: ``K1_MAX_HEADS`` heads, ``MAX_ANCHORS`` anchors). Within a
-    launch, head h's blocks follow head h-1's and block t of a head takes
-    cells [t·tile_cells, (t+1)·tile_cells) of its flattened (image·gy·gx +
-    cell) index, so every (image, cell) falls in exactly one block.
+    (:func:`_launch_chunks` with ``K1_MAX_HEADS``). Within a launch, head
+    h's blocks follow head h-1's and block t of a head takes cells
+    [t·tile_cells, (t+1)·tile_cells) of its flattened (image·gy·gx + cell)
+    index, so every (image, cell) falls in exactly one block.
     ``tile_cells`` is 32 where 32 rows of the widest head's A·(5+C)
     channels fit ``K1_SMEM_LIMIT`` bytes of shared memory, else 16; wider
     rows raise. ``group``: lanes a record, ``K1_GROUP`` of the map type by
@@ -231,18 +258,8 @@ def plan_decode(feats: Sequence[torch.Tensor],
         raise ValueError(f"K1 decodes a record with {K1_GROUPS} lanes, "
                          f"got {group}")
     per = 5 + num_classes
-    chunks: List[List[int]] = []
-    for h, (f, a) in enumerate(zip(feats, anchors_per_head)):
-        last = chunks[-1] if chunks else None
-        if (last is None or len(last) == K1_MAX_HEADS
-                or feats[last[0]].dtype != f.dtype
-                or sum(len(anchors_per_head[i]) for i in last) + len(a)
-                > MAX_ANCHORS):
-            chunks.append([h])
-        else:
-            last.append(h)
     plans = []
-    for chunk in chunks:
+    for chunk in _launch_chunks(feats, anchors_per_head, K1_MAX_HEADS):
         size = feats[chunk[0]].element_size()
         widest = max(len(anchors_per_head[h]) for h in chunk) * per * size
         tile = next((t for t in K1_TILES if t * widest <= K1_SMEM_LIMIT), None)
@@ -659,34 +676,121 @@ def decode_packed_fused(pre_heads: Sequence[torch.Tensor],
 # ---------------------------------------------------------------- K3
 
 
+class FullHeadRow(NamedTuple):
+    head: int         # index of the head in the call
+    dense: bool       # one packed range per image, 16-byte aligned base
+    first_block: int  # the head's first block in its launch
+    tiles: int        # blocks an image: ceil(segment / K3_TILE)
+    anchor0: int      # the head's first anchor in the launch's anchor table
+    row_offset: int   # its first row of an image in the (B, N, 5+C) output
+    segment: int      # elements of one (image, head): gy·gx·A·(5+C) < 2^31
+
+
+class FullDecodePlan(NamedTuple):
+    """One launch of K3 (``csrc/decode_full.cu``): its head table."""
+    rows: Tuple[FullHeadRow, ...]
+    blocks: int
+
+
+def plan_full_decode(feats: Sequence[torch.Tensor],
+                     anchors_per_head: Sequence[Anchors], num_classes: int,
+                     row_offsets: Sequence[int]) -> List[FullDecodePlan]:
+    """The launches of K3 for these heads: one for a graph's heads
+    (:func:`_launch_chunks` with ``K3_MAX_HEADS``). Head h writes
+    output rows [row_offsets[h], + gy·gx·A) of every image; its (image,
+    head) range of ``segment`` elements is split into ``tiles`` blocks of
+    ``K3_TILE`` elements, image by image, after head h-1's blocks. The
+    kernel addresses a block's range from a 64-bit base with 32-bit offsets,
+    so a segment must stay below 2^31 elements and a launch below 2^31
+    blocks; both raise."""
+    per = 5 + num_classes
+    plans = []
+    for chunk in _launch_chunks(feats, anchors_per_head, K3_MAX_HEADS):
+        rows, first, anchor0 = [], 0, 0
+        for h in chunk:
+            f, a = feats[h], anchors_per_head[h]
+            seg = f.shape[1] * f.shape[2] * len(a) * per
+            if seg >= 2 ** 31:
+                raise ValueError(f"K3 addresses an (image, head) range of "
+                                 f"{seg} elements with 32-bit offsets: it "
+                                 f"must stay below 2^31")
+            tiles = -(-seg // K3_TILE)
+            rows.append(FullHeadRow(h, dense_map(f, len(a), num_classes),
+                                    first, tiles, anchor0, row_offsets[h],
+                                    seg))
+            first += f.shape[0] * tiles
+            anchor0 += len(a)
+        if first >= 2 ** 31:
+            raise ValueError(f"K3 launch of {first} blocks: at most 2^31 - 1")
+        plans.append(FullDecodePlan(tuple(rows), first))
+    return plans
+
+
+def launch_full_decode(feats: Sequence[torch.Tensor],
+                       anchors_per_head: Sequence[Anchors],
+                       strides: Sequence[int], num_classes: int,
+                       row_offsets: Sequence[int], out: torch.Tensor,
+                       lib=None) -> int:
+    """Launch K3 over CUDA head maps into ``out`` (B, N, 5+C) float32 as
+    :func:`plan_full_decode` plans them; return the number of launches (1
+    for every published cfg). The wrappers' launcher; ``tools/ablate_phases``
+    times its builds through it (``lib``: a library other than the
+    package's)."""
+    b = feats[0].shape[0]
+    for f, a in zip(feats, anchors_per_head):
+        _check_kernel_io(f, [out], len(a), "K3")
+        if f.shape[0] != b or f.device != out.device:
+            raise ValueError(f"K3: every head map must have batch {b} and "
+                             f"lie on {out.device}")
+    if (out.dim() != 3 or out.shape[0] != b or out.shape[2] != 5 + num_classes
+            or out.dtype != torch.float32 or out.data_ptr() % 16):
+        raise ValueError(f"K3 writes a 16-byte aligned float32 (B, N, 5+C) "
+                         f"output, got {tuple(out.shape)} {out.dtype}")
+    lib = lib or load_kernels()
+    plans = plan_full_decode(feats, anchors_per_head, num_classes, row_offsets)
+    for plan in plans:
+        args, strides_c, anchors = [], [], []
+        for row in plan.rows:
+            f = feats[row.head]
+            a = anchors_per_head[row.head]
+            args += [f.data_ptr(), f.stride(0), f.stride(1), f.stride(2),
+                     f.shape[1], f.shape[2], len(a), row.anchor0,
+                     row.row_offset, row.first_block, row.tiles,
+                     int(row.dense)]
+            strides_c.append(float(strides[row.head]))
+            anchors += [float(v) for wh in a for v in wh]
+        with torch.cuda.device(out.device):
+            rc = lib.yolo_decode_full(
+                (ctypes.c_longlong * len(args))(*args),
+                (ctypes.c_float * len(strides_c))(*strides_c), len(plan.rows),
+                (ctypes.c_float * len(anchors))(*anchors), len(anchors) // 2,
+                int(feats[plan.rows[0].head].dtype == torch.bfloat16),
+                plan.blocks, num_classes, out.shape[1], out.data_ptr(),
+                _stream(out.device))
+        check_launch(rc, "K3")
+    return len(plans)
+
+
 def decode_head(feat: torch.Tensor, anchors: Anchors, stride: int,
                 num_classes: int) -> torch.Tensor:
-    """K3: one head's NHWC map (B, gy, gx, ≥A·(5+C)), float32 or bf16 →
-    (B, gy·gx·A, 5+C) float32: center-xywh boxes in net pixels, sigmoid
-    objectness and classes, cell-major (``cell·A + anchor``). The map
-    widens to float32 before any math.
+    """K3 for one head: its NHWC map (B, gy, gx, ≥A·(5+C)), float32 or
+    bf16 → (B, gy·gx·A, 5+C) float32: center-xywh boxes in net pixels,
+    sigmoid objectness and classes, cell-major (``cell·A + anchor``). The
+    map widens to float32 before any math.
 
-    CUDA tensor: launches the K3 kernel on the current stream (counted in
-    ``decode_head.launches``) or raises. CPU tensor: the plain version
-    (``ops.decode.decode_head`` on the float32 map)."""
+    CUDA tensor: launches the K3 kernel with a one-head table on the
+    current stream (counted in ``decode_head.launches``) or raises. CPU
+    tensor: the plain version (``ops.decode.decode_head`` on the float32
+    map)."""
     _check_head(feat, anchors, num_classes)
     if _check_device(feat, "K3"):
         return plain_decode.decode_head(feat.float(), anchors, stride,
                                         num_classes)
     b, gy, gx, _ = feat.shape
-    a, per = len(anchors), 5 + num_classes
-    out = torch.empty((b, gy * gx * a, per), dtype=torch.float32,
-                      device=feat.device)
-    _check_kernel_io(feat, [out], a, "K3")
-    lib = load_kernels()
-    with torch.cuda.device(feat.device):
-        rc = lib.yolo_decode_full_head(
-            feat.data_ptr(), feat.stride(0), feat.stride(1), feat.stride(2),
-            int(feat.dtype == torch.bfloat16), b, gy, gx, a, num_classes,
-            _anchors_c(anchors), float(stride), out.data_ptr(),
-            _stream(feat.device))
-    check_launch(rc, "decode_head")
-    decode_head.launches += 1
+    out = torch.empty((b, gy * gx * len(anchors), 5 + num_classes),
+                      dtype=torch.float32, device=feat.device)
+    decode_head.launches += launch_full_decode(
+        [feat], [anchors], [stride], num_classes, [0], out)
     return out
 
 
@@ -696,7 +800,23 @@ decode_head.launches = 0
 def decode_all(feats: Sequence[torch.Tensor],
                anchors_per_head: Sequence[Anchors], strides: Sequence[int],
                num_classes: int) -> torch.Tensor:
-    """K3 over every head, concatenated → (B, N, 5+C) (reference layout)."""
-    return torch.cat([decode_head(f, a, s, num_classes)
-                      for f, a, s in zip(feats, anchors_per_head, strides)],
-                     dim=1)
+    """K3 over every head → (B, N, 5+C) float32, heads in cfg order (the
+    reference layout), written in place: no concat follows.
+
+    CUDA tensors: ONE launch of the K3 kernel for all the heads (counted in
+    ``decode_all.launches``; one per ``Darknet(x)`` call) or raises. CPU
+    tensors: the plain version head by head."""
+    for f, a in zip(feats, anchors_per_head):
+        _check_head(f, a, num_classes)
+    offsets = candidate_offsets(feats, anchors_per_head)
+    if _check_device(feats[0], "K3"):
+        return plain_decode.decode_all([f.float() for f in feats],
+                                       anchors_per_head, strides, num_classes)
+    out = torch.empty((feats[0].shape[0], offsets[-1], 5 + num_classes),
+                      dtype=torch.float32, device=feats[0].device)
+    decode_all.launches += launch_full_decode(
+        feats, anchors_per_head, strides, num_classes, offsets[:-1], out)
+    return out
+
+
+decode_all.launches = 0

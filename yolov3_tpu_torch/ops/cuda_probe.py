@@ -19,7 +19,9 @@ T3e       ``probe_block.py :: probe_epilogue``        :func:`probe_epilogue`
 T1 and T3a are tiled matrix products through shared memory on one of four
 cores (:data:`CORES`): the int8 tensor cores by ``mma.sync`` and by
 ``wgmma`` (what K6 runs), the integer lanes by ``__dp4a``, and the bf16
-tensor cores by ``wgmma``; T2 is a bf16 product on ``mma.sync``.
+tensor cores by ``wgmma``; T2 is a bf16 product with both projections on
+``wgmma``, its (K, N) operand read MN-major as it lies, tiled by
+:func:`plan_grid_tiles`.
 :func:`dot_product` is T1's kernel in T3a's store mode for any core: the
 bare product, the function a library call computes. They are bound by
 operations at the large shapes and by the launch and the serial finish at
@@ -33,7 +35,7 @@ then, it runs the plain version beside it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +45,7 @@ from ..precision import tf32
 from ..weights import resolve_device
 from ._build import check_launch, load_kernels
 
-# core name -> CORE_* in csrc/probe.cu (2 is T2's mma.sync bf16 core)
+# core name -> CORE_* in csrc/probe.cu
 CORES = {"mma_s8": 0, "dp4a_s8": 1, "wgmma_s8": 3, "wgmma_bf16": 4}
 TILE = 64              # PD_BM = PD_BN in csrc/probe.cu
 _STORE, _PROJECT = 0, 1
@@ -201,17 +203,76 @@ def dot_step(carry: torch.Tensor, lhs: torch.Tensor, rhs: torch.Tensor,
 dot_step.launches = 0
 
 
+class GridTiles(NamedTuple):
+    """The tiles of a T2 launch (``PgTiles`` in ``csrc/probe.cu``)."""
+    block_m: int  # rows of the product a tile: 64 (one warpgroup) or 128 (two)
+    block_n: int  # its columns: 128, or 256 under one warpgroup
+    stages: int   # 64-deep K steps in the operand ring
+    smem: int     # dynamic shared memory of a block, bytes
+    resident: int  # blocks a multiprocessor's shared memory holds
+
+
+GRID_STEP = 64             # PG_STEP: K elements of a ring stage
+SMEM_PER_SM = 233472       # the H100's shared memory a multiprocessor
+SMEM_RESERVED = 1024       # of it that CUDA reserves per resident block
+
+
+def plan_grid_tiles(m: int, n: int) -> GridTiles:
+    """T2's tile for an (M, K) · (K, N) product: 128 rows (two warpgroups
+    sharing each (K, N) tile) above M = 64, else 64 rows with 256 columns
+    where N exceeds 128, so that both operands are re-read from L2 as
+    seldom as two resident blocks a multiprocessor allow (2 M K N (1/BN +
+    1/BM) bytes a product; 128 x 256 would need 255 registers a thread).
+    The ring takes three 64-deep K steps where a step is at most 32 KB,
+    else two; the acc tile and p2's (BN, 128) rows reuse it."""
+    block_m = 64 if m <= 64 else 128
+    block_n = 256 if block_m == 64 and n > 128 else 128
+    stage = block_m * 128 + GRID_STEP * block_n * 2
+    stages = 3 if stage <= 32768 else 2
+    ring = max(stages * stage, block_m * block_n * 2, block_n * 128 * 2)
+    smem = 1024 + ring + (block_m // 64 + block_n // 64) * 1024
+    return GridTiles(block_m, block_n, stages, smem,
+                     SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+
+def grid_issued(m: int, k: int, n: int) -> Tuple[int, int, int]:
+    """(M, K, N) as T2's tensor cores run them: M and N padded to the
+    tile, K to the 16 of a product. The zero rows, columns and depth are
+    the waste the tool exists to show."""
+    t = plan_grid_tiles(m, n)
+    return (-(-m // t.block_m) * t.block_m, -(-k // 16) * 16,
+            -(-n // t.block_n) * t.block_n)
+
+
 def dot_grid_reference(lhs, rhs, p1, p2, grid: int) -> torch.Tensor:
     """Plain T2: every grid step is the same product → (grid, 8, 128) bf16."""
     out = _consume(dot_reference(lhs, rhs), p1, p2).to(torch.bfloat16)
     return out[None].expand(grid, 8, 128).contiguous()
 
 
+def launch_grid(lhs: torch.Tensor, rhs: torch.Tensor, p1: torch.Tensor,
+                p2: torch.Tensor, grid: int, out: torch.Tensor,
+                lib=None) -> None:
+    """Launch T2's kernel over checked CUDA operands into ``out`` (grid, 8,
+    128) bf16, tiled by :func:`plan_grid_tiles`. :func:`dot_grid`'s
+    launcher; ``tools/ablate_phases`` times its builds through it (``lib``:
+    a library other than the package's)."""
+    (m, k), n = lhs.shape, rhs.shape[1]
+    tiles = plan_grid_tiles(m, n)
+    with torch.cuda.device(lhs.device):
+        rc = (lib or load_kernels()).yolo_probe_dot_grid(
+            lhs.data_ptr(), rhs.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+            m, k, n, grid, tiles.block_m, tiles.block_n, out.data_ptr(),
+            _stream(lhs))
+    check_launch(rc, "probe_dot_grid")
+
+
 def dot_grid(lhs: torch.Tensor, rhs: torch.Tensor, p1: torch.Tensor,
              p2: torch.Tensor, grid: int) -> torch.Tensor:
     """T2: ``grid`` steps in one launch, each a bf16 (M, K)·(K, N) with
     float32 sums consumed as in T1 → (grid, 8, 128) bf16. On the card the
-    steps are ``grid`` independent thread blocks."""
+    steps are ``grid`` independent thread blocks, each one whole product on
+    ``wgmma`` in :func:`plan_grid_tiles`' tiles."""
     m, k, n = _check_dot(lhs, rhs)
     if lhs.dtype != torch.bfloat16:
         raise ValueError(f"dot_grid takes bf16 operands, got {lhs.dtype}")
@@ -221,11 +282,7 @@ def dot_grid(lhs: torch.Tensor, rhs: torch.Tensor, p1: torch.Tensor,
     if lhs.device.type == "cpu":
         return dot_grid_reference(lhs, rhs, p1, p2, grid)
     out = torch.empty((grid, 8, 128), dtype=torch.bfloat16, device=lhs.device)
-    with torch.cuda.device(lhs.device):
-        rc = load_kernels().yolo_probe_dot_grid(
-            lhs.data_ptr(), rhs.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-            m, k, n, grid, out.data_ptr(), _stream(lhs))
-    check_launch(rc, "probe_dot_grid")
+    launch_grid(lhs, rhs, p1, p2, grid, out)
     dot_grid.launches += 1
     return out
 

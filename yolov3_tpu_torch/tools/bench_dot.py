@@ -14,6 +14,12 @@ time the whole card needs per product. ``torch.matmul`` at the same shape is
 printed as the library's time for one bare product; the port does not call
 it. A share of the card's peak above 100% fails.
 
+The kernel runs every product on ``wgmma`` (``ops.cuda_probe.dot_grid``),
+which takes 64 rows, N in its tile (``plan_grid_tiles``) and K in steps of
+16: an M of 32 or a K of 72 is padded with zeros the tensor cores multiply
+all the same. ``issued_share`` is the useful share of what they ran
+(``grid_issued``), the waste the question is about.
+
 Run on a machine with the card: ``python -m yolov3_tpu_torch.tools.bench_dot``.
 """
 from __future__ import annotations
@@ -61,13 +67,15 @@ def time_shape(args, grids: Sequence[int] = GRIDS) -> Dict[str, float]:
     (m, k), n = args[0].shape, args[1].shape[1]
     per = differential_s(lambda g: cuda_probe.dot_grid(*args, g), grids)
     useful = 2 * m * k * n
+    mp, kp, np_ = cuda_probe.grid_issued(m, k, n)
     share = useful / per / BF16_FLOPS_PER_S
     if share > 1.0:
         raise AssertionError(
             f"M={m} K={k} N={n}: {useful / per / 1e12:.1f} TFLOP/s is "
             f"{share:.0%} of the card's peak: the harness is measuring "
             f"something else than the dot")
-    return {"us": per * 1e6, "tops": useful / per / 1e12, "share": share}
+    return {"us": per * 1e6, "tops": useful / per / 1e12, "share": share,
+            "issued_share": useful / (2 * mp * kp * np_)}
 
 
 def main(shapes: Sequence[Tuple[int, int, int]] = SHAPES) -> int:
@@ -81,7 +89,8 @@ def main(shapes: Sequence[Tuple[int, int, int]] = SHAPES) -> int:
         r = time_shape(args)
         r["library_ms"] = event_ms(lambda: torch.matmul(args[0], args[1]))
         print(f"M={m:4d} K={k:4d} N={n}: {r['us']:7.2f} us/step "
-              f"({r['tops']:6.1f} TFLOP/s useful, {r['share']:.1%} of peak; "
+              f"({r['tops']:6.1f} TFLOP/s useful, {r['share']:.1%} of peak, "
+              f"{r['issued_share']:.1%} of the issued products useful; "
               f"library {r['library_ms'] * 1e3:.2f} us)", flush=True)
     return 0
 

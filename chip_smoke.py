@@ -57,27 +57,37 @@ each raises on failure (the build always runs):
    both tile heights; K6, its plain version and the block's two bare
    products on ``torch._int_mm`` (a yardstick, not the same function) as
    device time by CUDA graph replay, with TOP/s and the share of the bound;
-10. the golden fixtures (``tests/data/golden_{tiny,yolov3}.json``) replayed
-    at precision "highest" through the Detector's routes: K1, the plain
-    compact decode, K4, and K5 convs;
+10. the golden fixtures (``tests/data/golden_{tiny,yolov3,spp}.json``)
+    replayed at precision "highest" through the Detector's captured
+    programs (``detect_batch``) on its routes: K1, the plain compact
+    decode, K4, and K5 convs; each program's results equal the eager
+    ``_run``'s bit for bit;
 11. main, the full-width float path: a 248,007,048-byte yolov3 ``.weights``
     file through ``Darknet.load_weights``, then ``Detector.detect_batch``
     at 416 on 8 frames of 480x640: yolov3 precision None (K1), bf16 (K1 on
     bf16 maps), bf16 with the fused head (K4), bf16 with the fused head and
-    fused convs (K4, K5), None on the compact route, and yolov3-tiny; the
-    three bf16 routes by stage, their walks' and decodes' device time from
-    replayed CUDA graphs, K5's launches per call, which of K1's paths the
-    heads took and K2 on the selection's real candidates (exact, each phase
-    timed); ``forward_compact`` through K1c
-    against the plain compact decode; ``Darknet(x)`` through ONE K3 launch;
-    and the bf16 parity bar against "highest";
+    fused convs (K4, K5), None on the compact route, and yolov3-tiny; each
+    route eager (``_run``) and through its captured program: the warm-up
+    and capture launch each wrapper twice a forward's count (K1 1, K2 1,
+    K4 3, K5 29), a steady call is one replay and no eager launch, the
+    results equal the eager ones bit for bit; both per-call times, the
+    program's device time by replay, its share of the call and its memory;
+    the three bf16 routes by stage (eager), their walks' and decodes'
+    device time from replayed CUDA graphs, which of K1's paths the heads
+    took and K2 on the selection's real candidates (exact, each phase
+    timed); the frames' staging pageable against pinned; ``set_params``
+    after a capture against a fresh Detector; ``forward_compact`` through
+    K1c against the plain compact decode; ``Darknet(x)`` through ONE K3
+    launch; and the bf16 parity bar against "highest";
 12. int8, the full-width int8 tier: ``quantize_int8`` of yolov3 on 8 seeded
     frames on the card, then ``detect_batch`` through the int8 carrier with
     K6 blocks (K1 and K4 decode), with unfused blocks, the asymmetric
-    scheme and the bf16 carrier, each with its stage split; K6's launches
-    per forward against ``fused_block_plan``; identical detections for
-    fused and unfused blocks; the state file's round trip; the DESIGN int8
-    bar against float32 on tiny@416;
+    scheme and the bf16 carrier, each eager and captured as in 11 (K6 10
+    launches a forward on the K6 routes), with its stage split; identical
+    detections for fused and unfused blocks; the state file's round trip,
+    and ``load_quantized`` after a capture giving each state's own
+    detections; bf16 against int8, captured, at B=8 and 128; the DESIGN
+    int8 bar against float32 on tiny@416;
 13. probes: the ingredient kernels T3a-e (int8 dot on ``wgmma``, on
     ``mma.sync`` and on ``__dp4a``, round / clip, the row shifts, the edge
     mask, the float epilogue) against their plain versions and the tool's
@@ -99,20 +109,25 @@ each raises on failure (the build always runs):
 16. entry, the entry-point path at full width (yolov3@416, bf16, batch 8,
     frames of four sizes): ``detect_mixed`` against ``detect_preletterboxed``
     (exact) and against per-frame ``detect_batch`` (gated on tiny@416),
-    ``scan=4`` against the same sub-batches at ``scan=1`` (exact) and the
-    convs whose result depends on the batch size, ``PipelinedDetector(depth=2)``
-    against the synchronous calls;
+    ``scan=4`` (ONE captured graph of the four sub-batches) against the
+    same sub-batches at ``scan=1`` (exact) and the convs whose result
+    depends on the batch size, ``PipelinedDetector(depth=2)`` (replays on
+    its own stream) against the synchronous calls;
 17. serve: ``serve()`` on 127.0.0.1 with the micro-batcher over the same
     model: requests one at a time and 16 from 8 threads (PNG bytes to
     ``/detect`` where cv2 is installed), ``/healthz``, ``/stats``,
-    ``/metrics``, then a graceful shutdown that releases the port.
+    ``/metrics``, then a graceful shutdown that releases the port; each
+    device batch one replay of the program the server's warm-up captured;
+    a lone canvas captured at B=1 against padded to B=8.
 
 Every kernel's launch count is zeroed just before phases 11, 12 and 17 (in
 17 after the server's own warm-up), in 16 just before one ``detect_mixed``
 call and before the pipelined batches, in 13 and 14 before the tools' runs,
-and read just after. A Detector call launches K2 once and, on the K1 route,
-K1 once for all its heads: checked call by call in 11 and 12, and in 16 and
-17 against the calls and device batches made. The last two
+and read just after. A wrapper counts where it launches its kernel: in a
+Detector program's warm-up forward and in its capture (on the K1 route K1
+once for all its heads, K2 once); a steady call replays the graph and
+counts one replay and no launch: checked route by route in 11 and 12, and
+in 16 and 17 against the calls and device batches made. The last two
 lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}`` (printed only when every phase
 ran). Exits non-zero, and prints neither, when CUDA is unavailable or the
@@ -1338,11 +1353,15 @@ GOLDEN_ROUTES = (("pallas", "xla"), ("xla", "xla"), ("pallas-fused", "xla"),
 
 
 def phase_golden():
+    """The three frozen fixtures through the captured programs: each route's
+    ``detect_batch`` captures the program of (1, 480x640, BGR) and replays
+    it; the fixture is held on that program's net-pixel output, which must
+    also equal the eager ``_run`` bit for bit."""
     import torch
     from yolov3_tpu_torch import Darknet, Detector
     from yolov3_tpu_torch.weights import fold_raw, random_raw
 
-    for fixture in ("golden_tiny.json", "golden_yolov3.json"):
+    for fixture in ("golden_tiny.json", "golden_yolov3.json", "golden_spp.json"):
         golden = json.loads((REPO / "tests" / "data" / fixture).read_text())
         params = fold_raw(random_raw(
             Darknet(REPO / "models" / golden["cfg"]).graph,
@@ -1360,8 +1379,22 @@ def phase_golden():
             if det.route != decode_impl:
                 raise AssertionError(f"{fixture}: route {det.route} run for "
                                      f"decode_impl={decode_impl}")
-            (got,) = det._unpack(det._run(det._stage(frames)), None)  # net px
+            in_src = det.detect_batch(frames)          # captures, replays
+            prog = det._pipeline(1, SRC_HW)
+            replays = prog.replays
+            res, _, _ = det._detect(frames, SRC_HW, None)  # the same program
+            if prog.replays != replays + 1:
+                raise AssertionError(f"{fixture}: the call did not replay "
+                                     f"the captured program")
+            eager = det._run(det._stage(frames)).cpu()
+            if not torch.equal(res, eager):
+                raise AssertionError(f"{fixture} {decode_impl}/{conv_impl}: "
+                                     f"captured and eager results differ")
+            (got,) = det._unpack(res, None)             # net pixels
             what = f"{fixture} decode_impl={decode_impl} conv_impl={conv_impl}"
+            if not same_detections(in_src, det._unpack(res, SRC_HW)):
+                raise AssertionError(f"{what}: detect_batch differs from its "
+                                     f"program's replay")
             if len(got.class_prob) != len(golden["scores"]):
                 raise AssertionError(f"{what}: {len(got.class_prob)} survivors "
                                      f"vs golden {len(golden['scores'])}")
@@ -1370,37 +1403,131 @@ def phase_golden():
             np.testing.assert_allclose(got.bbox_tlbr, golden["boxes"], atol=0.1)
             err = float(np.abs(got.bbox_tlbr - np.asarray(golden["boxes"])).max())
             log(f"[golden] {what}: {len(got.class_prob)} survivors match "
-                f"(max box err {err:.2e} px) on {torch.cuda.get_device_name(0)}")
+                f"(max box err {err:.2e} px) through the captured program "
+                f"(= eager bit for bit) on {torch.cuda.get_device_name(0)}")
 
 
-def run_main_path(det, name: str, frames: np.ndarray, card: str,
-                  calls: int = 10):
-    """``det.detect_batch`` timed over ``calls`` calls after a warmup, its
-    detections checked for plausibility, and its launches a call: K2 once,
-    and K1 once (all the heads in one launch) on the K1 route."""
+def path_wrappers():
+    """The kernel wrappers a Detector program can run, by name."""
+    from yolov3_tpu_torch.ops import cuda_block, cuda_conv, cuda_decode, cuda_nms
+
+    return {"decode_packed": cuda_decode.decode_packed,
+            "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
+            "conv3x3_fused": cuda_conv.conv3x3_fused,
+            "residual_block_int8": cuda_block.residual_block_int8,
+            "nms_suppress": cuda_nms.suppress}
+
+
+def forward_launches(det):
+    """Kernel-wrapper launches of ONE forward of ``det``'s route: K1 once
+    for all the heads, K4 once a head, K5 once an eligible 3x3 conv, K6
+    once a fused block, K2 once."""
+    from yolov3_tpu_torch.ops import cuda_block
+
+    net = det.net
+    k6 = 0
+    if (net.quantized and net.qcarrier == "int8" and det.block_impl == "pallas"
+            and not (net.act_zeros and any(net.act_zeros.values()))):
+        k6 = len(cuda_block.fused_block_plan(net.graph, net.qparams,
+                                             net.act_scales))
+    return {"decode_packed": int(det.route == "pallas"),
+            "decode_packed_fused_head": (len(net.graph.yolo_nodes)
+                                         if det.route == "pallas-fused" else 0),
+            "conv3x3_fused": (sum(k5_shapes(net.graph).values())
+                              if not net.quantized and net.conv_impl == "pallas"
+                              else 0),
+            "residual_block_int8": k6, "nms_suppress": 1}
+
+
+def replay_ms(prog, iters: int = 10) -> float:
+    """Device ms of one replay of a captured program (back-to-back replays
+    on its static input, CUDA events; no host work between them)."""
     import torch
-    from yolov3_tpu_torch.ops import cuda_decode, cuda_nms
 
-    det.warmup(BATCH, SRC_HW)
-    wrappers = {"decode_packed": cuda_decode.decode_packed,
-                "nms_suppress": cuda_nms.suppress}
-    before = {n: w.launches for n, w in wrappers.items()}
+    prog.graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        prog.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed_calls(fn, calls: int):
+    """``fn()`` ``calls`` times: (host-clock ms, CUDA-event ms) per call."""
+    import torch
+
     host, dev = [], []
     for _ in range(calls):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = det.detect_batch(frames)
+        out = fn()
         end.record()
         end.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         dev.append(start.elapsed_time(end))
-    per_call = {n: (w.launches - before[n]) / calls for n, w in wrappers.items()}
-    want = {"decode_packed": int(det.route == "pallas"), "nms_suppress": 1}
-    if per_call != want:
-        raise AssertionError(f"{name} ({det.route}): launches a call "
-                             f"{per_call}, expected {want}")
+    return out, host, dev
+
+
+MAIN_ROWS = []   # one per run_main_path: the route's eager and captured calls
+
+
+def run_main_path(det, name: str, frames: np.ndarray, card: str,
+                  calls: int = 10):
+    """``det.detect_batch`` on the main path. First the eager, uncached
+    calls (``_run``), timed; then ``warmup`` (one eager forward and the
+    capture), whose kernel-wrapper launches must be twice one forward's
+    (:func:`forward_launches`); then ``calls`` steady calls, each ONE
+    replay of the captured program and no eager wrapper launch, timed;
+    their detections bit-equal to the eager ``_run``'s at the same batch,
+    checked for plausibility. Logs both per-call times, the program's
+    device time by replay and its share of the call, and its memory."""
+    import torch
+
+    wrappers = path_wrappers()
+
+    def counts():
+        return {n: w.launches for n, w in wrappers.items()}
+
+    def eager():
+        return det._unpack(det._run(det._stage(frames)), SRC_HW)
+
+    eager()
+    _, e_host, e_dev = timed_calls(eager, calls)
+    before = counts()
+    det.warmup(BATCH, SRC_HW)
+    per_capture = {n: v - before[n] for n, v in counts().items()}
+    want = forward_launches(det)
+    if per_capture != {n: 2 * v for n, v in want.items()}:
+        raise AssertionError(f"{name} ({det.route}): warm-up and capture "
+                             f"launched {per_capture}, expected twice one "
+                             f"forward's {want}")
+    prog = det._pipeline(BATCH, SRC_HW)
+    replays, before = prog.replays, counts()
+    stages = []
+
+    def captured():
+        got = det.detect_batch(frames)
+        stages.append(det.last_stage_s)
+        return got
+
+    out, host, dev = timed_calls(captured, calls)
+    steady = {n: v - before[n] for n, v in counts().items()}
+    if any(steady.values()) or prog.replays - replays != calls:
+        raise AssertionError(f"{name}: {calls} steady calls made "
+                             f"{prog.replays - replays} replays and eager "
+                             f"launches {steady}; one replay and none "
+                             f"expected a call")
+    ref = det._run(det._stage(frames)).cpu()
+    got, _, _ = det._detect(frames, SRC_HW, None)
+    if not torch.equal(ref, got):
+        raise AssertionError(f"{name} ({det.route}): the captured program's "
+                             f"results differ from the eager _run's")
     for d in out:
         n = len(d.class_prob)
         if not (0 < n <= det.max_results and np.isfinite(d.bbox_tlbr).all()
@@ -1410,13 +1537,32 @@ def run_main_path(det, name: str, frames: np.ndarray, card: str,
                 and (d.bbox_tlbr[:, [1, 3]] <= SRC_HW[0]).all()
                 and (d.bbox_tlbr >= 0).all()):
             raise AssertionError(f"{name}: implausible detections {d}")
+    device_ms = replay_ms(prog)
     net = det.net
+    row = {"name": name, "route": det.route, "precision": net.precision,
+           "conv_impl": net.conv_impl, "eager_host_ms": float(np.median(e_host)),
+           "eager_event_ms": float(np.median(e_dev)),
+           "graph_host_ms": float(np.median(host)),
+           "graph_event_ms": float(np.median(dev)), "replay_ms": device_ms,
+           "busy": device_ms / float(np.median(host)),
+           "program_mb": prog.nbytes / 2 ** 20, "per_forward": want,
+           "stages_ms": {k: float(np.median([st[k] for st in stages])) * 1e3
+                         for k in stages[0]}}
+    MAIN_ROWS.append(row)
     log(f"[main] {name}@416 detect_batch B={BATCH} {SRC_HW[0]}x{SRC_HW[1]} "
         f"uint8, precision={net.precision}, decode_impl={det.route}, "
-        f"conv_impl={net.conv_impl}: per call median {np.median(dev):.3f} ms "
-        f"(CUDA events), {np.median(host):.3f} ms (host clock), {calls} "
-        f"calls, on {card}; survivors/image {[len(d.class_prob) for d in out]}; "
-        f"launches a call {want}")
+        f"conv_impl={net.conv_impl}: per call median, eager "
+        f"{row['eager_host_ms']:.3f} ms host clock / {row['eager_event_ms']:.3f} "
+        f"ms CUDA events; captured {row['graph_host_ms']:.3f} / "
+        f"{row['graph_event_ms']:.3f} ms ({calls} calls each, on {card}); "
+        f"one replay alone {device_ms:.3f} ms of device time, "
+        f"{row['busy']:.1%} of the captured call (last_stage_s medians, ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in row["stages_ms"].items())
+        + f"); program "
+        f"{row['program_mb']:.1f} MiB; wrapper launches a forward {want} "
+        f"(warm-up + capture made twice that), steady calls: one replay, 0 "
+        f"eager launches; captured == eager bit for bit; survivors/image "
+        f"{[len(d.class_prob) for d in out]}")
     return out
 
 
@@ -1477,6 +1623,79 @@ def compact_sets(res):
             for i in range(arr.scores.shape[0])]
 
 
+def staging_split(det, frames: np.ndarray, calls: int = 20) -> dict:
+    """The frames' copy into a captured program's static input two ways,
+    from the caller's pageable array and through a pinned host buffer (a
+    host copy into it, then an asynchronous device copy): the copy alone
+    (each ending in a synchronise) and a whole ``detect_batch``-like call
+    around each (stage, replay, one device→host copy, unpack); in turns,
+    host clock, medians of ``calls``."""
+    import torch
+
+    prog = det._pipeline(BATCH, SRC_HW)
+    pinned = torch.empty(tuple(prog.input.shape), dtype=torch.uint8,
+                         pin_memory=True)
+
+    def stage(way):
+        if way == "pageable":
+            return prog.stage(frames, det.device)
+        np.copyto(pinned.numpy(), frames)
+        return prog.stage_pinned(pinned)
+
+    def copy_only(way):
+        stage(way)
+        torch.cuda.synchronize()
+
+    def whole(way):
+        res = prog(stage(way)).cpu()
+        prog.release()
+        det._unpack(res, SRC_HW)
+
+    out = {}
+    for what, fn in (("copy", copy_only), ("call", whole)):
+        times = {"pageable": [], "pinned": []}
+        for i in range(calls + 1):
+            for way in (("pageable", "pinned") if i % 2 else ("pinned", "pageable")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(way)
+                if i:
+                    times[way].append((time.perf_counter() - t0) * 1e3)
+        out[what] = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[main] staging B={BATCH} {SRC_HW[0]}x{SRC_HW[1]} uint8 "
+        f"({frames.nbytes / 2 ** 20:.2f} MiB) into a program's static input, "
+        f"medians of {calls} in turns (host clock), pageable / through a "
+        f"pinned buffer: the copy {out['copy']['pageable']:.3f} / "
+        f"{out['copy']['pinned']:.3f} ms, a whole call "
+        f"{out['call']['pageable']:.3f} / {out['call']['pinned']:.3f} ms")
+    return out
+
+
+def weights_swap(frames: np.ndarray) -> None:
+    """``set_params`` with new weights after a capture: the Detector's next
+    call builds a new program (a new key) and gives a fresh Detector's
+    detections on those weights, not the captured weights'."""
+    from yolov3_tpu_torch import Darknet, Detector
+    from yolov3_tpu_torch.weights import fold_raw, random_raw
+
+    net = entry_net("bf16", seed=0)
+    det = Detector(net)
+    before = det.detect_batch(frames)
+    params = fold_raw(random_raw(net.graph, seed=5))
+    net.set_params(params)
+    after = det.detect_batch(frames)
+    fresh = Darknet(REPO / "models" / "yolov3.cfg", precision="bf16",
+                    device=DEVICE).set_params(params)
+    want = Detector(fresh).detect_batch(frames)
+    if not same_detections(after, want) or same_detections(after, before):
+        raise AssertionError("set_params after a capture: the Detector did "
+                             "not give a fresh Detector's detections")
+    log(f"[main] yolov3@416 bf16 set_params(new weights) after a capture: "
+        f"{len(det._pipelines)} programs cached, the next call equals a fresh "
+        f"Detector's on the new weights ({[len(d.class_prob) for d in after]} "
+        f"per image; {[len(d.class_prob) for d in before]} before)")
+
+
 def phase_main(card: str):
     import torch
     from yolov3_tpu_torch import (Darknet, Detector, forward_compact,
@@ -1510,21 +1729,26 @@ def phase_main(card: str):
                "conv3x3_fused": cuda_conv.conv3x3_fused,
                "decode_all": cuda_decode.decode_all,
                "nms_suppress": cuda_nms.suppress}
+    k5_det = Detector(nets["bf16-k5"], decode_impl="pallas-fused")
+    routes = (("bf16 + K1", Detector(nets["bf16"])),
+              ("bf16 + K4", Detector(nets["bf16"], decode_impl="pallas-fused")),
+              ("bf16 + K4 + K5", k5_det))
+    # the eager stage splits first, before any graph capture: taken after
+    # one in the same process they read up to 1.5x slower (seen on the
+    # card, cause not isolated); the counts are zeroed after them
+    splits = [stage_split(det, frames, calls=10) for _, det in routes]
     for k in kernels.values():
         k.launches = 0
     run_main_path(Detector(nets["none"]), "yolov3", frames, card)
-    run_main_path(Detector(nets["bf16"]), "yolov3", frames, card)
-    run_main_path(Detector(nets["bf16"], decode_impl="pallas-fused"),
-                  "yolov3", frames, card)
-    k5_det = Detector(nets["bf16-k5"], decode_impl="pallas-fused")
-    run_main_path(k5_det, "yolov3", frames, card)
+    for _, det in routes:
+        run_main_path(det, "yolov3", frames, card)
     run_main_path(Detector(nets["none"], decode_impl="xla"), "yolov3", frames, card)
     run_main_path(Detector(tiny), "yolov3-tiny", frames, card)
     # forward_compact through K1c against the plain compact decode, on the
     # same preprocessed frames
     det = Detector(nets["none"])
     x = preprocess(torch.from_numpy(frames).to(DEVICE).flip(-1), det.net_hw,
-                   interp=det._interp_for(SRC_HW))
+                   interp=det._interp(SRC_HW))
     net = nets["none"]
     sets = {}
     with torch.inference_mode():
@@ -1569,19 +1793,10 @@ def phase_main(card: str):
         if n == 0:
             raise AssertionError(f"the main path never launched {kernel}")
     # after the read of the counts, which are the main path's own: the
-    # fused-conv route by stage, beside the routes that leave the convs to
-    # cuDNN; the walk also as device time alone (replayed from a CUDA
-    # graph: every layer's weights come from device memory, not from L2 as
-    # in the k5 phase), and K5's launches in one call: every eligible layer
-    x = preprocess(torch.from_numpy(frames).to(DEVICE).flip(-1), k5_det.net_hw,
-                   interp=k5_det._interp_for(SRC_HW))
-    routes = (("bf16 + K1", Detector(nets["bf16"])),
-              ("bf16 + K4", Detector(nets["bf16"], decode_impl="pallas-fused")),
-              ("bf16 + K4 + K5", k5_det))
-    # all eager splits before any graph capture: taken after one in the same
-    # process they read up to 1.5x slower (seen on the card, cause not
-    # isolated)
-    splits = [stage_split(det, frames, calls=10) for _, det in routes]
+    # three bf16 routes by stage (eager, measured above), the walk and the
+    # decode also as device time alone (replayed from a CUDA graph: every
+    # layer's weights come from device memory, not from L2 as in the k5
+    # phase)
     for (name, det), split in zip(routes, splits):
         walk, decode = route_stages(det)
         with torch.inference_mode():
@@ -1595,15 +1810,8 @@ def phase_main(card: str):
                 f"{k} {v:.3f}" for k, v in split.items())
             + f"; device time (CUDA graph replay): the walk {walk_ms:.3f} ms, "
             f"the decode {decode_ms:.4f} ms")
-    before = cuda_conv.conv3x3_fused.launches
-    k5_det.detect_batch(frames)
-    per_call = cuda_conv.conv3x3_fused.launches - before
-    eligible = sum(k5_shapes(nets["bf16-k5"].graph).values())
-    if per_call != eligible:
-        raise AssertionError(f"K5 launched {per_call} times in one call, the "
-                             f"graph has {eligible} eligible convs")
-    log(f"[main] yolov3@416 bf16 + K4 + K5: {per_call} K5 launches per call "
-        f"(every eligible 3x3 conv)")
+    staging_split(routes[0][1], frames)
+    weights_swap(frames)
     # the bf16 bar where the reference holds it (tests/test_compact_path.py:
     # tiny@416, random weights of seed 3, uniform inputs); at yolov3's depth
     # random weights amplify rounding, so its shares are reported, not gated
@@ -1758,7 +1966,7 @@ def stage_split(det, frames: np.ndarray, calls: int):
             dev = det._stage(frames)
             marks[1].record()
             x = preprocess(dev.flip(-1), det.net_hw, mode=det.resize_mode,
-                           interp=det._interp_for(SRC_HW))
+                           interp=det._interp(SRC_HW))
             marks[2].record()
             heads = walk(x)
             marks[3].record()
@@ -1779,6 +1987,34 @@ def same_detections(a, b) -> bool:
         np.array_equal(x.bbox_tlbr, y.bbox_tlbr)
         and np.array_equal(x.class_prob, y.class_prob)
         and np.array_equal(x.class_idx, y.class_idx) for x, y in zip(a, b))
+
+
+def int8_against_bf16(params, qnet, card: str, batches=(8, 128)) -> None:
+    """bf16 + K1 against the int8 carrier with K6 blocks + K1 at batch 8
+    and 128 of 480x640 frames, both captured: host-clock per-call medians of
+    3 calls, device time of one replay, in turns in one process."""
+    from yolov3_tpu_torch import Darknet, Detector
+
+    fnet = Darknet(REPO / "models" / "yolov3.cfg", precision="bf16",
+                   device=DEVICE).set_params(params)
+    dets = {"bf16 + K1": Detector(fnet),
+            "int8 carrier + K6 + K1": Detector(qnet, block_impl="pallas")}
+    rng = np.random.default_rng(13)
+    for b in batches:
+        frames = rng.integers(0, 256, (b, *SRC_HW, 3), dtype=np.uint8)
+        row = {}
+        for name, det in dets.items():
+            det.warmup(b, SRC_HW)
+            _, host, _ = timed_calls(lambda: det.detect_batch(frames), 3)
+            prog = det._pipeline(b, SRC_HW)
+            row[name] = (float(np.median(host)), replay_ms(prog, iters=3),
+                         prog.nbytes / 2 ** 20)
+            del det._pipelines[prog.key]   # its pool back before the next
+            prog.close()
+        log(f"[int8] captured yolov3@416 B={b}: " + "; ".join(
+            f"{n} {h:.3f} ms a call (host clock), replay {r:.3f} ms, "
+            f"{b / h * 1e3:.1f} img/s, program {m:.0f} MiB"
+            for n, (h, r, m) in row.items()) + f" on {card}")
 
 
 def phase_int8(card: str):
@@ -1834,24 +2070,25 @@ def phase_int8(card: str):
               ("asymmetric int8 carrier, K1", "asym", {}),
               ("bf16 carrier, K1", "bf16c", {}))
     calls, outs, dets, per_forwards = 5, {}, {}, {}
-    k6 = cuda_block.residual_block_int8
     for name, key, kw in routes:
         det = dets[name] = Detector(nets[key], **kw)
-        before = k6.launches
+        # run_main_path holds the warm-up and the capture to twice one
+        # forward's launches: K6 once a fused block, len(plan) on the K6
+        # routes
         outs[name] = run_main_path(det, f"yolov3 [{name}]", frames, card,
                                    calls=calls)
-        per_forward = (k6.launches - before) / (calls + 1)  # + the warmup
+        per_forward = forward_launches(det)["residual_block_int8"]
         want = len(plan) if kw.get("block_impl") == "pallas" else 0
         if per_forward != want:
-            raise AssertionError(f"{name}: K6 launched {per_forward} times per "
+            raise AssertionError(f"{name}: K6 launches {per_forward} times per "
                                  f"forward, expected {want}")
         per_forwards[name] = per_forward
     # the counts of the detect_batch calls alone: the stage split below
     # rebuilds a call out of its stages and would add its own launches
     launches = {name: k.launches for name, k in kernels.items()}
-    log(f"[int8] kernel launches in the int8 main-path runs ({calls} timed "
-        f"calls + 1 warmup of detect_batch on each of {len(routes)} routes): "
-        f"{launches}")
+    log(f"[int8] kernel launches in the int8 main-path runs (on each of "
+        f"{len(routes)} routes: {calls + 2} eager calls, one warm-up forward "
+        f"and one capture, then {calls + 2} replays): {launches}")
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"the int8 main path never launched {kernel}")
@@ -1877,11 +2114,28 @@ def phase_int8(card: str):
         fresh = Darknet(cfg, precision="bf16", device=DEVICE).set_params(params)
         fresh.load_quantized(path)
         size = path.stat().st_size
-    again = Detector(fresh, block_impl="pallas").detect_batch(frames)
-    if not same_detections(again, outs[routes[0][0]]):
-        raise AssertionError("a reloaded quantization state gives other detections")
+        asym_path = Path(tmp) / "yolov3_int8_asym.npz"
+        nets["asym"].save_quantized(asym_path)
+        det = Detector(fresh, block_impl="pallas")
+        again = det.detect_batch(frames)
+        if not same_detections(again, outs[routes[0][0]]):
+            raise AssertionError("a reloaded quantization state gives other "
+                                 "detections")
+        # re-quantizing after a capture: each state's own detections, never
+        # the captured state's
+        fresh.load_quantized(asym_path)
+        swapped = det.detect_batch(frames)
+        fresh.load_quantized(path)
+        back = det.detect_batch(frames)
+    if (not same_detections(swapped, outs[routes[3][0]])
+            or not same_detections(back, outs[routes[0][0]])):
+        raise AssertionError("load_quantized after a capture replayed a "
+                             "stale quantization state")
     log(f"[int8] save_quantized -> load_quantized ({size / 1e6:.1f} MB npz): "
-        f"identical detections")
+        f"identical detections; after the capture, load_quantized of the "
+        f"asymmetric state gives its own detections and the symmetric one's "
+        f"back again ({len(det._pipelines)} programs cached)")
+    int8_against_bf16(params, nets["sym"], card)
 
     # the DESIGN int8 bar where the reference holds it (tests/test_quant.py:
     # tiny@416, random weights of seed 3, uniform inputs, scales calibrated
@@ -2335,9 +2589,13 @@ def phase_entry(card: str):
 
     det = Detector(net)
     det.warmup(BATCH, (416, 416), host_preprocessed=True)
-    # one device batch: K1 once for all the heads, K2 once
+    canvas_prog = det._pipeline(BATCH, (416, 416), bgr=False)
+    replays = canvas_prog.replays
+    # one device batch: the captured program's replay, no eager launch
     mixed, launches = counted(lambda: det.detect_mixed(frames),
-                              {"decode_packed": 1, "nms_suppress": 1})
+                              {"decode_packed": 0, "nms_suppress": 0})
+    if canvas_prog.replays != replays + 1:
+        raise AssertionError("detect_mixed did not replay its program once")
     stages = dict(det.last_stage_s)
     canvases = det._build_canvases(frames)
     pre = det.detect_preletterboxed(canvases, hws)
@@ -2348,7 +2606,7 @@ def phase_entry(card: str):
     # detect_batch run the same device program (a 416x416 source is not
     # resized), so the results are the same in net pixels
     as_batch = Detector(net, bgr=False).detect_batch(canvases)
-    in_net = det._unpack(det._run_staged(det._stage(canvases), bgr=False), None)
+    in_net = det._unpack(det._run(det._stage(canvases), bgr=False), None)
     for d in in_net:   # detect_batch clips to its source frame, the canvas
         np.clip(d.bbox_tlbr, 0, 416, out=d.bbox_tlbr)
     if not same_detections(as_batch, in_net):
@@ -2374,8 +2632,9 @@ def phase_entry(card: str):
                             if c == cls), default=0.0) > 0.9
     log(f"[entry] yolov3@416 bf16 B={BATCH}, frames {ENTRY_SHAPES} x2: "
         f"detect_mixed == detect_preletterboxed exactly "
-        f"({[len(d.class_prob) for d in mixed]} per image), kernel launches "
-        f"of the one call {launches}; detect_batch on the canvases == the "
+        f"({[len(d.class_prob) for d in mixed]} per image), eager kernel "
+        f"launches of the one call {launches} (one replay of the captured "
+        f"program); detect_batch on the canvases == the "
         f"same in net pixels; stage split ms "
         + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in stages.items()))
     log(f"[entry] detect_mixed against per-frame detect_batch (device "
@@ -2394,6 +2653,10 @@ def phase_entry(card: str):
     if not same_detections(got, want):
         raise AssertionError("scan=4 on 32 frames differs from four scan=1 "
                              "calls of 8")
+    (scan_prog,) = det4._pipelines.values()
+    if scan_prog.key[0] != 32 or scan_prog.replays != 1:
+        raise AssertionError(f"scan=4: programs {list(det4._pipelines)}, "
+                             f"one graph of the 32 frames expected")
     t0 = time.perf_counter()
     for _ in range(3):
         det4.detect_preletterboxed(many, src)
@@ -2403,8 +2666,10 @@ def phase_entry(card: str):
         for i in range(4):
             det.detect_preletterboxed(many[8 * i:8 * i + 8], src[:8])
     t_plain = (time.perf_counter() - t0) / 3 * 1e3
-    log(f"[entry] scan=4 on 32 canvases == four scan=1 calls of 8 exactly, in "
-        f"order; {t_scan:.2f} ms against {t_plain:.2f} ms (host clock, mean of 3)")
+    log(f"[entry] scan=4 on 32 canvases, ONE captured graph of the four "
+        f"sub-batches ({scan_prog.nbytes / 2 ** 20:.0f} MiB) == four scan=1 "
+        f"calls of 8 exactly, in order; {t_scan:.2f} ms against "
+        f"{t_plain:.2f} ms (host clock, mean of 3)")
     # scan=4 on 8 canvases runs sub-batches of 2, scan=1 one batch of 8: the
     # results are the same only where every conv's result for an image does
     # not depend on the batch it is in. Shown per conv, and end to end
@@ -2453,10 +2718,14 @@ def phase_entry(card: str):
                 raise AssertionError("more than depth batches in flight")
         return out + pipe.flush()
 
+    batch_prog = det._pipeline(BATCH, SRC_HW)
+    replays = batch_prog.replays
     t0 = time.perf_counter()
-    got, piped = counted(pipelined, {"decode_packed": len(batches),
-                                     "nms_suppress": len(batches)})
+    got, piped = counted(pipelined, {"decode_packed": 0, "nms_suppress": 0})
     t_pipe = (time.perf_counter() - t0) / len(batches) * 1e3
+    if batch_prog.replays - replays != len(batches):
+        raise AssertionError(f"{len(batches)} pipelined batches made "
+                             f"{batch_prog.replays - replays} replays")
     if len(got) != len(want) or not all(same_detections(g, w)
                                         for g, w in zip(got, want)):
         raise AssertionError("PipelinedDetector's results differ from the "
@@ -2465,8 +2734,24 @@ def phase_entry(card: str):
         f"{SRC_HW[0]}x{SRC_HW[1]} frames: the synchronous results, in order; "
         f"{t_pipe:.3f} ms per batch pipelined (its first batch, apart: "
         f"{t_first:.1f} ms), {t_sync:.3f} ms synchronous (host clock) on "
-        f"{card}; kernel launches of the 8 pipelined batches {piped}")
+        f"{card}; eager kernel launches of the 8 pipelined batches {piped}, "
+        f"one replay each")
     return dict(launches, pipelined_ms=t_pipe, sync_ms=t_sync)
+
+
+def padding_split(det, frame: np.ndarray, calls: int = 10) -> dict:
+    """One host-letterboxed frame through ``detect_preletterboxed`` as a
+    captured batch of 1 and padded to a batch of 8 (the micro-batcher's
+    padding): host-clock median ms a call, by batch."""
+    canvas = det._build_canvases([frame])
+    out = {}
+    for b in (1, 8):
+        batch = np.concatenate([canvas] + [np.zeros_like(canvas)] * (b - 1))
+        det.warmup(b, frame.shape[:2], host_preprocessed=True)
+        _, host, _ = timed_calls(
+            lambda: det.detect_preletterboxed(batch, [frame.shape[:2]] * b), calls)
+        out[b] = float(np.median(host))
+    return out
 
 
 def phase_serve(card: str):
@@ -2510,6 +2795,7 @@ def phase_serve(card: str):
                "nms_suppress": cuda_nms.suppress}
     for k in kernels.values():
         k.launches = 0
+    replays = {k: p.replays for k, p in det._pipelines.items()}
     port = server.server_address[1]
     url = f"http://127.0.0.1:{port}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -2599,12 +2885,16 @@ def phase_serve(card: str):
     except OSError:
         pass
     launches = {name: k.launches for name, k in kernels.items()}
-    # one device batch, one detect call: K1 once for all heads, K2 once
+    # one device batch, one detect call: one replay of the program the
+    # server's warm-up captured, no eager launch
     n_batches = sum(sizes.values())
-    if launches != {"decode_packed": n_batches, "nms_suppress": n_batches}:
-        raise AssertionError(f"the serving path's launches {launches}, "
-                             f"expected one of each for each of its "
-                             f"{n_batches} device batches")
+    made = sum(p.replays - replays.get(k, 0) for k, p in det._pipelines.items())
+    if (launches != {"decode_packed": 0, "nms_suppress": 0}
+            or made != n_batches or set(det._pipelines) != set(replays)):
+        raise AssertionError(f"the serving path's eager launches {launches}, "
+                             f"{made} replays; none and one for each of its "
+                             f"{n_batches} device batches expected")
+    padded = padding_split(det, frames[0])
     conc = np.asarray([ms for ms, _ in answers])
     fill = sum(s * n for s, n in sizes.items()) / sum(sizes.values())
     post = "run" if cv2 is not None else "not run: no cv2"
@@ -2617,7 +2907,10 @@ def phase_serve(card: str):
         f"fill {fill:.2f} of 8; /stats requests 24, stages "
         f"{ {k: v['mean_ms'] for k, v in stats['stages'].items()} } ms; GETs "
         f"{get_ms} ms, retried {retried or 'none'}; drained "
-        f"and port released; kernel launches {launches} on {card}")
+        f"and port released; eager kernel launches {launches}, {made} "
+        f"replays of the warm-up's program on {card}; a lone canvas "
+        f"captured at B=1 {padded[1]:.3f} ms a call against {padded[8]:.3f} "
+        f"ms padded to B=8 (host clock, median of 10)")
     return dict(launches, post_detect=post, p50_single=float(np.median(single)),
                 p50=float(np.percentile(conc, 50)), p95=float(np.percentile(conc, 95)))
 

@@ -147,8 +147,13 @@ def test_scan_equals_unscanned(net, jax_results, scan, n):
     want = Detector(net, **KW).detect_batch(batch)
     det = Detector(net, scan=scan, **KW)
     runs = []
-    real = det._run
-    det._run = lambda f, bgr=None: runs.append(f.shape[0]) or real(f, bgr)
+    real = det._body     # one sub-batch's device work inside the program
+
+    def body(bgr, route):
+        run = real(bgr, route)
+        return lambda f: runs.append(f.shape[0]) or run(f)
+
+    det._body = body
     got = det.detect_batch(batch)
     assert len(got) == n
     _same(got, want, exact=True)

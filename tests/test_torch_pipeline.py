@@ -55,10 +55,14 @@ def test_detect_batch_matches_jax(cfg, net_hw, src_hw, prob):
     _assert_same_detections(got, want)
 
 
-@pytest.mark.parametrize("fixture", ["golden_tiny.json", "golden_yolov3.json"])
+@pytest.mark.parametrize("fixture", ["golden_tiny.json", "golden_yolov3.json",
+                                     "golden_spp.json"])
 def test_golden_replay(fixture):
-    """The JAX package's frozen detections, replayed through the port's
-    Detector at precision="highest" and compared in net-input pixels."""
+    """The JAX package's frozen detections (all three fixtures, as
+    ``tests/test_golden.py`` holds them), replayed through the port's
+    Detector at precision="highest" and compared in net-input pixels: the
+    cached program of the key (the one ``detect_batch`` runs) and the eager
+    ``_run`` alike."""
     golden = json.loads((DATA / fixture).read_text())
     net = Darknet(MODELS / golden["cfg"], precision="highest", device="cpu")
     net.set_params(fold_raw(random_raw(net.graph, seed=golden["seed"],
@@ -69,7 +73,10 @@ def test_golden_replay(fixture):
                    net_hw=(size, size))
     frames = np.random.default_rng(golden["seed"]).integers(
         0, 256, (1, 480, 640, 3), dtype=np.uint8)
-    (got,) = det._unpack(det._run(det._stage(frames)), None)  # net pixels
+    prog = det._pipeline(1, (480, 640))
+    packed = prog(prog.stage(frames, det.device))
+    assert torch.equal(packed, det._run(det._stage(frames)))
+    (got,) = det._unpack(packed, None)  # net pixels
     assert len(got.class_prob) == len(golden["scores"])
     np.testing.assert_array_equal(got.class_idx, np.asarray(golden["classes"]))
     np.testing.assert_allclose(got.class_prob, np.asarray(golden["scores"]),

@@ -40,17 +40,26 @@ kernel that cannot build or launch raises. The multi-device routes wait for
 and ``detect_preletterboxed`` runs steps 1-5 on it (the device preprocess is
 then the normalization alone); without the loader, same-shape groups go
 through ``detect_batch``. ``scan=k`` splits a batch into ``k`` sub-batches
-that are enqueued back to back with no host synchronisation between them
-and leave the device in ONE copy. ``PipelinedDetector`` keeps several
-batches in flight on a CUDA stream of its own.
+that run back to back in one program and leave the device in ONE copy.
+``PipelinedDetector`` keeps several batches in flight on a CUDA stream of
+its own.
 
-PyTorch runs eagerly, so there is nothing to compile per (batch, shape); the
-Detector caches only the interpolation matrices. ``cv2`` is imported inside
-the entry points that need it, never with the package.
+Steps 1-5 run as one cached program per (batch, source shape, channel
+order, quantization state, weights), the counterpart of the JAX package's
+jitted pipelines (``Detector._pipeline`` / ``_finalize`` /
+``_cache_pipeline``, an LRU of 16). On the card a program is ONE CUDA graph,
+captured at its first call after one eager run that builds the kernels and
+fills every lazy cache; a later call copies its frames into the graph's
+static input, replays it, and copies the static packed output out. On the
+CPU a program is the eager closure of the same steps, so both devices key
+and evict alike. A capture or a replay that fails raises. ``cv2`` is
+imported inside the entry points that need it, never with the package.
 """
 from __future__ import annotations
 
+import gc
 import logging
+import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -65,7 +74,8 @@ from .model import (Darknet, forward_compact, forward_packed,
                     resolve_device)
 from .ops.cuda_decode import supported as packed_decode_supported
 from .ops.nms import IMPLS as NMS_IMPLS, auto_top_k
-from .ops.nms import batched_nms_compact, batched_nms_packed, pack_results
+from .ops.nms import (NMSResult, batched_nms_compact, batched_nms_packed,
+                      pack_results)
 from .ops.preprocess import Interp, interp_matrices, preprocess, resize_target
 from .utils.boxes import unletterbox_tlbr, unstretch_tlbr
 
@@ -77,24 +87,27 @@ BLOCK_IMPLS = ("xla", "pallas")
 PARTITIONS = ("data", "spatial")
 
 
-def decode_route(graph, decode_impl: str, q_ok: bool = True) -> str:
+def decode_route(graph, decode_impl: str, q_ok: bool = True,
+                 warn: bool = True) -> str:
     """The route a Detector runs for ``decode_impl`` on ``graph``, by the
-    JAX package's gates (``yolov3_tpu/inference.py``), with its warnings.
-    ``q_ok`` is False for a net quantized with the bf16 carrier, whose walk
-    has no head-fused form."""
+    JAX package's gates (``yolov3_tpu/inference.py``), with its warnings
+    unless ``warn`` is False. ``q_ok`` is False for a net quantized with
+    the bf16 carrier, whose walk has no head-fused form."""
     if decode_impl not in DECODE_IMPLS:
         raise ValueError(f"decode_impl must be one of {DECODE_IMPLS}, got "
                          f"{decode_impl!r}")
     if decode_impl == "pallas-fused" and not (
             q_ok and fused_heads_eligible(graph)):
-        log.warning("head-fused decode not applicable here (%s); "
-                    "falling back to decode_impl='pallas'",
-                    "bf16-carrier int8" if not q_ok else "graph shape")
+        if warn:
+            log.warning("head-fused decode not applicable here (%s); "
+                        "falling back to decode_impl='pallas'",
+                        "bf16-carrier int8" if not q_ok else "graph shape")
         decode_impl = "pallas"
     if (decode_impl in ("pallas", "pallas-fused")
             and not packed_decode_supported([n.anchors for n in graph.yolo_nodes])):
-        log.warning("pallas decode supports <=4 anchors/head; "
-                    "falling back to decode_impl='xla'")
+        if warn:
+            log.warning("pallas decode supports <=4 anchors/head; "
+                        "falling back to decode_impl='xla'")
         decode_impl = "xla"
     return decode_impl
 
@@ -108,6 +121,132 @@ class Detection:
     class_idx: np.ndarray  # (n,) int32
 
 
+class _InterpCache(dict):
+    """Interpolation matrices per source shape, built at the first call for
+    the shape (a host→device copy: in a program's warm-up forward, never
+    inside a capture). Callable, so a program's closure holds this cache
+    and not its Detector."""
+
+    def __init__(self, net_hw: Tuple[int, int], mode: str,
+                 device: torch.device):
+        super().__init__()
+        self.net_hw, self.mode, self.device = net_hw, mode, device
+
+    def __call__(self, src_hw: Tuple[int, int]) -> Interp:
+        if src_hw not in self:
+            out_hw = resize_target(src_hw, self.net_hw, self.mode)
+            self[src_hw] = interp_matrices(src_hw, out_hw, self.device)
+        return self[src_hw]
+
+
+class _Program:
+    """One cached program of a :class:`Detector`, the counterpart of a
+    jitted pipeline of the JAX package: (B, H, W, 3) uint8 frames on the
+    device → packed (B, R, 6) results. This one is the eager closure (the
+    CPU's program); ``keep`` holds the weights and quantization state of its
+    key alive, as the reference's closure holds its ``qparams``."""
+
+    def __init__(self, key: Tuple, route: str, run, keep: Tuple):
+        self.key, self.route, self.run, self.keep = key, route, run, keep
+
+    def stage(self, frames: np.ndarray, device: torch.device) -> torch.Tensor:
+        """The host batch on ``device``, as this program's input."""
+        return torch.from_numpy(frames).to(device)
+
+    def __call__(self, frames: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.run(frames)
+
+    def release(self) -> None:
+        """The caller's result has left the program's buffers."""
+
+    def close(self) -> None:
+        """Evicted from the cache."""
+
+
+class _CapturedProgram(_Program):
+    """A program captured as ONE CUDA graph on the card: flip, preprocess,
+    walk, decode, selection, K2, compaction and pack, reading a static uint8
+    input and writing a static packed output, in a memory pool of its own.
+
+    One eager run on the capture stream comes first: it builds the kernels
+    and fills every lazy cache (the interpolation matrices, the int8
+    operands, the anchors' device constants, the libraries' handles and
+    workspaces), so nothing inside the capture copies from the host or
+    synchronises. A replay overwrites the static output, so a caller that
+    holds a result past the next call copies it out first; ``release``
+    records where it did, and the next caller's stream waits for that
+    point (``acquire``) before it touches the buffers."""
+
+    def __init__(self, key: Tuple, route: str, run, keep: Tuple,
+                 device: torch.device):
+        super().__init__(key, route, run, keep)
+        batch, (h, w) = key[0], key[1]
+        self.input = torch.zeros((batch, h, w, 3), dtype=torch.uint8,
+                                 device=device)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            run(self.input)
+        stream.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        self.graph = torch.cuda.CUDAGraph()
+        # no collection inside the capture: a graph it freed (another
+        # program, dropped in a reference cycle) would be destroyed there,
+        # which the capture refuses
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.inference_mode(), torch.cuda.graph(self.graph,
+                                                          stream=stream):
+                self.output = run(self.input)
+        finally:
+            if collecting:
+                gc.enable()
+        # device bytes the program holds: its pool (intermediates, output)
+        self.nbytes = torch.cuda.memory_reserved(device) - reserved
+        self.replays = 0
+        self._released = torch.cuda.Event()
+        self._used = False
+
+    def acquire(self) -> None:
+        """Order the current stream after the last caller's copy out."""
+        if self._used:
+            torch.cuda.current_stream(self.input.device).wait_event(
+                self._released)
+
+    def stage(self, frames: np.ndarray, device: torch.device) -> torch.Tensor:
+        self.acquire()
+        self.input.copy_(torch.from_numpy(frames))
+        return self.input
+
+    def stage_pinned(self, frames: torch.Tensor) -> torch.Tensor:
+        """Stage from pinned host memory, asynchronously on the current
+        stream (the caller keeps ``frames`` alive until the copy ran)."""
+        self.acquire()
+        self.input.copy_(frames, non_blocking=True)
+        return self.input
+
+    def __call__(self, frames: torch.Tensor) -> torch.Tensor:
+        if frames is not self.input:
+            raise ValueError("a captured program reads its own static input: "
+                             "stage the frames with stage()")
+        self.graph.replay()
+        self.replays += 1
+        return self.output
+
+    def release(self) -> None:
+        self._released.record(torch.cuda.current_stream(self.input.device))
+        self._used = True
+
+    def close(self) -> None:
+        # the graph and its pool go with the last reference; a replay still
+        # running on another stream must not have its memory handed out
+        if self._used:
+            self._released.synchronize()
+
+
 class Detector:
     """End-to-end detector over a :class:`~yolov3_tpu_torch.model.Darknet`
     on the net's device. The parameters take the JAX Detector's positional
@@ -119,15 +258,22 @@ class Detector:
     on the bf16-carrier walk). ``nms_impl`` takes the JAX package's "xla"
     and "pallas": its two suppressions are bit-identical and on the card
     both names run the kernel K2. ``scan=k`` runs each batch as ``k``
-    sub-batches enqueued back to back whose results leave the device in one
-    copy (a throughput knob: the batch is padded to a multiple of ``k``).
-    The results come back in submission order and equal, bit for bit, those
-    of the same sub-batches run one call each. They equal ``scan=1``'s on
-    the whole batch only where a conv's result for an image does not depend
-    on the batch it is in: true on the CPU, not on the card, where the
-    library picks its conv algorithm by batch size (PERF.md, Findings).
-    ``mesh`` / ``partition="spatial"`` (several devices) are not ported yet
-    and raise."""
+    sub-batches back to back in one program whose results leave the device
+    in one copy (a throughput knob: the batch is padded to a multiple of
+    ``k``). The results come back in submission order and equal, bit for
+    bit, those of the same sub-batches run one call each. They equal
+    ``scan=1``'s on the whole batch only where a conv's result for an image
+    does not depend on the batch it is in: true on the CPU, not on the card,
+    where the library picks its conv algorithm by batch size (PERF.md,
+    Findings). ``mesh`` / ``partition="spatial"`` (several devices) are not
+    ported yet and raise.
+
+    Programs are cached per (batch, source shape, channel order,
+    quantization state, weights) in an LRU of ``_pipeline_capacity`` (16,
+    the reference's): ``set_params`` / ``load_weights`` / ``quantize_int8``
+    / ``set_quantized`` / ``load_quantized`` change the key, so no program
+    replays weights it no longer should. A Detector serialises its calls
+    (one lock): a program's buffers serve one call at a time."""
 
     def __init__(self, net: Darknet, prob_thresh: float = 0.05,
                  iou_thresh: float = 0.3, resize_mode: str = "letterbox",
@@ -191,106 +337,163 @@ class Detector:
                              "(expected 'xla' or 'pallas')")
         self.block_impl = block_impl
         self.decode_impl = decode_impl
-        # the gates depend on the quantization state, which may change
-        # after construction: resolved (and warned about) once per state
-        self._route_state: object = self
+        # the gates depend on the quantization state, which may change after
+        # construction: resolved again (and warned about) per program
         self._resolve_route()
-        self._interp: Dict[Tuple[int, int], Interp] = {}
+        self._interp = _InterpCache(self.net_hw, resize_mode, self.device)
+        # the cached programs, LRU-bounded: each holds its weights, its
+        # quantization state and, on the card, a graph and its memory pool
+        self._pipelines: "OrderedDict[Tuple, _Program]" = OrderedDict()
+        self._pipeline_capacity = 16
+        self._lock = threading.Lock()
         # per-call stage split (seconds) of the last synchronous detect
         # call, written as ONE dict assignment (serve.py publishes it under
         # /stats and /metrics): preprocess_s (host letterbox, detect_mixed
         # only), h2d_s (host→device copy of the frames), dispatch_s (the
-        # device work queued, NOT finished), device_fetch_s (wait for the
-        # device + the one D2H copy). Read it from the thread that ran the
-        # call.
+        # program looked up, captured on its first call, and its replay
+        # queued, NOT finished), device_fetch_s (wait for the device + the
+        # one D2H copy + the host unpack). Read it from the thread that ran
+        # the call.
         self.last_stage_s: Optional[Dict[str, float]] = None
+
+    def _gates(self, warn: bool) -> str:
+        """The route for the net's current quantization state, by the JAX
+        package's gates; with ``warn`` their warnings and the block
+        fallback's, as the reference gives them per program."""
+        net = self.net
+        q_ok = not net.quantized or net.qcarrier == "int8"
+        route = decode_route(net.graph, self.decode_impl, q_ok, warn=warn)
+        if (warn and net.quantized and self.block_impl == "pallas"
+                and net.act_zeros and any(net.act_zeros.values())):
+            log.warning("fused residual blocks implement the symmetric "
+                        "quantization contract only; asymmetric "
+                        "activations fall back to block_impl='xla'")
+        return route
 
     def _resolve_route(self) -> str:
         """``self.route`` for the net's current quantization state."""
-        net = self.net
-        state = net.qparams
-        if state is not self._route_state:
-            self._route_state = state
-            q_ok = not net.quantized or net.qcarrier == "int8"
-            self.route = decode_route(net.graph, self.decode_impl, q_ok)
-            if (net.quantized and self.block_impl == "pallas"
-                    and net.act_zeros and any(net.act_zeros.values())):
-                log.warning("fused residual blocks implement the symmetric "
-                            "quantization contract only; asymmetric "
-                            "activations fall back to block_impl='xla'")
+        self.route = self._gates(warn=False)
         return self.route
 
-    def _interp_for(self, src_hw: Tuple[int, int]) -> Interp:
-        """Interpolation matrices for one source shape, built once."""
-        if src_hw not in self._interp:
-            out_hw = resize_target(src_hw, self.net_hw, self.resize_mode)
-            self._interp[src_hw] = interp_matrices(src_hw, out_hw, self.device)
-        return self._interp[src_hw]
+    def _body(self, bgr: bool, route: str):
+        """The device work of one call by ``route`` on the net's current
+        weights and quantization state: (B, H, W, 3) uint8 frames on the
+        device → NMSResult, boxes in net-input pixels. The closure holds no
+        reference to the Detector, so a dropped Detector frees its programs
+        at once, not at a later collection."""
+        net = self.net
+        params = net.params
+        if params is None:
+            raise RuntimeError("call net.load_weights()/set_params() first")
+        graph, prob = net.graph, self.prob_thresh
+        net_hw, mode, interp = self.net_hw, self.resize_mode, self._interp
+        nms = dict(iou_thresh=self.iou_thresh, top_k=self.top_k,
+                   impl=self.nms_impl, max_results=self.max_results,
+                   select_group=self.select_group)
+        if net.quantized:
+            from .quant import (forward_compact_int8,
+                                forward_packed_fused_int8,
+                                forward_packed_int8)
+
+            state = (graph, net.qparams, net.act_scales)
+            kw = dict(precision=net.precision or "bf16", carrier=net.qcarrier,
+                      block_impl=self.block_impl, zeros=net.act_zeros,
+                      operands=net.qoperands)
+            compact = lambda x: forward_compact_int8(  # noqa: E731
+                *state, x, decode_impl="xla", **kw)
+            packed = (forward_packed_fused_int8 if route == "pallas-fused"
+                      else forward_packed_int8)
+        else:
+            state = (graph, params)
+            kw = dict(precision=net.precision, conv_impl=net.conv_impl)
+            compact = lambda x: forward_compact(*state, x, **kw)  # noqa: E731
+            packed = (forward_packed_fused if route == "pallas-fused"
+                      else forward_packed)
+
+        def run(frames: torch.Tensor) -> NMSResult:
+            if bgr:
+                frames = frames.flip(-1)  # BGR→RGB on device
+            x = preprocess(frames, net_hw, mode=mode,
+                           interp=interp(tuple(frames.shape[1:3])))
+            if route == "xla":
+                return batched_nms_compact(*compact(x), prob_thresh=prob,
+                                           **nms)
+            payload, scores = packed(*state, x, prob_thresh=prob, **kw)
+            return batched_nms_packed(payload, scores, **nms)
+
+        return run
 
     @torch.inference_mode()
     def _run(self, frames: torch.Tensor, bgr: Optional[bool] = None
              ) -> torch.Tensor:
-        """(B, H, W, 3) uint8 frames on the device → packed results
-        (B, R, 6) on the device, boxes in net-input pixels. ``bgr``
-        overrides the Detector's channel order for this call (host
+        """Eager, uncached: (B, H, W, 3) uint8 frames on the device →
+        packed results (B, R, 6) on the device, boxes in net-input pixels.
+        ``bgr`` overrides the Detector's channel order for this call (host
         canvases arrive RGB)."""
-        if self.net.params is None:
+        bgr = self.bgr if bgr is None else bgr
+        return pack_results(self._body(bgr, self._resolve_route())(frames))
+
+    def _pipeline(self, batch: int, src_hw: Tuple[int, int],
+                  bgr: Optional[bool] = None) -> _Program:
+        """The cached program for (batch, source shape, channel order) on
+        the net's current quantization state and weights, built (on the
+        card: captured) on a miss, with the route gates' warnings."""
+        bgr = self.bgr if bgr is None else bgr
+        net = self.net
+        if net.params is None:
             raise RuntimeError("call net.load_weights()/set_params() first")
-        if self.bgr if bgr is None else bgr:
-            frames = frames.flip(-1)  # BGR→RGB on device
-        src_hw = tuple(frames.shape[1:3])
-        x = preprocess(frames, self.net_hw, mode=self.resize_mode,
-                       interp=self._interp_for(src_hw))
-        net = self.net
-        decode = self._resolve_route()
-        if net.quantized:
-            return pack_results(self._run_quantized(x, decode))
-        route = dict(precision=net.precision, conv_impl=net.conv_impl)
-        if decode == "xla":
-            boxes, scores, classes = forward_compact(net.graph, net.params, x,
-                                                     **route)
-            res = batched_nms_compact(boxes, scores, classes,
-                                      prob_thresh=self.prob_thresh,
-                                      iou_thresh=self.iou_thresh,
-                                      top_k=self.top_k, impl=self.nms_impl,
-                                      max_results=self.max_results,
-                                      select_group=self.select_group)
+        # a captured program reads the weights through the pointers it saw,
+        # so the key carries the identity of the weights as well as that of
+        # the quantization state; the entry keeps both alive (``keep``), so
+        # neither id() can be reused while it exists
+        qstate = id(net.qparams) if net.quantized else None
+        key = (batch, tuple(src_hw), bgr, qstate, id(net.params))
+        prog = self._pipelines.get(key)
+        if prog is not None:
+            self._pipelines.move_to_end(key)
         else:
-            fwd = (forward_packed_fused if decode == "pallas-fused"
-                   else forward_packed)
-            payload, scores = fwd(net.graph, net.params, x,
-                                  prob_thresh=self.prob_thresh, **route)
-            res = batched_nms_packed(payload, scores,
-                                     iou_thresh=self.iou_thresh,
-                                     top_k=self.top_k, impl=self.nms_impl,
-                                     max_results=self.max_results,
-                                     select_group=self.select_group)
-        return pack_results(res)
+            log.info("capturing pipeline: batch=%d src=%s net=%s mode=%s "
+                     "precision=%s", batch, src_hw, self.net_hw,
+                     self.resize_mode, net.precision or "default")
+            self.route = self._gates(warn=True)
+            prog = self._finalize(key, self._body(bgr, self.route))
+        self.route = prog.route
+        return prog
 
-    def _run_quantized(self, x: torch.Tensor, decode: str):
-        """The int8 tier: the quantized walk of the net's carrier, then the
-        decode and NMS of the route."""
-        from .quant import (forward_compact_int8, forward_packed_fused_int8,
-                            forward_packed_int8)
+    def _finalize(self, key, run):
+        """With ``scan > 1``, run the batch as ``scan`` sub-batches back to
+        back in one program (the counterpart of the reference's
+        ``lax.scan``), results concatenated in submission order into the
+        unscanned (scan·B, ...) contract; then cache it."""
+        if self.scan > 1:
+            base, k = run, self.scan
+
+            def run(frames: torch.Tensor) -> NMSResult:
+                parts = [base(part) for part in frames.chunk(k)]
+                return NMSResult(*(torch.cat(f) for f in zip(*parts)))
+
+        return self._cache_pipeline(key, run)
+
+    def _cache_pipeline(self, key, run):
+        """Add the pack (ONE device tensor for ONE device→host copy), build
+        the program (on the card: capture it) and keep it in the LRU;
+        evicting an entry frees its graph and its memory pool."""
+        base = run
+
+        def packed(frames: torch.Tensor) -> torch.Tensor:
+            return pack_results(base(frames))
 
         net = self.net
-        kw = dict(precision=net.precision or "bf16", carrier=net.qcarrier,
-                  block_impl=self.block_impl, zeros=net.act_zeros,
-                  operands=net.qoperands)
-        nms = dict(iou_thresh=self.iou_thresh, top_k=self.top_k,
-                   impl=self.nms_impl, max_results=self.max_results,
-                   select_group=self.select_group)
-        if decode == "xla":
-            boxes, scores, classes = forward_compact_int8(
-                net.graph, net.qparams, net.act_scales, x, decode_impl="xla",
-                **kw)
-            return batched_nms_compact(boxes, scores, classes,
-                                       prob_thresh=self.prob_thresh, **nms)
-        fwd = (forward_packed_fused_int8 if decode == "pallas-fused"
-               else forward_packed_int8)
-        payload, scores = fwd(net.graph, net.qparams, net.act_scales, x,
-                              prob_thresh=self.prob_thresh, **kw)
-        return batched_nms_packed(payload, scores, **nms)
+        keep = (net.params, net.qparams, net.qoperands if net.quantized
+                else None)
+        if self.device.type == "cuda":
+            prog = _CapturedProgram(key, self.route, packed, keep, self.device)
+        else:
+            prog = _Program(key, self.route, packed, keep)
+        self._pipelines[key] = prog
+        while len(self._pipelines) > self._pipeline_capacity:
+            self._pipelines.popitem(last=False)[1].close()
+        return prog
 
     def _stage(self, frames: np.ndarray) -> torch.Tensor:
         self._check_frames(frames)
@@ -307,41 +510,67 @@ class Detector:
         if frames.ndim != 4 or frames.shape[3] != 3:
             raise ValueError(f"frames must be (B, H, W, 3), got {frames.shape}")
 
-    def _stage_batch(self, frames: np.ndarray, pinned: bool = False
-                     ) -> Tuple[torch.Tensor, int]:
-        """Host batch → (frames on the device, real batch). With ``scan > 1``
-        the batch is padded with zero frames to a multiple of ``scan``
-        (``_run_staged`` splits it; callers drop the pad results).
-        ``pinned`` stops before the copy: the batch in pinned host memory,
-        for an asynchronous host→device copy."""
+    def _pad_batch(self, frames: np.ndarray) -> Tuple[np.ndarray, int]:
+        """(checked frames, real batch): with ``scan > 1`` padded with zero
+        frames to a multiple of ``scan`` (callers drop the pad results)."""
+        self._check_frames(frames)
         n_real = frames.shape[0]
         if self.scan > 1 and n_real % self.scan:
             pad = self.scan - n_real % self.scan
             frames = np.concatenate(
                 [frames, np.zeros((pad, *frames.shape[1:]), frames.dtype)])
-        if pinned:
-            self._check_frames(frames)
-            return torch.from_numpy(frames).pin_memory(), n_real
-        return self._stage(frames), n_real
+        return frames, n_real
 
-    def _run_staged(self, device_frames: torch.Tensor,
-                    bgr: Optional[bool] = None) -> torch.Tensor:
-        """``_run`` on staged frames; with ``scan > 1`` as ``scan``
-        sub-batches enqueued back to back (no host synchronisation between
-        them) whose packed results are stacked on the device, in
-        submission order, and so leave in one device→host copy."""
-        if self.scan == 1:
-            return self._run(device_frames, bgr)
-        return torch.cat([self._run(part, bgr)
-                          for part in device_frames.chunk(self.scan)])
+    def _stage_batch(self, frames: np.ndarray, pinned: bool = False
+                     ) -> Tuple[torch.Tensor, int]:
+        """Host batch → (frames on the device, real batch), padded as
+        :meth:`_pad_batch` pads. ``pinned`` stops before the copy: the batch
+        in pinned host memory, for an asynchronous host→device copy."""
+        frames, n_real = self._pad_batch(frames)
+        if pinned:
+            return torch.from_numpy(frames).pin_memory(), n_real
+        return torch.from_numpy(frames).to(self.device), n_real
+
+    def _detect(self, frames: np.ndarray, src_hw: Tuple[int, int],
+                bgr: Optional[bool]) -> Tuple[torch.Tensor, int, List[float]]:
+        """One synchronous call through the cached program: (packed results
+        in host memory, real batch, host clock marks [start, program ready,
+        staged, replay queued])."""
+        frames, n_real = self._pad_batch(frames)
+        marks = [time.perf_counter()]
+        with self._lock:
+            prog = self._pipeline(frames.shape[0], src_hw, bgr)
+            marks.append(time.perf_counter())
+            staged = prog.stage(frames, self.device)
+            marks.append(time.perf_counter())
+            res = prog(staged)
+            marks.append(time.perf_counter())
+            res = res.cpu()  # ONE device→host copy; the output is free again
+            prog.release()
+        return res, n_real, marks
+
+    def _stages(self, marks: List[float]) -> Dict[str, float]:
+        t0, t_prog, t_staged, t_queued = marks
+        return {"h2d_s": t_staged - t_prog,
+                "dispatch_s": (t_prog - t0) + (t_queued - t_staged),
+                "device_fetch_s": time.perf_counter() - t_queued}
 
     def _enqueue(self, frames: np.ndarray, bgr: Optional[bool] = None
                  ) -> Tuple[torch.Tensor, int]:
-        """Stage a same-shape uint8 batch and queue its device work; returns
+        """Stage a same-shape uint8 batch and queue its program; returns
         (packed results on the device, real batch). On the card this returns
-        before the device has finished: ``_unpack`` waits."""
-        device_frames, n_real = self._stage_batch(frames)
-        return self._run_staged(device_frames, bgr), n_real
+        before the device has finished (``_unpack`` waits), and the results
+        are a copy, queued after the replay, so the next call's replay
+        cannot overwrite them."""
+        frames, n_real = self._pad_batch(np.ascontiguousarray(frames))
+        with self._lock:
+            prog = self._pipeline(frames.shape[0], tuple(frames.shape[1:3]),
+                                  bgr)
+            res = prog(prog.stage(frames, self.device))
+            if isinstance(prog, _CapturedProgram):
+                res = res.clone()
+            prog.release()
+        return res, n_real
 
     def _unpack(self, res, src_hw: Optional[Tuple[int, int]]
                 ) -> List[Detection]:
@@ -392,14 +621,10 @@ class Detector:
             frames = frames[None]
         if frames.shape[0] == 0:
             return []
-        t0 = time.perf_counter()
-        device_frames, n_real = self._stage_batch(frames)
-        t1 = time.perf_counter()
-        res = self._run_staged(device_frames)
-        t2 = time.perf_counter()
-        out = self._unpack(res, tuple(frames.shape[1:3]))[:n_real]
-        self.last_stage_s = {"h2d_s": t1 - t0, "dispatch_s": t2 - t1,
-                             "device_fetch_s": time.perf_counter() - t2}
+        src_hw = tuple(frames.shape[1:3])
+        res, n_real, marks = self._detect(frames, src_hw, None)
+        out = self._unpack(res, src_hw)[:n_real]
+        self.last_stage_s = self._stages(marks)
         return out
 
     def detect_mixed(self, frames: Sequence[np.ndarray]) -> List[Detection]:
@@ -423,8 +648,8 @@ class Detector:
         if not native.available():
             # group same-shape frames into real batches (order preserved);
             # each group pads to the next power of two, the JAX package's
-            # policy (there it bounds the number of compiled programs), so
-            # both packages run the same batches
+            # policy (it bounds the number of cached programs), so both
+            # packages run the same batches
             out: List[Optional[Detection]] = [None] * len(frames)
             groups: Dict[Tuple[int, ...], List[int]] = {}
             for i, f in enumerate(frames):
@@ -455,23 +680,18 @@ class Detector:
         """Run the device pipeline on host-preprocessed RGB uint8 canvases
         already at net resolution; rescale each result to its own source."""
         canvases = np.ascontiguousarray(canvases)
-        t0 = time.perf_counter()
-        device_frames, n_real = self._stage_batch(canvases)
-        t1 = time.perf_counter()
-        res = self._run_staged(device_frames, bgr=False)
-        t2 = time.perf_counter()
+        res, n_real, marks = self._detect(canvases, self.net_hw, False)
         dets = self._unpack(res, None)[:n_real]  # net coords
         out = [self._unmap_one(d, hw) for d, hw in zip(dets, src_hws)]
-        self.last_stage_s = {"h2d_s": t1 - t0, "dispatch_s": t2 - t1,
-                             "device_fetch_s": time.perf_counter() - t2}
+        self.last_stage_s = self._stages(marks)
         return out
 
     def warmup(self, batch: int, src_hw: Tuple[int, int],
                host_preprocessed: bool = False) -> "Detector":
         """Run one (batch, source-shape) call before traffic arrives: builds
-        the kernels on first use, fills the interpolation-matrix cache and
-        initializes cuDNN, so the first request pays none of it.
-        ``host_preprocessed`` warms the route of ``detect_preletterboxed``
+        the kernels on first use and the program of that key (on the card:
+        its CUDA graph, captured), so the first request pays neither.
+        ``host_preprocessed`` warms the program of ``detect_preletterboxed``
         (canvases at net resolution) instead of ``detect_batch``'s."""
         shape_hw = self.net_hw if host_preprocessed else src_hw
         frames = np.zeros((batch, *shape_hw, 3), dtype=np.uint8)
@@ -489,14 +709,15 @@ class PipelinedDetector:
     """Serving wrapper that keeps up to ``depth`` batches in flight on the
     device, materializing results in submission order.
 
-    On the card ``submit()`` queues the host→device copy (from pinned
-    memory), the forward, the pack and the copy of the packed results into
-    pinned host memory on a CUDA stream of its own, and returns; results are
-    waited for only when more than ``depth`` batches are in flight (or on
-    ``flush()``), so host work (decode, drawing, I/O) overlaps device
-    compute. On the CPU it keeps the same ordering with no streams: each
-    batch is computed at ``submit()`` and handed back ``depth`` submissions
-    later.
+    On the card ``submit()`` queues, on a CUDA stream of its own, the
+    host→device copy (from pinned memory) into the program's static input,
+    the program's replay and the copy of its packed output into pinned host
+    memory (which frees the output for the next replay), and returns;
+    results are waited for only when more than ``depth`` batches are in
+    flight (or on ``flush()``), so host work (decode, drawing, I/O) overlaps
+    device compute. On the CPU it keeps the same ordering with no streams:
+    each batch is computed at ``submit()`` and handed back ``depth``
+    submissions later.
     """
 
     def __init__(self, detector: Detector, depth: int = 2):
@@ -520,15 +741,18 @@ class PipelinedDetector:
             res, n_real = det._enqueue(frames)
             self._inflight.append((src_hw, n_real, res, None, None))
         else:
-            det._interp_for(src_hw)  # built on the caller's stream, once
-            self._stream.wait_stream(torch.cuda.current_stream(det.device))
-            with torch.cuda.stream(self._stream):
-                staged, n_real = det._stage_batch(frames, pinned=True)
-                res = det._run_staged(staged.to(det.device, non_blocking=True))
-                host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
-                host.copy_(res, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self._stream)
+            staged, n_real = det._stage_batch(frames, pinned=True)
+            with det._lock:
+                prog = det._pipeline(staged.shape[0], src_hw)
+                self._stream.wait_stream(torch.cuda.current_stream(det.device))
+                with torch.cuda.stream(self._stream):
+                    res = prog(prog.stage_pinned(staged))
+                    host = torch.empty(res.shape, dtype=res.dtype,
+                                       pin_memory=True)
+                    host.copy_(res, non_blocking=True)
+                    prog.release()
+                    done = torch.cuda.Event()
+                    done.record(self._stream)
             # `staged` stays referenced until its copy has run
             self._inflight.append((src_hw, n_real, host, done, staged))
         out: List[List[Detection]] = []

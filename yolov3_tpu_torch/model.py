@@ -287,6 +287,7 @@ class Darknet(nn.Module):
         self.act_zeros: Optional[Dict[int, int]] = None  # asymmetric scheme
         self.qcarrier = "int8"  # activation carrier of the int8 path
         self._qoperands = None
+        self._params_view: Optional[TorchParams] = None
 
     @property
     def device(self) -> torch.device:
@@ -302,12 +303,22 @@ class Darknet(nn.Module):
 
     @property
     def params(self) -> Optional[TorchParams]:
-        """``{layer_index: {"w": OIHW, "b": (C,)}}`` views of the buffers."""
+        """``{layer_index: {"w": OIHW, "b": (C,)}}`` views of the buffers:
+        ONE dict for one set of weights, so its identity names them (a
+        Detector's cached programs key on it); ``set_params`` and moving the
+        net make a new one."""
         if not self._loaded:
             return None
-        return {n.index: {"w": getattr(self, f"w{n.index}"),
-                          "b": getattr(self, f"b{n.index}")}
-                for n in self.graph.conv_nodes}
+        if self._params_view is None:
+            self._params_view = {n.index: {"w": getattr(self, f"w{n.index}"),
+                                           "b": getattr(self, f"b{n.index}")}
+                                 for n in self.graph.conv_nodes}
+        return self._params_view
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to() / .cuda() / .half() replace the buffers
+        self._params_view = None
+        return super()._apply(fn, *args, **kwargs)
 
     def set_params(self, params: Params) -> "Darknet":
         """Install folded HWIO numpy params (``weights.fold_raw`` form)."""
@@ -320,6 +331,7 @@ class Darknet(nn.Module):
             self.register_buffer(f"w{idx}", p["w"].to(self.param_dtype))
             self.register_buffer(f"b{idx}", p["b"].to(self.param_dtype))
         self._loaded = True
+        self._params_view = None
         return self
 
     def load_weights(self, weights_path: Union[str, Path, bytes],

@@ -10,14 +10,32 @@ pixels); ``sigmoid`` the objectness and class scores. Order is cell-major
 No kernel here: XLA lowered these on its own in the JAX package, and the
 port leaves them to PyTorch's elementwise ops. The kernels with the same
 math are K1 / K1c (``ops/cuda_decode.py``), which emit anchor-major records.
+The anchors are a device constant made once per (anchors, type, device)
+(:func:`anchor_wh`): a copy from the host on every call would be refused
+inside a CUDA-graph capture.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 Anchors = Sequence[Tuple[float, float]]
+
+_ANCHOR_WH: Dict[Tuple, torch.Tensor] = {}
+
+
+def anchor_wh(anchors: Anchors, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """The (A, 2) anchor sizes as a tensor of ``dtype`` on ``device``, made
+    at the first call for these anchors and kept: the same bits as
+    ``torch.tensor(anchors, dtype=dtype, device=device)``."""
+    key = (tuple(tuple(float(v) for v in wh) for wh in anchors), dtype,
+           torch.device(device))
+    t = _ANCHOR_WH.get(key)
+    if t is None:
+        t = _ANCHOR_WH[key] = torch.tensor(anchors, dtype=dtype).to(device)
+    return t
 
 
 def _grid(gy: int, gx: int, a: int, dtype: torch.dtype,
@@ -37,10 +55,10 @@ def decode_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     b, gy, gx, _ = feat.shape
     a, per = len(anchors), 5 + num_classes
     f = feat[..., :a * per].reshape(b, gy, gx, a, per)
-    anchor_wh = torch.tensor(anchors, dtype=f.dtype, device=f.device)
     xy = (torch.sigmoid(f[..., 0:2]) + _grid(gy, gx, a, f.dtype, f.device)) * stride
     # exp clamp at 60: float32 exp overflows past ~88
-    wh = torch.exp(torch.clamp(f[..., 2:4], max=60.0)) * anchor_wh
+    wh = (torch.exp(torch.clamp(f[..., 2:4], max=60.0))
+          * anchor_wh(anchors, f.dtype, f.device))
     conf = torch.sigmoid(f[..., 4:])  # objectness and classes in one sigmoid
     return torch.cat([xy, wh, conf], dim=-1).reshape(b, gy * gx * a, per)
 
@@ -62,10 +80,10 @@ def decode_compact_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     b, gy, gx, _ = feat.shape
     a, per = len(anchors), 5 + num_classes
     f = feat[..., :a * per].reshape(b, gy, gx, a, per).float()
-    anchor_wh = torch.tensor(anchors, dtype=torch.float32, device=f.device)
     xy = (torch.sigmoid(f[..., 0:2])
           + _grid(gy, gx, a, torch.float32, f.device)) * float(stride)
-    wh = torch.exp(torch.clamp(f[..., 2:4], max=60.0)) * anchor_wh
+    wh = (torch.exp(torch.clamp(f[..., 2:4], max=60.0))
+          * anchor_wh(anchors, torch.float32, f.device))
     half = wh * 0.5
     boxes = torch.cat([xy - half, xy + half], dim=-1)
     cls_max, cls_idx = f[..., 5:].max(dim=-1)  # first index among ties

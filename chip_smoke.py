@@ -2,7 +2,8 @@
 """On-card check of the PyTorch port's serving routes (one CUDA device).
 
     python3 chip_smoke.py [--phases k1,k1c,k2,k3,k4,k5,int8conv,k6,golden,main,int8,
-                                    probes,dots,native,entry,serve]
+                                    eval,cache,profile,probes,dots,native,entry,
+                                    serve]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. With no arguments every phase runs, in this order, and
@@ -88,13 +89,35 @@ each raises on failure (the build always runs):
     and ``load_quantized`` after a capture giving each state's own
     detections; bf16 against int8, captured, at B=8 and 128; the DESIGN
     int8 bar against float32 on tiny@416;
-13. probes: the ingredient kernels T3a-e (int8 dot on ``wgmma``, on
+13. eval: ``tests/data/eval_golden.json`` on the card through captured
+    programs, with the port's copies of the fixture's generator
+    (``tools/gen_eval_golden.py``) and scorer (``tools/eval_coco.py``):
+    float32 "highest" at mAP50 = mAP50_95 = 1.0 exactly, int8 symmetric and
+    asymmetric (calibrated on the card) over the fixture's floors, each call
+    one replay and no eager launch, captured == eager bit for bit; then
+    ``run_model_on_coco`` on a synthetic COCO directory of the same frames
+    and the offline mode (``--detections``) on what the CLI's ``--save-json``
+    wrote for the same directory;
+14. cache: the program cache bounded by bytes, yolov3@608 bf16 + K1 at
+    B=128 over eight source shapes (360x640 to 1080x1920, about 88 GB of
+    programs by area) and the first again: no out-of-memory error, the
+    programs' bytes under the Detector's budget after every call, each
+    program's MiB, warm-up + capture time and evictions logged; captured ==
+    eager bit for bit on the last shape and on the first, evicted and
+    captured again;
+15. profile: ``tools/profile_layers.py`` on yolov3@416 B=8 bf16 with a
+    mark at every layer, with cuDNN convs and with K5, by graph replay (the
+    full-depth prefix's head maps equal ``forward_features``' bit for bit,
+    K5 29 launches a full walk), beside the whole walk's replay; then
+    ``tools/profile_int8.py``'s stages on yolov3@416 B=8 symmetric, blocks
+    unfused and through K6 (10 launches a walk);
+16. probes: the ingredient kernels T3a-e (int8 dot on ``wgmma``, on
     ``mma.sync`` and on ``__dp4a``, round / clip, the row shifts, the edge
     mask, the float epilogue) against their plain versions and the tool's
     exact host values, then ``tools.probe_block``'s full blocks and chain
     prefixes: 0 differences everywhere; T3a-e by graph replay beside their
     wrapper times;
-14. dots: T1 (int8 ``wgmma``, int8 ``mma.sync``, int8 ``__dp4a``, bf16
+17. dots: T1 (int8 ``wgmma``, int8 ``mma.sync``, int8 ``__dp4a``, bf16
     ``wgmma``) and T2 over the tools' shape lists, checked against their
     plain versions, then timed by the tools' own clocks: time per step,
     useful rate, share of the card's peak (above 100% fails), the library's
@@ -104,31 +127,32 @@ each raises on failure (the build always runs):
     ``wgmma``) by graph replay whole and as its bare products (the
     ``-DT2_SKIP_PROJECT`` build), the library's product by graph replay, the
     tile plan and the useful share of the issued products;
-15. native: the C++ host loader built with g++ (required here), its
+18. native: the C++ host loader built with g++ (required here), its
     letterbox and stretch held to the device preprocess on seeded frames;
-16. entry, the entry-point path at full width (yolov3@416, bf16, batch 8,
+19. entry, the entry-point path at full width (yolov3@416, bf16, batch 8,
     frames of four sizes): ``detect_mixed`` against ``detect_preletterboxed``
     (exact) and against per-frame ``detect_batch`` (gated on tiny@416),
     ``scan=4`` (ONE captured graph of the four sub-batches) against the
     same sub-batches at ``scan=1`` (exact) and the convs whose result
     depends on the batch size, ``PipelinedDetector(depth=2)`` (replays on
     its own stream) against the synchronous calls;
-17. serve: ``serve()`` on 127.0.0.1 with the micro-batcher over the same
+20. serve: ``serve()`` on 127.0.0.1 with the micro-batcher over the same
     model: requests one at a time and 16 from 8 threads (PNG bytes to
     ``/detect`` where cv2 is installed), ``/healthz``, ``/stats``,
     ``/metrics``, then a graceful shutdown that releases the port; each
     device batch one replay of the program the server's warm-up captured;
     a lone canvas captured at B=1 against padded to B=8.
 
-Every kernel's launch count is zeroed just before phases 11, 12 and 17 (in
-17 after the server's own warm-up), in 16 just before one ``detect_mixed``
-call and before the pipelined batches, in 13 and 14 before the tools' runs,
-and read just after. A wrapper counts where it launches its kernel: in a
-Detector program's warm-up forward and in its capture (on the K1 route K1
-once for all its heads, K2 once); a steady call replays the graph and
-counts one replay and no launch: checked route by route in 11 and 12, and
-in 16 and 17 against the calls and device batches made. The last two
-lines of standard output are the kernels' JSON
+Every kernel's launch count is zeroed just before phases 11 to 15 and 20
+(in 20 after the server's own warm-up), in 19 just before one
+``detect_mixed`` call and before the pipelined batches, in 16 and 17 before
+the tools' runs, and read just after (13 and 14 count only the programs'
+warm-ups and captures: K1 and K2 once a forward in each). A wrapper counts
+where it launches its kernel: in a Detector program's warm-up forward and
+in its capture (on the K1 route K1 once for all its heads, K2 once); a
+steady call replays the graph and counts one replay and no launch: checked
+route by route in 11 to 14, and in 19 and 20 against the calls and device
+batches made. The last two lines of standard output are the kernels' JSON
 record and ``{"ok": true, "device": {...}}`` (printed only when every phase
 ran). Exits non-zero, and prints neither, when CUDA is unavailable or the
 port is not beside this script.
@@ -151,8 +175,8 @@ DEVICE = "cuda"
 BATCH = 8
 SRC_HW = (480, 640)
 PHASES = ("build", "k1", "k1c", "k2", "k3", "k4", "k5", "int8conv", "k6",
-          "golden", "main", "int8", "probes", "dots", "native", "entry",
-          "serve")
+          "golden", "main", "int8", "eval", "cache", "profile", "probes",
+          "dots", "native", "entry", "serve")
 YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights file
 # float lanes of K1 / K1c against their plain versions: both run the same
 # float operations in the same order (no FMA contraction, full-precision
@@ -2165,6 +2189,381 @@ def phase_int8(card: str):
     return launches
 
 
+def program_call(det, frames: np.ndarray, what: str, counts) -> dict:
+    """``det.detect_batch(frames)`` twice: the first call builds the
+    program (warm-up and capture: twice one forward's wrapper launches), the
+    second is ONE replay and no eager launch; the replay's packed results
+    equal the eager ``_run``'s bit for bit. Returns the build's launches."""
+    import torch
+
+    src_hw = tuple(frames.shape[1:3])
+    before = counts()
+    det.detect_batch(frames)
+    built = {n: v - before[n] for n, v in counts().items()}
+    want = forward_launches(det)
+    if built != {n: 2 * v for n, v in want.items()}:
+        raise AssertionError(f"{what}: warm-up and capture launched {built}, "
+                             f"expected twice one forward's {want}")
+    prog = det._pipeline(frames.shape[0], src_hw)
+    replays, before = prog.replays, counts()
+    res, _, _ = det._detect(frames, src_hw, None)
+    steady = {n: v - before[n] for n, v in counts().items()}
+    if prog.replays != replays + 1 or any(steady.values()):
+        raise AssertionError(f"{what}: a steady call made "
+                             f"{prog.replays - replays} replays and eager "
+                             f"launches {steady}; one replay and none expected")
+    eager = det._run(det._stage(frames)).cpu()
+    if not torch.equal(res, eager):
+        raise AssertionError(f"{what}: the captured program's results differ "
+                             f"from the eager _run's")
+    return {"built": built, "results": det._unpack(res, src_hw), "prog": prog}
+
+
+def moved_detections(got, gt) -> str:
+    """Where ``got`` ({img: {cls: (boxes, scores)}}) differs from the
+    ground truth ({img: {cls: boxes}}): per image and class, the counts and,
+    where they agree, the largest corner difference."""
+    out = []
+    for img in sorted(set(got) | set(gt)):
+        g, w = got.get(img, {}), gt.get(img, {})
+        for c in sorted(set(g) | set(w)):
+            gb = np.asarray(g[c][0]) if c in g else np.zeros((0, 4))
+            wb = np.asarray(w.get(c, np.zeros((0, 4))))
+            if len(gb) != len(wb):
+                out.append(f"image {img} class {c}: {len(gb)} boxes, golden "
+                           f"{len(wb)}")
+            elif len(gb):
+                err = np.abs(gb[:, None] - wb[None]).max(-1).min(0).max()
+                if err > 0.01:
+                    out.append(f"image {img} class {c}: a box {err:.3f} px off")
+    return "; ".join(out) or "none"
+
+
+def synthetic_coco(root: Path, frames: np.ndarray, gt) -> Path:
+    """A COCO directory under ``root``: the frames as PNG files and an
+    annotation file of ``gt`` ({img: {contiguous class: tlbr boxes}}) with
+    sparse category ids, as COCO's, and one crowd box (dropped by the
+    scorer). Returns the annotation file's path."""
+    import cv2
+
+    cat_ids = [1 + c + c // 11 for c in range(80)]   # 1..87 with gaps
+    images, anns = [], []
+    for i, frame in enumerate(frames):
+        name = f"{i:012d}.png"
+        cv2.imwrite(str(root / name), frame)
+        images.append({"id": 1000 + i, "file_name": name,
+                       "height": frame.shape[0], "width": frame.shape[1]})
+        for c, boxes in gt.get(i, {}).items():
+            for x0, y0, x1, y1 in np.asarray(boxes, np.float64).tolist():
+                anns.append({"id": len(anns) + 1, "image_id": 1000 + i,
+                             "category_id": cat_ids[c], "iscrowd": 0,
+                             "bbox": [x0, y0, x1 - x0, y1 - y0]})
+    anns.append({"id": len(anns) + 1, "image_id": 1000, "iscrowd": 1,
+                 "category_id": cat_ids[0], "bbox": [0.0, 0.0, 50.0, 50.0]})
+    path = root / "annotations.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns,
+                                "categories": [{"id": i, "name": str(i)}
+                                               for i in cat_ids]}))
+    return path
+
+
+def phase_eval(card: str) -> dict:
+    """``tests/data/eval_golden.json`` on the card, through captured
+    programs (tiny@192, 8 structured frames, ground truth the JAX package's
+    float32 "highest" Detector): float32 "highest" must give mAP50 =
+    mAP50_95 = 1.0 exactly, int8 calibrated on the card (symmetric and
+    asymmetric) must clear the fixture's floors; each call one replay.
+    Then ``run_model_on_coco`` on a synthetic COCO directory of the same
+    frames, and its offline mode on the detections the CLI saved
+    (``--image-dir --save-json``) with the same settings. Returns the
+    wrapper launches of the programs' warm-ups and captures."""
+    import contextlib
+    import io
+
+    import torch
+    from yolov3_tpu_torch import Darknet, Detector
+    from yolov3_tpu_torch.__main__ import main as cli_main
+    from yolov3_tpu_torch.graph import load_graph
+    from yolov3_tpu_torch.tools import eval_coco
+    from yolov3_tpu_torch.tools import gen_eval_golden as geg
+    from yolov3_tpu_torch.weights import random_raw, write_weights
+
+    wrappers = path_wrappers()
+
+    def counts():
+        return {n: w.launches for n, w in wrappers.items()}
+
+    fx = json.loads((REPO / "tests" / "data" / "eval_golden.json").read_text())
+    gt = {int(i): {int(c): np.asarray(b, np.float64) for c, b in per.items()}
+          for i, per in fx["gt"].items()}
+    frames = geg.make_frames(fx["seed"], n=fx["n_images"], hw=fx["img_hw"],
+                             cell=fx["cell"])
+    net_hw = tuple(fx["net_hw"])
+    launches = Counter()
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wpath = tmp / "eval.weights"
+        g = load_graph(geg.CFG)
+        write_weights(wpath, g, random_raw(g, seed=geg.SEED))
+        for name, precision, scheme in (("float32 \"highest\"", "highest", None),
+                                        ("int8 symmetric", None, "symmetric"),
+                                        ("int8 asymmetric", None, "asymmetric")):
+            net = Darknet(geg.CFG, precision=precision,
+                          device=DEVICE).load_weights(wpath)
+            if scheme:
+                net.quantize_int8(frames, net_hw=net_hw, act_scheme=scheme)
+            det = Detector(net, prob_thresh=fx["prob_thresh"],
+                           iou_thresh=fx["iou_thresh"], net_hw=net_hw)
+            call = program_call(det, frames, f"[eval] {name}", counts)
+            launches.update(call["built"])
+            dets = geg.detections_to_dicts(call["results"])
+            e = eval_coco.evaluate(dets, gt)
+            if scheme is None and not (e["mAP50"] == 1.0
+                                       and e["mAP50_95"] == 1.0):
+                raise AssertionError(
+                    f"[eval] {name}: mAP50 {e['mAP50']!r}, mAP50_95 "
+                    f"{e['mAP50_95']!r} against the fixture's ground truth, "
+                    f"1.0 expected; moved: {moved_detections(dets, gt)}")
+            if scheme and not (e["mAP50"] >= fx["int8_mAP50_floor"] and
+                               e["mAP50_95"] >= fx["int8_mAP50_95_floor"]):
+                raise AssertionError(
+                    f"[eval] {name}: mAP50 {e['mAP50']:.4f} / mAP50_95 "
+                    f"{e['mAP50_95']:.4f} under the fixture's floors "
+                    f"{fx['int8_mAP50_floor']} / {fx['int8_mAP50_95_floor']}")
+            log(f"[eval] eval_golden.json {name} through its captured program "
+                f"(one replay a call, 0 eager launches, = eager bit for bit): "
+                f"mAP50 {e['mAP50']:.4f}, mAP50_95 {e['mAP50_95']:.4f} "
+                + ("(1.0 required)" if scheme is None else
+                   f"(floors {fx['int8_mAP50_floor']} / "
+                   f"{fx['int8_mAP50_95_floor']})")
+                + f", {sum(len(d.class_prob) for d in call['results'])} "
+                f"detections, program {call['prog'].nbytes / 2 ** 20:.1f} MiB, "
+                f"on {card}")
+        # the tool over a synthetic COCO directory at the fixture's net size
+        images = tmp / "images"
+        images.mkdir()
+        ann = synthetic_coco(images, frames, gt)
+        cfg = tmp / "yolov3-tiny-192.cfg"
+        cfg.write_text(geg.CFG.read_text().replace("width=416", "width=192")
+                       .replace("height=416", "height=192"))
+        settings = dict(prob_thresh=0.005, iou_thresh=fx["iou_thresh"],
+                        batch_size=len(frames), precision="highest",
+                        top_k=1024)
+        before = counts()
+        t0 = time.perf_counter()
+        online = eval_coco.run_model_on_coco(images, ann, cfg, wpath,
+                                             **settings, device=DEVICE)
+        t_online = time.perf_counter() - t0
+        launches.update({n: v - before[n] for n, v in counts().items()})
+        saved = tmp / "dets.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_main(["--image-dir", str(images), "--save-json", str(saved),
+                      "--config", str(cfg), "--weights", str(wpath),
+                      "--precision", "highest", "--prob-thresh", "0.005",
+                      "--iou-thresh", str(fx["iou_thresh"]), "--top-k", "1024",
+                      "--max-results", "0", "--batch-size", str(len(frames)),
+                      "--device", DEVICE, "--no-show"])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            eval_coco.main(["--detections", str(saved), "--annotations",
+                            str(ann)])
+        offline = json.loads(out.getvalue().strip().splitlines()[-1])
+    for key in ("mAP50", "mAP50_95"):
+        if not 0.0 <= online[key] <= 1.0:
+            raise AssertionError(f"[eval] run_model_on_coco {key} "
+                                 f"{online[key]!r}")
+        # the saved file rounds boxes to 0.01 px and scores to 1e-5
+        if abs(offline[key] - online[key]) > 0.01:
+            raise AssertionError(f"[eval] offline {key} {offline[key]} against "
+                                 f"run_model_on_coco's {online[key]:.4f}")
+    if online["saturated_images"] or "skipped_entries" in offline:
+        raise AssertionError(f"[eval] saturated or skipped: {online}, "
+                             f"{offline}")
+    log(f"[eval] run_model_on_coco (tiny@192 \"highest\", prob_thresh 0.005, "
+        f"top_k 1024) on a synthetic COCO directory of the {len(frames)} "
+        f"frames as PNG: mAP50 {online['mAP50']:.4f}, mAP50_95 "
+        f"{online['mAP50_95']:.4f}, saturated {online['saturated_images']} / "
+        f"near {online['near_saturated_images']}, {t_online:.2f} s; offline "
+        f"mode on the CLI's --save-json of the same directory: {offline}")
+    return dict(launches)
+
+
+# source shapes of the cache phase, smallest first: by area their programs
+# at yolov3@608 B=128 bf16 would need about 88 GB together
+CACHE_SHAPES = ((360, 640), (480, 640), (540, 960), (600, 800), (720, 1280),
+                (768, 1024), (900, 1600), (1080, 1920))
+CACHE_BATCH = 128
+
+
+def phase_cache(card: str) -> dict:
+    """The program cache bounded by bytes: yolov3@608 bf16 + K1,
+    ``detect_batch`` at B=128 for each of :data:`CACHE_SHAPES`; no
+    out-of-memory error, the cached programs' bytes under the Detector's
+    budget after every call; each program's MiB, its warm-up + capture
+    time and the evictions logged; captured == eager bit for bit on the
+    last shape and on the first, evicted and captured again. Returns the
+    wrapper launches of the warm-ups and captures."""
+    import torch
+    from yolov3_tpu_torch import Darknet, Detector
+    from yolov3_tpu_torch.weights import fold_raw, random_raw
+
+    wrappers = path_wrappers()
+
+    def counts():
+        return {n: w.launches for n, w in wrappers.items()}
+
+    net = Darknet(REPO / "models" / "yolov3.cfg", precision="bf16",
+                  device=DEVICE)
+    net.set_params(fold_raw(random_raw(net.graph, seed=0)))
+    det = Detector(net, net_hw=(608, 608))
+    budget = det._pipeline_budget
+    total = torch.cuda.mem_get_info(DEVICE)[1]
+    log(f"[cache] yolov3@608 bf16 + K1, B={CACHE_BATCH}: budget "
+        f"{budget / 2 ** 20:.0f} MiB of the card's {total / 2 ** 20:.0f} MiB")
+
+    def frames_of(hw):
+        # 8 seeded frames, tiled: the batch costs one copy, not 128 draws
+        base = np.random.default_rng(hw[0] * 7 + hw[1]).integers(
+            0, 256, (8, *hw, 3), dtype=np.uint8)
+        return np.tile(base, (CACHE_BATCH // 8, 1, 1, 1))
+
+    def check(frames, what):
+        ref = det._run(det._stage(frames)).cpu()
+        got, _, _ = det._detect(frames, tuple(frames.shape[1:3]), None)
+        if not torch.equal(ref, got):
+            raise AssertionError(f"[cache] {what}: the captured program's "
+                                 f"results differ from the eager _run's")
+
+    for w in wrappers.values():
+        w.launches = 0
+    launches, evicted_first, rows = Counter(), False, []
+    for hw in CACHE_SHAPES + CACHE_SHAPES[:1]:
+        frames = frames_of(hw)
+        keys = list(det._pipelines)
+        before = counts()
+        t0 = time.perf_counter()
+        det.detect_batch(frames)
+        call_s = time.perf_counter() - t0
+        built = {n: v - before[n] for n, v in counts().items()}
+        launches.update(built)
+        gone = [k[1] for k in keys if k not in det._pipelines]
+        evicted_first |= any(k == CACHE_SHAPES[0] for k in gone)
+        prog = next(reversed(det._pipelines.values()))
+        held = sum(p.nbytes for p in det._pipelines.values())
+        if prog.key[1] != hw or held > budget:
+            raise AssertionError(f"[cache] {hw}: newest program {prog.key}, "
+                                 f"{held} bytes held against a budget of "
+                                 f"{budget}")
+        rows.append({"src_hw": list(hw), "mib": prog.nbytes / 2 ** 20,
+                     "need_mib": prog.need / 2 ** 20,
+                     "capture_s": prog.capture_s, "call_s": call_s,
+                     "evicted": [list(k) for k in gone],
+                     "held_mib": held / 2 ** 20,
+                     "programs": len(det._pipelines)})
+        log(f"[cache] {hw[0]}x{hw[1]}: program {rows[-1]['mib']:.0f} MiB "
+            f"(warm-up peak {rows[-1]['need_mib']:.0f}), warm-up + capture "
+            f"{prog.capture_s:.2f} s (call {call_s:.2f} s), evicted "
+            f"{gone or 'none'}; {len(det._pipelines)} programs hold "
+            f"{held / 2 ** 20:.0f} MiB, free "
+            f"{torch.cuda.mem_get_info(DEVICE)[0] / 2 ** 20:.0f} MiB")
+        if hw == CACHE_SHAPES[-1]:
+            check(frames, f"last shape {hw}")
+    if not evicted_first:
+        raise AssertionError("[cache] the first shape's program was never "
+                             "evicted: the phase did not test eviction")
+    check(frames_of(CACHE_SHAPES[0]), f"first shape {CACHE_SHAPES[0]}, "
+          f"evicted and captured again")
+    log(f"[cache] {len(CACHE_SHAPES)} source shapes and the first again at "
+        f"B={CACHE_BATCH}: no out-of-memory error, at most "
+        f"{max(r['held_mib'] for r in rows):.0f} MiB held (budget "
+        f"{budget / 2 ** 20:.0f}), {sum(len(r['evicted']) for r in rows)} "
+        f"evictions; captured == eager bit for bit on the last shape and on "
+        f"the re-captured first, on {card}")
+    log("[cache] rows " + json.dumps(rows))
+    del det
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def phase_profile(card: str) -> dict:
+    """``tools/profile_layers.py`` on yolov3@416 B=8 bf16 with a mark at
+    every layer, with cuDNN convs and with K5 (``conv_impl="pallas"``); the
+    full-depth prefix's head maps equal ``forward_features``' bit for bit;
+    then ``tools/profile_int8.py`` on yolov3@416 B=8, symmetric, with
+    ``block_impl`` "xla" and "pallas" (K6). Beside them, for the reader,
+    the whole walk's replay (prefixes pay no consumption here, but each is
+    its own graph). Returns the wrapper launches of the profiles' runs."""
+    import torch
+    from yolov3_tpu_torch.graph import load_graph
+    from yolov3_tpu_torch.model import forward_features
+    from yolov3_tpu_torch.tools import profile_int8, profile_layers as pl
+
+    wrappers = path_wrappers()
+    g = load_graph(REPO / "models" / "yolov3.cfg")
+    params = pl.random_params(g, "bf16", DEVICE)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (BATCH, 416, 416, 3)).astype(np.float32)).to(DEVICE)
+    marks = list(range(1, len(g.nodes) + 1))
+    for w in wrappers.values():
+        w.launches = 0
+    tables = {}
+    with torch.inference_mode():
+        for conv_impl in ("xla", "pallas"):
+            k5 = wrappers["conv3x3_fused"].launches
+            full = pl.partial_forward(g, params, x, len(g.nodes), "bf16",
+                                      conv_impl)
+            per_forward = wrappers["conv3x3_fused"].launches - k5
+            heads = forward_features(g, params, x, "bf16", conv_impl)
+            if not (len(full) == len(heads) + 1
+                    and all(torch.equal(a, b) for a, b in zip(full, heads))):
+                raise AssertionError(f"[profile] conv_impl={conv_impl}: the "
+                                     f"full-depth prefix's head maps differ "
+                                     f"from forward_features'")
+            want = sum(k5_shapes(g).values()) if conv_impl == "pallas" else 0
+            if per_forward != want:
+                raise AssertionError(f"[profile] conv_impl={conv_impl}: a "
+                                     f"full-depth prefix launched K5 "
+                                     f"{per_forward} times, {want} expected")
+            walk_ms = graph_ms(lambda: forward_features(
+                g, params, x, "bf16", conv_impl), iters=5)
+            rows = pl.profile_layers(g, params, x, marks, "bf16", conv_impl,
+                                     log=lambda s: log(f"[profile] {s}"))
+            tables[conv_impl] = rows
+            top = sorted(rows, key=lambda r: -r["marginal_ms"])[:10]
+            log(f"[profile] yolov3@416 B={BATCH} bf16 conv_impl={conv_impl}: "
+                f"{len(marks)} prefixes by graph replay; full depth "
+                f"{rows[-1]['ms']:.3f} ms, the same walk replayed whole "
+                f"{walk_ms:.3f} ms (the main phase's walk, for the reader); "
+                f"full-depth head maps == forward_features' bit for bit; "
+                f"costliest marginals: " + ", ".join(
+                    f"[{r['upto'] - 1}] {r['layer']} {r['marginal_ms']:.4f}"
+                    for r in top) + f"; on {card}")
+        st = profile_int8.State.calibrated(g, (416, 416), "symmetric",
+                                           False, DEVICE)
+        xq = st.frames(BATCH)
+        for block_impl in ("xla", "pallas"):
+            k6 = wrappers["residual_block_int8"].launches
+            profile_int8.stages(st, [len(g.nodes)],
+                                block_impl=block_impl)[0][1](xq)
+            per_forward = wrappers["residual_block_int8"].launches - k6
+            want = K6_BLOCKS_YOLOV3 if block_impl == "pallas" else 0
+            if per_forward != want:
+                raise AssertionError(f"[profile] int8 block_impl={block_impl}: "
+                                     f"a full walk launched K6 {per_forward} "
+                                     f"times, {want} expected")
+            rows = profile_int8.profile_int8(
+                st, xq, pl.default_marks(g), block_impl=block_impl,
+                log=lambda s: log(f"[profile] {s}"))
+            tables[f"int8 {block_impl}"] = rows
+            log(f"[profile] yolov3@416 B={BATCH} int8 symmetric "
+                f"block_impl={block_impl}: full step {rows[-1]['ms']:.3f} ms "
+                f"by graph replay, {per_forward} K6 launches a walk; on {card}")
+    log("[profile] rows " + json.dumps(tables))
+    return {n: w.launches for n, w in wrappers.items()}
+
+
 def _sum_ms(fn_of_args, cases, iters: int = 5) -> float:
     """Sum over ``cases`` of the device ms of one ``fn_of_args(*case)``."""
     return sum(cuda_ms(lambda: fn_of_args(*case), iters=iters, warmup=1)
@@ -3024,6 +3423,10 @@ def main() -> int:
         res["main"] = phase_main(card)
     if "int8" in phases:
         res["int8"] = phase_int8(card)
+    for name, phase in (("eval", phase_eval), ("cache", phase_cache),
+                        ("profile", phase_profile)):
+        if name in phases:
+            res[name] = phase(card)
     if "probes" in phases:
         res["probes"] = phase_probes()
     if "dots" in phases:
@@ -3158,6 +3561,9 @@ def main() -> int:
         if entry["name"] in res["entry"]:
             entry["launches_entry_path"] = res["entry"][entry["name"]]
             entry["launches_serve_path"] = res["serve"][entry["name"]]
+        for phase in ("eval", "cache", "profile"):
+            if res[phase].get(entry["name"]):
+                entry[f"launches_{phase}_path"] = res[phase][entry["name"]]
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """The end-to-end accuracy scalar of ``tests/test_eval_regression.py``
 through the port: the same frozen fixture (``tests/data/eval_golden.json``:
 tiny@192 on 8 structured frames, ground truth the JAX package's fp32
-``precision="highest"`` Detector output), the same scorer
-(``tools.eval_coco.evaluate``) and frames (``tools.gen_eval_golden``), run
-through the port's ``Darknet(..., device="cpu")`` and ``Detector``, which
-serves each call from its cached program:
+``precision="highest"`` Detector output), the same scorer and frames
+through the port's copies (``yolov3_tpu_torch.tools.eval_coco.evaluate``,
+``yolov3_tpu_torch.tools.gen_eval_golden``, held to the originals by
+``tests/test_torch_eval.py``), run through the port's ``Darknet(...,
+device="cpu")`` and ``Detector``, which serves each call from its cached
+program:
 
 * fp32 reproduces the ground truth: mAP50 == mAP50_95 == 1.0 exactly;
 * int8, symmetric and asymmetric activation schemes, clear the fixture's
@@ -17,11 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from tools.eval_coco import evaluate
-from tools.gen_eval_golden import (CFG, NET_HW, SEED, detections_to_dicts,
-                                   make_frames)
 from yolov3_tpu_torch import Darknet, Detector
 from yolov3_tpu_torch.graph import load_graph
+from yolov3_tpu_torch.tools.eval_coco import evaluate
+from yolov3_tpu_torch.tools.gen_eval_golden import (CFG, NET_HW, SEED,
+                                                    detections_to_dicts,
+                                                    make_frames)
 from yolov3_tpu_torch.weights import random_raw, write_weights
 
 torch.set_num_threads(1)

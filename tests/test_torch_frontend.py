@@ -200,7 +200,9 @@ def test_import_leaves_jax_out():
             "    importlib.import_module(n)\n"
             "want = ['__main__', 'serve', 'native', 'ops.cuda_probe', "
             "'tools.probe_block', 'tools.bench_int8_dot', 'tools.bench_dot', "
-            "'tools.clock', 'utils.drawing', 'utils.export', "
+            "'tools.clock', 'tools.eval_coco', 'tools.gen_eval_golden', "
+            "'tools.profile_layers', 'tools.profile_int8', "
+            "'utils.drawing', 'utils.export', "
             "'utils.profiling', 'utils.video']\n"
             "missing = [w for w in want if p.__name__ + '.' + w not in names]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

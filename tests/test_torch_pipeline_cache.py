@@ -12,6 +12,7 @@ a fresh Detector after new weights or a new quantization state, and, with
 ``scan``, to the same sub-batches run one call each.
 """
 import gc
+import importlib
 import logging
 import weakref
 from pathlib import Path
@@ -25,6 +26,7 @@ from yolov3_tpu.inference import Detector as JDetector
 from yolov3_tpu.model import Darknet as JDarknet
 from yolov3_tpu_torch import Darknet, Detector
 from yolov3_tpu_torch import native
+from yolov3_tpu_torch.inference import programs_to_evict
 from yolov3_tpu_torch.weights import fold_raw, random_raw
 
 torch.set_num_threads(1)
@@ -243,3 +245,88 @@ def test_a_dropped_detector_frees_its_programs_at_once():
     finally:
         if collecting:
             gc.enable()
+
+
+@pytest.mark.parametrize("sizes,need,budget,free,want", [
+    ([10, 20], 30, None, None, 0),        # the CPU: no device bytes
+    ([], 500, 100, 0, 0),                 # nothing left to evict
+    ([10, 20], 30, 100, 1000, 0),         # fits the budget and the card
+    ([10, 20], 70, 100, 1000, 0),         # exactly the budget
+    ([40, 30, 20], 25, 100, 1000, 1),     # over the budget by 15
+    ([40, 30, 20], 90, 100, 1000, 3),     # only the new program fits
+    ([10, 10, 10], 25, 1000, 5, 2),       # the card's free memory is short
+    ([10, 20], 200, 100, 1000, 2),        # larger than the budget alone
+    ([50, 5, 5], 45, 100, 1000, 1),       # the oldest is the largest
+])
+def test_programs_to_evict(sizes, need, budget, free, want):
+    """The byte policy: the fewest least recently used programs whose
+    eviction brings the held bytes plus the need within the budget and the
+    free bytes up to the need."""
+    assert programs_to_evict(sizes, need, budget, free) == want
+
+
+def test_the_cache_makes_room_before_warm_up_and_before_capture(monkeypatch):
+    """``_cache_pipeline`` as on the card, with fake programs whose warm-up
+    needs fixed bytes: before a warm-up it evicts for the largest cached
+    program of the same batch, after it for the measured need, least
+    recently used first; a hit evicts nothing; the count limit still
+    holds."""
+    inference = importlib.import_module("yolov3_tpu_torch.inference")
+    need = {(8, (100, 100)): 30, (8, (200, 200)): 50, (8, (300, 300)): 45,
+            (16, (100, 100)): 60}
+    free, events = [1000], []
+
+    class Fake:
+        def __init__(self, key, route, run, keep, device):
+            self.key, self.route = key, route
+            self.need, self.nbytes = need[key[:2]], 0
+            events.append(("warm-up", key[:2], _held()))
+
+        def capture(self):
+            self.nbytes = self.need
+            events.append(("capture", self.key[:2], _held()))
+
+        def close(self):
+            events.append(("evict", self.key[:2]))
+
+    monkeypatch.setattr(inference, "_CapturedProgram", Fake)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (free[0], 1000))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    net = Darknet(SMALL, precision="highest", device="cpu")
+    net.set_params(fold_raw(random_raw(net.graph, seed=1)))
+    det = Detector(net, prob_thresh=0.05)
+    assert det._pipeline_budget is None          # the CPU: count only
+    det.device, det._pipeline_budget = torch.device("cuda", 0), 100
+
+    def _held():
+        return [k[:2] for k in det._pipelines]
+
+    def add(batch, hw):
+        det._cache_pipeline((batch, hw, True, None, 0), lambda f: None)
+
+    add(8, (100, 100))
+    add(8, (200, 200))                           # 30 + 50: both fit
+    add(8, (300, 300))       # estimate 50: 80 + 50 > 100, the oldest goes
+    assert events[-3:] == [("evict", (8, (100, 100))),
+                           ("warm-up", (8, (300, 300)), [(8, (200, 200))]),
+                           ("capture", (8, (300, 300)), [(8, (200, 200))])]
+    assert sum(p.nbytes for p in det._pipelines.values()) == 95
+    events.clear()
+    add(16, (100, 100))      # no batch-16 estimate; the warm-up says 60
+    assert events == [("warm-up", (16, (100, 100)),
+                       [(8, (200, 200)), (8, (300, 300))]),
+                      ("evict", (8, (200, 200))), ("evict", (8, (300, 300))),
+                      ("capture", (16, (100, 100)), [])]
+    events.clear()
+    free[0] = 20             # 60 + 30 fit the budget, not the card
+    add(8, (100, 100))
+    assert events == [("warm-up", (8, (100, 100)), [(16, (100, 100))]),
+                      ("evict", (16, (100, 100))),
+                      ("capture", (8, (100, 100)), [])]
+    events.clear()
+    free[0], det._pipeline_budget, det._pipeline_capacity = 1000, 10 ** 6, 2
+    add(8, (200, 200))
+    add(8, (300, 300))                           # the count limit of 2
+    assert ("evict", (8, (100, 100))) in events
+    assert _held() == [(8, (200, 200)), (8, (300, 300))]

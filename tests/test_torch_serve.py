@@ -296,19 +296,31 @@ def test_overload_is_503():
 
 
 def test_graceful_drain_mid_batch():
-    """SIGTERM lands while requests sit in the micro-batcher's open window:
-    every accepted request is answered 200, then the socket closes."""
+    """SIGTERM lands once all 4 requests are inside the micro-batcher
+    (``MicroBatcher.detect``, seen through a wrapper): every accepted
+    request is answered 200, then the socket closes."""
     srv = tserve.serve(_detector(33), host="127.0.0.1", port=0,
                        warmup_hw=(240, 320), batch_window_s=0.3, max_batch=8)
     url, thread = _start(srv)
     old_term = signal.getsignal(signal.SIGTERM)
     old_int = signal.getsignal(signal.SIGINT)
+    inside, seen, all_in = [0], threading.Lock(), threading.Event()
+    detect = srv.batcher.detect
+
+    def counted(frame, *args, **kwargs):
+        with seen:
+            inside[0] += 1
+            if inside[0] == 4:
+                all_in.set()
+        return detect(frame, *args, **kwargs)
+
+    srv.batcher.detect = counted
     try:
         drained = tserve.install_graceful_shutdown(srv)
         png = _png(2)
         with ThreadPoolExecutor(max_workers=4) as pool:
             futs = [pool.submit(_post, url + "/detect", png) for _ in range(4)]
-            time.sleep(0.1)  # requests accepted, batch window still open
+            assert all_in.wait(timeout=60)
             signal.raise_signal(signal.SIGTERM)
             results = [f.result(timeout=60) for f in futs]
         assert all(status == 200 for status, _ in results)

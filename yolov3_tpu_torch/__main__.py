@@ -156,8 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the darknet-style layer table before running")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for compatibility with the JAX package's "
-                        "CLI and does nothing: this package compiles no "
-                        "programs per shape")
+                        "CLI and does nothing: a Detector captures one CUDA "
+                        "graph per (batch, source shape) key, taking "
+                        "0.04-15 s, and a captured graph cannot outlive its "
+                        "process")
     return p
 
 

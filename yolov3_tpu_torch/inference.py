@@ -52,8 +52,13 @@ captured at its first call after one eager run that builds the kernels and
 fills every lazy cache; a later call copies its frames into the graph's
 static input, replays it, and copies the static packed output out. On the
 CPU a program is the eager closure of the same steps, so both devices key
-and evict alike. A capture or a replay that fails raises. ``cv2`` is
-imported inside the entry points that need it, never with the package.
+and evict alike. On the card the LRU is also bounded by bytes: a program
+holds its memory pool until it is evicted, so before a warm-up and again
+before a capture the least recently used programs go while the programs'
+bytes would pass ``PROGRAM_MEMORY_SHARE`` of the card, or the card's free
+memory is under the new program's need (``programs_to_evict``). A capture
+or a replay that fails raises. ``cv2`` is imported inside the entry points
+that need it, never with the package.
 """
 from __future__ import annotations
 
@@ -82,6 +87,10 @@ from .utils.boxes import unletterbox_tlbr, unstretch_tlbr
 log = logging.getLogger("yolov3_tpu_torch")
 
 RESIZE_MODES = ("letterbox", "stretch")
+# the share of the card's memory that one Detector's captured programs may
+# hold together; the rest is left to the weights, eager calls and the
+# warm-up forward of the next program
+PROGRAM_MEMORY_SHARE = 0.75
 DECODE_IMPLS = ("pallas", "pallas-fused", "xla")
 BLOCK_IMPLS = ("xla", "pallas")
 PARTITIONS = ("data", "spatial")
@@ -110,6 +119,24 @@ def decode_route(graph, decode_impl: str, q_ok: bool = True,
                         "falling back to decode_impl='xla'")
         decode_impl = "xla"
     return decode_impl
+
+
+def programs_to_evict(sizes: Sequence[int], need: int,
+                      budget: Optional[int], free: Optional[int]) -> int:
+    """How many cached programs to evict, least recently used first, before
+    a program that needs ``need`` device bytes is built: the fewest that
+    bring the cached programs' bytes (``sizes``, in LRU order) plus
+    ``need`` within ``budget`` and the card's ``free`` bytes up to ``need``,
+    an evicted program's bytes counting as freed. ``budget=None`` (the CPU,
+    where a program holds no device bytes): none."""
+    if budget is None:
+        return 0
+    held, n = sum(sizes), 0
+    while n < len(sizes) and (held + need > budget or free < need):
+        held -= sizes[n]
+        free += sizes[n]
+        n += 1
+    return n
 
 
 @dataclass
@@ -169,27 +196,43 @@ class _CapturedProgram(_Program):
     walk, decode, selection, K2, compaction and pack, reading a static uint8
     input and writing a static packed output, in a memory pool of its own.
 
-    One eager run on the capture stream comes first: it builds the kernels
-    and fills every lazy cache (the interpolation matrices, the int8
-    operands, the anchors' device constants, the libraries' handles and
+    Built in two steps, so that its Detector can make room in between.
+    Construction runs one eager forward on the capture stream: it builds
+    the kernels and fills every lazy cache (the interpolation matrices, the
+    int8 operands, the anchors' device constants, the libraries' handles and
     workspaces), so nothing inside the capture copies from the host or
-    synchronises. A replay overwrites the static output, so a caller that
-    holds a result past the next call copies it out first; ``release``
-    records where it did, and the next caller's stream waits for that
-    point (``acquire``) before it touches the buffers."""
+    synchronises, and its peak sets ``need``, the device bytes the capture
+    will hold. :meth:`capture` then captures the graph; ``nbytes`` is what
+    the program holds, its pool and static input. A replay overwrites the
+    static output, so a caller that holds a result past the next call
+    copies it out first; ``release`` records where it did, and the next
+    caller's stream waits for that point (``acquire``) before it touches
+    the buffers."""
 
     def __init__(self, key: Tuple, route: str, run, keep: Tuple,
                  device: torch.device):
         super().__init__(key, route, run, keep)
+        self._t0 = time.perf_counter()
         batch, (h, w) = key[0], key[1]
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
         self.input = torch.zeros((batch, h, w, 3), dtype=torch.uint8,
                                  device=device)
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.inference_mode(), torch.cuda.stream(stream):
+        self._stream = torch.cuda.Stream(device)
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.inference_mode(), torch.cuda.stream(self._stream):
             run(self.input)
-        stream.synchronize()
+        self._stream.synchronize()
+        self.need = torch.cuda.max_memory_allocated(device) - base
         torch.cuda.empty_cache()
+        self.replays = 0
+        self._released = torch.cuda.Event()
+        self._used = False
+
+    def capture(self) -> None:
+        """Capture the graph; ``nbytes`` and ``capture_s`` (warm-up and
+        capture, seconds) follow."""
+        device = self.input.device
         reserved = torch.cuda.memory_reserved(device)
         self.graph = torch.cuda.CUDAGraph()
         # no collection inside the capture: a graph it freed (another
@@ -198,17 +241,15 @@ class _CapturedProgram(_Program):
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.inference_mode(), torch.cuda.graph(self.graph,
-                                                          stream=stream):
-                self.output = run(self.input)
+            with torch.inference_mode(), torch.cuda.graph(
+                    self.graph, stream=self._stream):
+                self.output = self.run(self.input)
         finally:
             if collecting:
                 gc.enable()
-        # device bytes the program holds: its pool (intermediates, output)
-        self.nbytes = torch.cuda.memory_reserved(device) - reserved
-        self.replays = 0
-        self._released = torch.cuda.Event()
-        self._used = False
+        self.nbytes = (torch.cuda.memory_reserved(device) - reserved
+                       + self.input.numel())
+        self.capture_s = time.perf_counter() - self._t0
 
     def acquire(self) -> None:
         """Order the current stream after the last caller's copy out."""
@@ -241,10 +282,13 @@ class _CapturedProgram(_Program):
         self._used = True
 
     def close(self) -> None:
-        # the graph and its pool go with the last reference; a replay still
-        # running on another stream must not have its memory handed out
+        # a replay still running on another stream must not have its memory
+        # handed out; the pool goes back to the allocator now, even while
+        # something still holds this object
         if self._used:
             self._released.synchronize()
+        self.graph.reset()
+        self.input = self.output = None
 
 
 class Detector:
@@ -270,10 +314,13 @@ class Detector:
 
     Programs are cached per (batch, source shape, channel order,
     quantization state, weights) in an LRU of ``_pipeline_capacity`` (16,
-    the reference's): ``set_params`` / ``load_weights`` / ``quantize_int8``
-    / ``set_quantized`` / ``load_quantized`` change the key, so no program
-    replays weights it no longer should. A Detector serialises its calls
-    (one lock): a program's buffers serve one call at a time."""
+    the reference's) that on the card also holds at most
+    ``_pipeline_budget`` device bytes (``PROGRAM_MEMORY_SHARE`` of the
+    card; :func:`programs_to_evict`): ``set_params`` / ``load_weights`` /
+    ``quantize_int8`` / ``set_quantized`` / ``load_quantized`` change the
+    key, so no program replays weights it no longer should. A Detector
+    serialises its calls (one lock): a program's buffers serve one call at
+    a time."""
 
     def __init__(self, net: Darknet, prob_thresh: float = 0.05,
                  iou_thresh: float = 0.3, resize_mode: str = "letterbox",
@@ -345,6 +392,10 @@ class Detector:
         # quantization state and, on the card, a graph and its memory pool
         self._pipelines: "OrderedDict[Tuple, _Program]" = OrderedDict()
         self._pipeline_capacity = 16
+        # device bytes the programs may hold together (None on the CPU)
+        self._pipeline_budget = (
+            int(PROGRAM_MEMORY_SHARE * torch.cuda.mem_get_info(self.device)[1])
+            if self.device.type == "cuda" else None)
         self._lock = threading.Lock()
         # per-call stage split (seconds) of the last synchronous detect
         # call, written as ONE dict assignment (serve.py publishes it under
@@ -477,7 +528,10 @@ class Detector:
     def _cache_pipeline(self, key, run):
         """Add the pack (ONE device tensor for ONE device→host copy), build
         the program (on the card: capture it) and keep it in the LRU;
-        evicting an entry frees its graph and its memory pool."""
+        evicting an entry frees its graph and its memory pool. On the card
+        room is made twice (:meth:`_make_room`): before the warm-up for the
+        largest program cached at the same batch, and before the capture for
+        what the warm-up measured."""
         base = run
 
         def packed(frames: torch.Tensor) -> torch.Tensor:
@@ -487,13 +541,30 @@ class Detector:
         keep = (net.params, net.qparams, net.qoperands if net.quantized
                 else None)
         if self.device.type == "cuda":
+            self._make_room(max((p.nbytes for p in self._pipelines.values()
+                                 if p.key[0] == key[0]), default=0))
             prog = _CapturedProgram(key, self.route, packed, keep, self.device)
+            self._make_room(prog.need)
+            prog.capture()
         else:
             prog = _Program(key, self.route, packed, keep)
         self._pipelines[key] = prog
         while len(self._pipelines) > self._pipeline_capacity:
             self._pipelines.popitem(last=False)[1].close()
         return prog
+
+    def _make_room(self, need: int) -> None:
+        """Evict least recently used programs until ``need`` more device
+        bytes fit the budget and the card's free memory
+        (:func:`programs_to_evict`)."""
+        torch.cuda.empty_cache()
+        n = programs_to_evict([p.nbytes for p in self._pipelines.values()],
+                              need, self._pipeline_budget,
+                              torch.cuda.mem_get_info(self.device)[0])
+        for _ in range(n):
+            self._pipelines.popitem(last=False)[1].close()
+        if n:
+            torch.cuda.empty_cache()
 
     def _stage(self, frames: np.ndarray) -> torch.Tensor:
         self._check_frames(frames)

@@ -101,13 +101,17 @@ def _maxpool(x: torch.Tensor, node: Node) -> torch.Tensor:
 
 def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
                      precision: Optional[str] = None, conv_impl: str = "xla",
-                     stop_before_heads: bool = False) -> List[torch.Tensor]:
+                     stop_before_heads: bool = False,
+                     upto: Optional[int] = None) -> List[torch.Tensor]:
     """Walk the graph; return the raw NHWC feature map feeding each yolo
     head. ``x``: (B, H, W, C) float input in [0, 1] (cast to bfloat16 at
     precision "bf16"). ``stop_before_heads=True`` returns the PRE-head
     activations instead and skips the 1×1 head convs (their projection runs
     inside K4, :func:`forward_packed_fused`); callers gate on
-    :func:`fused_heads_eligible` first."""
+    :func:`fused_heads_eligible` first. ``upto``: walk ``graph.nodes[:upto]``
+    only and append the last node's output (NHWC) to the heads reached, as
+    ``quant.forward_features_int8_carrier`` does (the per-layer profile,
+    ``tools/profile_layers.py``)."""
     _check_route(precision, conv_impl)
     needed = graph.needed_outputs
     head_convs = ({yn.inputs[0] for yn in graph.yolo_nodes}
@@ -118,7 +122,7 @@ def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
     if precision == "bf16":
         prev = prev.to(torch.bfloat16)
     with tf32(precision is None):
-        for node in graph.nodes:
+        for node in graph.nodes[:upto]:
             if node.index in head_convs:
                 # the head branch ends here; the skipped conv's only
                 # consumer is its yolo node (eligibility-gated)
@@ -146,6 +150,8 @@ def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
             if node.index in needed:
                 cache[node.index] = out
             prev = out
+    if upto is not None:
+        return heads + [prev.permute(0, 2, 3, 1)]
     return heads
 
 

@@ -29,10 +29,12 @@ def event_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> floa
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> float:
+def graph_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2,
+             reps: int = 1) -> float:
     """Mean device milliseconds of ``fn``: ``iters`` calls captured into one
     CUDA graph and replayed, so the host's time per call (about 25 us for a
-    ctypes wrapper) does not count."""
+    ctypes wrapper) does not count; with ``reps`` > 1 the least of that many
+    timed replays."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -44,11 +46,14 @@ def graph_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> floa
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float("inf")
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best / iters
 
 
 def differential_s(run: Callable[[int], object], sizes: Sequence[int],

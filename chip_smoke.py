@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases k1,k1c,k2,k3,k4,k5,int8conv,k6,golden,main,int8,
                                     eval,cache,profile,probes,dots,native,entry,
-                                    serve]
+                                    serve,mesh]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. With no arguments every phase runs, in this order, and
@@ -116,7 +116,8 @@ each raises on failure (the build always runs):
     mask, the float epilogue) against their plain versions and the tool's
     exact host values, then ``tools.probe_block``'s full blocks and chain
     prefixes: 0 differences everywhere; T3a-e by graph replay beside their
-    wrapper times;
+    wrapper times, and T3c's two outputs as two ``torch.roll`` calls (its
+    library call; T3b, T3d and T3e have none);
 17. dots: T1 (int8 ``wgmma``, int8 ``mma.sync``, int8 ``__dp4a``, bf16
     ``wgmma``) and T2 over the tools' shape lists, checked against their
     plain versions, then timed by the tools' own clocks: time per step,
@@ -141,10 +142,23 @@ each raises on failure (the build always runs):
     ``/detect`` where cv2 is installed), ``/healthz``, ``/stats``,
     ``/metrics``, then a graceful shutdown that releases the port; each
     device batch one replay of the program the server's warm-up captured;
-    a lone canvas captured at B=1 against padded to B=8.
+    a lone canvas captured at B=1 against padded to B=8;
+21. mesh, ``parallel/`` at full width on every visible card, or on
+    ``cuda:0`` twice where there is one card (a virtual mesh): batch-DP
+    yolov3@416 B=8 on bf16 + K1, bf16 + K4 + K5 and int8 K6 + K1, each
+    replica's captured program equal bit for bit to one device's at the
+    same B/n sub-batch and captured == eager, both call times beside one
+    device's at B=8; ``scan=2`` on the mesh; spatial yolov3@416 B=1
+    "highest" at n = 2 and 4 (head maps within the reference's bars,
+    crossover and FLOP fractions, the collectives of a call, one program
+    captured on the card, its call beside one device's at B=1); tiny@416
+    spatial detection sets equal to one device's (K1c and K2 inside the
+    program); ``parallel.dryrun.dryrun_multichip(2)``.
 
 Every kernel's launch count is zeroed just before phases 11 to 15 and 20
-(in 20 after the server's own warm-up), in 19 just before one
+(in 20 after the server's own warm-up), in 21 read before and after each
+mesh Detector's calls (the single-device references are not counted and
+each kernel of the path must have run), in 19 just before one
 ``detect_mixed`` call and before the pipelined batches, in 16 and 17 before
 the tools' runs, and read just after (13 and 14 count only the programs'
 warm-ups and captures: K1 and K2 once a forward in each). A wrapper counts
@@ -176,7 +190,7 @@ BATCH = 8
 SRC_HW = (480, 640)
 PHASES = ("build", "k1", "k1c", "k2", "k3", "k4", "k5", "int8conv", "k6",
           "golden", "main", "int8", "eval", "cache", "profile", "probes",
-          "dots", "native", "entry", "serve")
+          "dots", "native", "entry", "serve", "mesh")
 YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights file
 # float lanes of K1 / K1c against their plain versions: both run the same
 # float operations in the same order (no FMA contraction, full-precision
@@ -2654,6 +2668,12 @@ def phase_probes():
     # times above (about 25 us of host work a call)
     rec["T3b"]["graph_ms"] = graph_ms(lambda: cp.probe_round(x))
     rec["T3c"]["graph_ms"] = graph_ms(lambda: cp.probe_roll(xr))
+    # the library's counterpart of T3c: one torch.roll call per output
+    rolls = (torch.roll(xr, 1, 1), torch.roll(xr, -1, 1))
+    if not torch.equal(torch.stack(rolls), cp.probe_roll(xr)):
+        raise AssertionError("T3c: torch.roll differs from the kernel")
+    rec["T3c"]["library_ms"] = graph_ms(
+        lambda: (torch.roll(xr, 1, 1), torch.roll(xr, -1, 1)))
     rec["T3d"]["graph_ms"] = graph_ms(
         lambda: cp.probe_mask(*mask_args, 3, device=dev))
     rec["T3e"]["graph_ms"] = graph_ms(
@@ -2661,7 +2681,10 @@ def phase_probes():
     log("[probes] T3b-e, one launch each: " + ", ".join(
         f"{key} {rec[key]['graph_ms'] * 1e3:.2f} us by graph replay "
         f"({rec[key]['ms'] * 1e3:.2f} us a wrapper call)"
-        for key in ("T3b", "T3c", "T3d", "T3e")))
+        for key in ("T3b", "T3c", "T3d", "T3e"))
+        + f"; T3c's two outputs as two torch.roll calls "
+        f"{rec['T3c']['library_ms'] * 1e3:.2f} us by graph replay (T3b, T3d "
+        f"and T3e have no single library call)")
     log("[probes] T3a-e equal their plain versions on the card (T3a at "
         f"{len(dots)} shapes, wgmma, mma.sync and __dp4a)")
     # the tool's path: exact host values, the reference's wording
@@ -2842,12 +2865,14 @@ def phase_dots(card: str):
 ENTRY_SHAPES = ((480, 640), (720, 1280), (360, 480), (600, 800))
 
 
-def entry_net(precision: str = "bf16", cfg: str = "yolov3.cfg", seed: int = 0):
+def entry_net(precision: str = "bf16", cfg: str = "yolov3.cfg", seed: int = 0,
+              **kw):
     """A net at full width with random weights of ``seed``, on the card."""
     from yolov3_tpu_torch import Darknet
     from yolov3_tpu_torch.weights import fold_raw, random_raw
 
-    net = Darknet(REPO / "models" / cfg, precision=precision, device=DEVICE)
+    net = Darknet(REPO / "models" / cfg, precision=precision, device=DEVICE,
+                  **kw)
     return net.set_params(fold_raw(random_raw(net.graph, seed=seed)))
 
 
@@ -3314,6 +3339,268 @@ def phase_serve(card: str):
                 p50=float(np.percentile(conc, 50)), p95=float(np.percentile(conc, 95)))
 
 
+def card_mesh_devices():
+    """The mesh of the ``mesh`` phase: every visible card when there are at
+    least two, else ``cuda:0`` twice (a virtual mesh on the one card)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"every visible card ({n})")
+    return ([torch.device("cuda", 0)] * 2,
+            "cuda:0 twice (a virtual mesh on the one card)")
+
+
+def same_detections_exact(got, want, what: str) -> None:
+    if not same_detections(got, want):
+        raise AssertionError(f"{what}: detections differ")
+
+
+def same_detection_sets(got, want, what: str) -> float:
+    """Counts and classes exact, boxes within 1e-3 px; the largest box
+    difference."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if (len(g.class_idx) != len(w.class_idx)
+                or not np.array_equal(g.class_idx, w.class_idx)):
+            raise AssertionError(f"{what}: detection sets differ")
+        if len(g.class_idx):
+            err = max(err, float(np.abs(g.bbox_tlbr - w.bbox_tlbr).max()))
+    if len(got) != len(want) or err > 1e-3:
+        raise AssertionError(f"{what}: boxes differ by {err} px")
+    return err
+
+
+def mesh_batch_dp(net, name: str, devices, frames, kw, counts, card: str,
+                  calls: int = 10) -> dict:
+    """One batch-DP route at B=8 on ``devices``: each replica's results
+    equal to the single-device Detector's on the same B/n sub-batch, bit for
+    bit; the warm-up and capture launch each wrapper twice a forward's count
+    per replica; a steady call is one replay per replica and no eager
+    launch; captured == eager; both call times beside the single device's
+    at B=8. The mesh Detector's launches are added to ``counts``."""
+    import torch
+    from yolov3_tpu_torch import Detector
+    from yolov3_tpu_torch.parallel import make_mesh
+
+    n = len(devices)
+    b = BATCH // n
+    one = Detector(net, **kw)
+    want = []
+    for r in range(n):
+        want += one.detect_batch(frames[r * b:(r + 1) * b])
+    _, one_host, one_dev = timed_calls(lambda: one.detect_batch(frames), calls)
+    wrappers = path_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    det = Detector(net, mesh=make_mesh(n, devices=devices), **kw)
+    got = det.detect_batch(frames)
+    warm = {k: w.launches - before[k] for k, w in wrappers.items()}
+    fwd = forward_launches(det)
+    if warm != {k: 2 * n * v for k, v in fwd.items()}:
+        raise AssertionError(f"[mesh] {name}: warm-up and capture launched "
+                             f"{warm}, expected 2 x {n} replicas x {fwd}")
+    same_detections_exact(got, want, f"[mesh] {name} replicas against the "
+                                     f"single device at B={b}")
+    prog = det._pipeline(BATCH, SRC_HW)
+    replays = [r.replays for r in prog.replicas]
+    mid = {k: w.launches for k, w in wrappers.items()}
+    out, host, dev = timed_calls(lambda: det.detect_batch(frames), calls)
+    steady = {k: w.launches - mid[k] for k, w in wrappers.items()}
+    if any(steady.values()) or any(
+            r.replays - r0 != calls for r, r0 in zip(prog.replicas, replays)):
+        raise AssertionError(f"[mesh] {name}: steady calls launched {steady}, "
+                             "or a replica did not replay once a call")
+    for k, v in warm.items():
+        counts[k] += v
+    same_detections_exact(out, want, f"[mesh] {name} steady call")
+    eager = det._run(det._stage(frames)).cpu()
+    packed, _, _ = det._detect(frames, SRC_HW, None)
+    if not torch.equal(eager, packed):
+        raise AssertionError(f"[mesh] {name}: captured != eager")
+    row = {"route": det.route, "mesh_host_ms": float(np.median(host)),
+           "mesh_event_ms": float(np.median(dev)),
+           "one_host_ms": float(np.median(one_host)),
+           "one_event_ms": float(np.median(one_dev)),
+           "replica_mib": [r.nbytes / 2 ** 20 for r in prog.replicas]}
+    log(f"[mesh] batch-DP {name}@416 B={BATCH} of {SRC_HW[0]}x{SRC_HW[1]} on "
+        f"{n} shards (B={b} a replica): replicas == single device at B={b} "
+        f"bit for bit, captured == eager; per call median over {calls}: mesh "
+        f"{row['mesh_host_ms']:.3f} ms host clock / {row['mesh_event_ms']:.3f} "
+        f"ms CUDA events against one device at B={BATCH} "
+        f"{row['one_host_ms']:.3f} / {row['one_event_ms']:.3f} ms (on {card}); "
+        f"replica programs {[round(m, 1) for m in row['replica_mib']]} MiB; "
+        f"wrapper launches a forward {fwd} per replica")
+    return row
+
+
+def phase_mesh(card: str) -> dict:
+    """``parallel/`` at full width on the card: batch-DP yolov3@416 B=8
+    (bf16 + K1, bf16 + K4 + K5, int8 K6 + K1, and ``scan=2``), spatial
+    yolov3@416 B=1 "highest" at n = 2 and 4 (head maps within the
+    reference's bars, crossover and FLOP fractions, collectives a call, the
+    call against one device at B=1), tiny@416 spatial detection sets against
+    one device, and the dry run. Returns the launches of K1, K1c, K2, K4, K5
+    and K6 in the phase's mesh Detectors' calls (counts zeroed before each
+    drive and read after; the single-device references are not counted)."""
+    import torch
+    from yolov3_tpu_torch import Detector
+    from yolov3_tpu_torch.model import forward_features
+    from yolov3_tpu_torch.ops import cuda_decode
+    from yolov3_tpu_torch.ops.preprocess import preprocess
+    from yolov3_tpu_torch.parallel import (collectives, make_mesh,
+                                           make_spatial_mesh, plan_spatial)
+    from yolov3_tpu_torch.parallel.dryrun import dryrun_multichip
+    from yolov3_tpu_torch.parallel.sharding import shard_params
+    from yolov3_tpu_torch.parallel.spatial import forward_features_spatial
+
+    devices, which = card_mesh_devices()
+    n = len(devices)
+    log(f"[mesh] mesh devices: {which}: {[str(d) for d in devices]}")
+    frames = np.random.default_rng(0).integers(0, 256, (BATCH, *SRC_HW, 3),
+                                               dtype=np.uint8)
+    counts = Counter()
+    rows = {}
+    # batch-DP, three routes at full width
+    rows["bf16 + K1"] = mesh_batch_dp(entry_net(), "yolov3 bf16 + K1",
+                                      devices, frames, {}, counts, card)
+    rows["bf16 + K4 + K5"] = mesh_batch_dp(
+        entry_net(conv_impl="pallas"), "yolov3 bf16 + K4 + K5", devices, frames,
+        {"decode_impl": "pallas-fused"}, counts, card)
+    q = entry_net()
+    q.quantize_int8(np.random.default_rng(1).integers(
+        0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8))
+    rows["int8 K6 + K1"] = mesh_batch_dp(
+        q, "yolov3 int8 K6 + K1", devices, frames, {"block_impl": "pallas"},
+        counts, card)
+    # scan=2: each replica's two sub-batches of B/(2n) in one program
+    net = entry_net()
+    sub = BATCH // (2 * n)
+    want = []
+    one = Detector(net)
+    for i in range(0, BATCH, sub):
+        want += one.detect_batch(frames[i:i + sub])
+    before = {k: w.launches for k, w in path_wrappers().items()}
+    det = Detector(net, mesh=make_mesh(n, devices=devices), scan=2)
+    got = det.detect_batch(frames)
+    for k, w in path_wrappers().items():
+        counts[k] += w.launches - before[k]
+    same_detections_exact(got, want, "[mesh] scan=2")
+    eager = det._run(det._stage(frames)).cpu()
+    if not torch.equal(eager, det._detect(frames, SRC_HW, None)[0]):
+        raise AssertionError("[mesh] scan=2: captured != eager")
+    log(f"[mesh] batch-DP scan=2 bf16 + K1 B={BATCH}: each replica's 2 "
+        f"sub-batches of {sub} in one captured program == one device on "
+        f"sub-batches of {sub}, bit for bit; captured == eager")
+    del det, one, net, q
+    torch.cuda.empty_cache()
+
+    # spatial, yolov3@416 B=1 "highest": head maps, then the Detector
+    net = entry_net("highest")
+    frame = frames[:1]
+    x = preprocess(torch.from_numpy(frame).to(DEVICE).flip(-1), (416, 416))
+    with torch.inference_mode():
+        full = forward_features(net.graph, net.params, x, precision="highest")
+    spatial = {}
+    for ns in (2, 4):
+        sdev = devices if n >= ns else [torch.device(DEVICE, 0)] * ns
+        plan = plan_spatial(net.graph, ns, (416, 416))
+        mesh = make_spatial_mesh(ns, devices=sdev[:ns])
+        h = 416 // ns
+        with torch.inference_mode():
+            heads = forward_features_spatial(
+                net.graph, shard_params(net.params, mesh),
+                [x[:, i * h:(i + 1) * h].to(d)
+                 for i, d in enumerate(mesh.devices)], n_shards=ns,
+                crossover=plan.crossover, precision="highest",
+                channel_roles=dict(plan.roles))
+        err = 0.0
+        for hd, f in zip(heads, full):
+            d = (hd.float().to(f.device) - f.float()).abs()
+            err = max(err, float(d.max()))
+            if not bool((d <= 2e-4 + 1e-4 * f.float().abs()).all()):
+                raise AssertionError(f"[mesh] spatial n={ns}: head maps off "
+                                     f"the bar (max |diff| {err})")
+        n_rows = sum(1 for _, role in plan.roles if role == "row")
+        det = Detector(net, mesh=mesh, partition="spatial")
+        collectives.reset_counts()
+        eager = det._run(det._stage(frame)).cpu()
+        coll = dict(collectives.counts)
+        if (coll.get("psum", 0) != n_rows
+                or not 1 <= coll.get("all_gather", 0) <= 6):
+            raise AssertionError(f"[mesh] spatial n={ns}: collectives {coll}, "
+                                 f"{n_rows} row convs planned")
+        one = Detector(net)
+        want = one.detect_batch(frame)
+        _, one_host, one_dev = timed_calls(lambda: one.detect_batch(frame), 10)
+        before = {k: w.launches for k, w in path_wrappers().items()}
+        k1c = cuda_decode.decode_compact.launches
+        got = det.detect_batch(frame)
+        for k, w in path_wrappers().items():
+            counts[k] += w.launches - before[k]
+        counts["decode_compact"] += cuda_decode.decode_compact.launches - k1c
+        captured = len(set(mesh.devices)) == 1
+        if not torch.equal(eager, det._detect(frame, SRC_HW, None)[0]):
+            raise AssertionError(f"[mesh] spatial n={ns}: program != eager")
+        _, host, dev = timed_calls(lambda: det.detect_batch(frame), 10)
+        # random weights at yolov3's depth move borderline candidates (the
+        # bf16 bar is gated on tiny for the same reason): logged, not gated
+        box = [len(got[0].class_idx), len(want[0].class_idx)]
+        spatial[ns] = {"crossover": plan.crossover,
+                       "row_frac": plan.sharded_flop_frac,
+                       "total_frac": plan.total_sharded_flop_frac,
+                       "head_err": err, "collectives": coll,
+                       "host_ms": float(np.median(host)),
+                       "event_ms": float(np.median(dev)),
+                       "one_host_ms": float(np.median(one_host)),
+                       "one_event_ms": float(np.median(one_dev)),
+                       "detections": box}
+        log(f"[mesh] spatial yolov3@416 B=1 \"highest\" n={ns} on "
+            f"{[str(d) for d in mesh.devices]}: crossover node "
+            f"{plan.crossover}, sharded FLOP fraction row-only "
+            f"{plan.sharded_flop_frac:.3f}, with the channel tail "
+            f"{plan.total_sharded_flop_frac:.3f}; head maps against the full "
+            f"walk max |diff| {err:.3e} (bar atol 2e-4, rtol 1e-4); "
+            f"collectives a call {coll} ({n_rows} row convs); detections "
+            f"{box[0]} against one device's {box[1]}; the program "
+            f"({'one captured graph' if captured else 'eager over the cards'}) "
+            f"== eager; per "
+            f"call median over 10: spatial {spatial[ns]['host_ms']:.3f} ms "
+            f"host clock / {spatial[ns]['event_ms']:.3f} ms CUDA events "
+            f"against one device at B=1 {spatial[ns]['one_host_ms']:.3f} / "
+            f"{spatial[ns]['one_event_ms']:.3f} ms (on {card})")
+        del det, one
+    del net
+    torch.cuda.empty_cache()
+    # tiny@416: spatial detection sets against one device
+    tiny = entry_net("highest", "yolov3-tiny.cfg", seed=42)
+    one = Detector(tiny, prob_thresh=0.3)
+    for ns in (2, 4):
+        sdev = devices if n >= ns else [torch.device(DEVICE, 0)] * ns
+        det = Detector(tiny, prob_thresh=0.3, partition="spatial",
+                       mesh=make_spatial_mesh(ns, devices=sdev[:ns]))
+        before = {k: w.launches for k, w in path_wrappers().items()}
+        k1c = cuda_decode.decode_compact.launches
+        got = det.detect_batch(frames[:2])
+        for k, w in path_wrappers().items():
+            counts[k] += w.launches - before[k]
+        counts["decode_compact"] += cuda_decode.decode_compact.launches - k1c
+        box = same_detection_sets(got, one.detect_batch(frames[:2]),
+                                  f"[mesh] spatial n={ns} tiny")
+        log(f"[mesh] spatial tiny@416 B=2 n={ns}: detection sets == one "
+            f"device ({[len(d.class_idx) for d in got]} detections, max box "
+            f"diff {box:.2e} px)")
+    # the dry run's counterpart, on the card
+    dryrun_multichip(2)
+    for k in ("decode_packed", "decode_compact", "nms_suppress",
+              "decode_packed_fused_head", "conv3x3_fused",
+              "residual_block_int8"):
+        if not counts[k]:
+            raise AssertionError(f"[mesh] the mesh path launched {k} no time")
+    log(f"[mesh] kernel launches of the phase's mesh Detectors: {dict(counts)}")
+    return {"launches": dict(counts), "batch_dp": rows, "spatial": spatial}
+
+
 def probe_records(dots, probes, bound):
     """The kernels-line entries of T1 (one per core), T2 and T3a-e. A dot's
     times are sums over its tool's shape list (one step at each shape); its
@@ -3437,6 +3724,8 @@ def main() -> int:
         res["entry"] = phase_entry(card)
     if "serve" in phases:
         res["serve"] = phase_serve(card)
+    if "mesh" in phases:
+        res["mesh"] = phase_mesh(card)
     if set(phases) != set(PHASES):
         log(f"phases run: {phases}; no result printed for a partial run")
         return 0
@@ -3564,6 +3853,8 @@ def main() -> int:
         for phase in ("eval", "cache", "profile"):
             if res[phase].get(entry["name"]):
                 entry[f"launches_{phase}_path"] = res[phase][entry["name"]]
+        if entry["name"] in res["mesh"]["launches"]:
+            entry["launches_mesh_path"] = res["mesh"]["launches"][entry["name"]]
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -260,8 +260,11 @@ ONE_LINE_ERRORS = [
      "could not read image"),
     (["--image", "IMG", "--device", "cpu", "--config",
       str(MODELS / "yolov3.cfg")], ValueError, "exhausted|mismatch"),
-    (["--image", "IMG", "--device", "cpu", "--spatial", "2"], SystemExit,
-     "ROADMAP.md"),
+    # spatial partitioning runs the float tiers only, as in the reference
+    (["--image", "IMG", "--device", "cpu", "--spatial", "2", "--quantize-int8",
+      "DIR"], SystemExit, "int8 \\+ spatial partitioning is out of scope"),
+    (["--image", "IMG", "--device", "cpu", "--spatial", "1"], SystemExit,
+     "needs >= 2 devices"),
     (["--image", "IMG", "--device", "cpu", "--quant-state", "/nonexistent/q.npz"],
      SystemExit, "file not found"),
     (["--image", "IMG", "--device", "cpu", "--quantize-int8", "EMPTY"],
@@ -281,7 +284,7 @@ def test_user_errors(files, tmp_path, argv, exc, match):
     empty = tmp_path / "empty"
     empty.mkdir()
     sub = {"IMG": files["images"][0], "VIDEO": files["video"],
-           "EMPTY": str(empty)}
+           "EMPTY": str(empty), "DIR": files["dir"]}
     argv = [sub.get(a, a) for a in argv]
     base = _base(files)
     for flag in ("--weights", "--config"):      # the case's value wins

@@ -223,10 +223,22 @@ def test_float_frames_are_refused(net, frames):
 
 
 def test_multi_device_arguments_fail_loudly(net):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Detector(net, mesh=object(), **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Detector(net, partition="spatial", **KW)
+    """The reference's refusals of a mesh: the wrong kind for the
+    partition, ``scan`` on a spatial mesh, an unknown partition; a spatial
+    partition without a mesh runs on one device, as there."""
+    from yolov3_tpu_torch.parallel import make_mesh, make_spatial_mesh
+
+    cpus = [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="make_spatial_mesh"):
+        Detector(net, mesh=make_mesh(2, devices=cpus), partition="spatial",
+                 **KW)
+    with pytest.raises(ValueError, match="make_mesh"):
+        Detector(net, mesh=make_spatial_mesh(2, devices=cpus), **KW)
+    with pytest.raises(ValueError, match="scan > 1 requires partition='data'"):
+        Detector(net, mesh=make_spatial_mesh(2, devices=cpus),
+                 partition="spatial", scan=2, **KW)
+    det = Detector(net, partition="spatial", **KW)
+    assert det.mesh is None and det.partition == "spatial"
     with pytest.raises(ValueError, match="partition"):
         Detector(net, partition="rows", **KW)
     with pytest.raises(ValueError, match="nms_impl"):

@@ -190,9 +190,9 @@ def test_preprocess_host_equals_jax(cfg_paths):
 
 def test_import_leaves_jax_out():
     """``import yolov3_tpu_torch`` (and every module of the port: the CLI,
-    the server, the native binding, the tools) pulls in no jax, nothing of
-    the JAX package or the repository's ``tools/``, and no cv2 — checked in
-    a fresh interpreter, since this process has them."""
+    the server, the native binding, the tools, ``parallel/``) pulls in no
+    jax, nothing of the JAX package or the repository's ``tools/``, and no
+    cv2 — checked in a fresh interpreter, since this process has them."""
     code = ("import sys, pkgutil, importlib, yolov3_tpu_torch as p\n"
             "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "p.__name__ + '.')]\n"
@@ -203,7 +203,8 @@ def test_import_leaves_jax_out():
             "'tools.clock', 'tools.eval_coco', 'tools.gen_eval_golden', "
             "'tools.profile_layers', 'tools.profile_int8', "
             "'utils.drawing', 'utils.export', "
-            "'utils.profiling', 'utils.video']\n"
+            "'utils.profiling', 'utils.video', 'parallel.sharding', "
+            "'parallel.spatial', 'parallel.collectives', 'parallel.dryrun']\n"
             "missing = [w for w in want if p.__name__ + '.' + w not in names]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'yolov3_tpu', 'tools', 'cv2', 'PIL'))\n"

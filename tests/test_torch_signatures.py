@@ -19,6 +19,7 @@ from yolov3_tpu.utils import boxes as jboxes
 from yolov3_tpu_torch import Darknet, Detector
 from yolov3_tpu_torch.ops import cuda_nms
 from yolov3_tpu_torch.ops import nms as tnms
+from yolov3_tpu_torch.parallel import make_mesh
 from yolov3_tpu_torch.utils import boxes as tboxes
 from yolov3_tpu_torch.weights import fold_raw, random_raw
 
@@ -26,14 +27,15 @@ torch.set_num_threads(1)
 
 MODULES = ("inference", "model", "ops.nms", "utils.boxes", "ops.preprocess",
            "ops.decode", "quant", "weights", "graph", "config", "native",
-           "serve")
+           "serve", "parallel.sharding", "parallel.spatial")
 
 # (module, qualified name) -> (parameters the port drops, parameters it
 # appends after the original's). Each appended parameter is the port's own:
 # the device a net or Detector lives on, pinned staging, the cached resize
 # matrices, the int8 operands cached on the card, the float walk's ``upto``
 # (the per-layer profile's prefixes, as the int8 carrier walk has). The
-# port's _conv and _conv_bf16 take no precision: the weights' type says it.
+# port's _conv and _conv_bf16 take no precision: the weights' type says it;
+# nor do the spatial walk's convs, under the walk's one precision scope.
 DEVIATIONS = {
     ("inference", "Detector.__init__"): ((), ("device",)),
     ("inference", "Detector._stage_batch"): ((), ("pinned",)),
@@ -50,6 +52,9 @@ DEVIATIONS = {
     ("quant", "forward_features_int8_carrier"): ((), ("operands",)),
     ("quant", "forward_packed_fused_int8"): ((), ("operands",)),
     ("quant", "forward_packed_int8"): ((), ("operands",)),
+    ("parallel.spatial", "_conv_sharded"): (("precision",), ()),
+    ("parallel.spatial", "_conv_col"): (("precision",), ()),
+    ("parallel.spatial", "_conv_row"): (("precision",), ()),
 }
 
 
@@ -97,8 +102,9 @@ def test_detector_binds_positionally_like_the_reference(cfg_paths):
                  "nms_impl", "decode_impl"):
         assert getattr(det, name) == bound[name], name
     assert (det.top_k, det.net_hw, det.route) == (256, (416, 416), "pallas")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        Detector(net, 0.5, 0.45, "letterbox", None, True, None, object())
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    det = Detector(net, 0.5, 0.45, "letterbox", None, True, None, mesh)
+    assert (det.mesh, det.partition) == (mesh, "data")
     det = Detector(net, 0.5, 0.45, "letterbox", 64, True, None, None, "pallas",
                    "xla", 32, 2, "data", 4, "pallas", "cpu")
     assert (det.top_k, det.nms_impl, det.decode_impl, det.max_results,

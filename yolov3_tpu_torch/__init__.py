@@ -12,8 +12,10 @@ decode K3 (``csrc/decode_full.cu``), and the int8 tier (``quant.py``:
 int8 convs in ``ops/int8_conv.py``) with the fused int8 residual block K6
 (``ops/cuda_block.py``, ``csrc/block_int8.cu``). The entry points
 (``detect_mixed``, ``PipelinedDetector``, image / directory / video / cam)
-are in ``inference``, the CLI is ``python -m yolov3_tpu_torch``, the HTTP
-server ``python -m yolov3_tpu_torch.serve``, the diagnostic tools and their
+are in ``inference``, the multi-device routes (batch-DP and spatial
+partitioning on a single-controller mesh) in ``parallel``, the CLI is
+``python -m yolov3_tpu_torch``, the HTTP server ``python -m
+yolov3_tpu_torch.serve``, the diagnostic tools and their
 kernels ``tools/`` and ``ops/cuda_probe.py`` (``csrc/probe.cu``). Imports
 ``torch``, never ``jax``; the kernels build with ``nvcc`` at first use
 (``ops/_build.py``), the C++ host loader with ``g++`` (``native.py``).

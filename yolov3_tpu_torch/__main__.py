@@ -151,7 +151,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "sort)")
     p.add_argument("--spatial", type=int, default=None, metavar="N",
                    help="shard EACH image's rows over N cards (latency "
-                        "mode); not ported yet (ROADMAP.md): exits")
+                        "mode: halo-exchange convs + channel-pair tail, "
+                        "parallel/spatial.py); needs N visible cards (N "
+                        "CPU shards with --device cpu) and float precision")
     p.add_argument("--summary", action="store_true",
                    help="print the darknet-style layer table before running")
     p.add_argument("--no-compile-cache", action="store_true",
@@ -226,9 +228,6 @@ def main(argv=None) -> int:
     if args.save_json and not (args.image or args.image_dir):
         raise SystemExit("--save-json needs an --image or --image-dir "
                          "source (video/cam streams have no image ids)")
-    if args.spatial:
-        raise SystemExit(f"--spatial {args.spatial}: spatial partitioning "
-                         "(parallel/) is not ported yet, see ROADMAP.md")
     device = _resolve_device(args.device)
 
     from .inference import (Detector, detect_directory, detect_image,
@@ -282,6 +281,18 @@ def main(argv=None) -> int:
                          "(pass --quantize-int8 CALIB_DIR to create it)")
 
     net_hw = (args.net_size, args.net_size) if args.net_size else None
+    mesh, partition = None, "data"
+    if args.spatial:
+        from .parallel.spatial import make_spatial_mesh
+
+        if args.spatial < 2:
+            raise SystemExit(f"--spatial {args.spatial}: needs >= 2 devices")
+        try:  # --device cpu: N CPU shards; else N visible cards
+            mesh = make_spatial_mesh(args.spatial, devices=(
+                [device] * args.spatial if device.type == "cpu" else None))
+        except ValueError as e:
+            raise SystemExit(f"--spatial {args.spatial}: {e}")
+        partition = "spatial"
     try:
         detector = Detector(net, prob_thresh=args.prob_thresh,
                             iou_thresh=args.iou_thresh,
@@ -289,6 +300,7 @@ def main(argv=None) -> int:
                             net_hw=net_hw, nms_impl=args.nms_impl,
                             decode_impl=args.decode_impl,
                             max_results=args.max_results, scan=args.scan,
+                            mesh=mesh, partition=partition,
                             select_group=args.select_group,
                             block_impl=args.block_impl)
     except ValueError as e:

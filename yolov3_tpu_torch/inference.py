@@ -32,8 +32,10 @@ the bf16 carrier, runs "pallas", and heads with more than 4 anchors run
 "xla", each with the JAX package's warning; ``block_impl="pallas"`` on a
 net with nonzero zero-points (the asymmetric scheme) runs its blocks
 unfused, with a warning. They are not a fallback from a failing kernel: a
-kernel that cannot build or launch raises. The multi-device routes wait for
-``parallel/`` (ROADMAP.md): ``Detector(mesh=...)`` raises.
+kernel that cannot build or launch raises. ``Detector(mesh=...)`` runs the
+multi-device routes of ``parallel/``: batch-DP (``partition="data"``, one
+replica program per shard) and spatial (``partition="spatial"``, each
+image's rows over the mesh).
 
 ``detect_mixed`` takes frames of any sizes: the C++ host loader
 (``native.py``) letterboxes them into one RGB uint8 batch at net resolution
@@ -97,20 +99,22 @@ PARTITIONS = ("data", "spatial")
 
 
 def decode_route(graph, decode_impl: str, q_ok: bool = True,
-                 warn: bool = True) -> str:
+                 warn: bool = True, spatial: bool = False) -> str:
     """The route a Detector runs for ``decode_impl`` on ``graph``, by the
     JAX package's gates (``yolov3_tpu/inference.py``), with its warnings
     unless ``warn`` is False. ``q_ok`` is False for a net quantized with
-    the bf16 carrier, whose walk has no head-fused form."""
+    the bf16 carrier, whose walk has no head-fused form; ``spatial`` for
+    ``partition="spatial"``, which shards the head convs themselves."""
     if decode_impl not in DECODE_IMPLS:
         raise ValueError(f"decode_impl must be one of {DECODE_IMPLS}, got "
                          f"{decode_impl!r}")
-    if decode_impl == "pallas-fused" and not (
-            q_ok and fused_heads_eligible(graph)):
+    if decode_impl == "pallas-fused" and (
+            not q_ok or spatial or not fused_heads_eligible(graph)):
         if warn:
             log.warning("head-fused decode not applicable here (%s); "
                         "falling back to decode_impl='pallas'",
-                        "bf16-carrier int8" if not q_ok else "graph shape")
+                        "bf16-carrier int8" if not q_ok else
+                        "spatial" if spatial else "graph shape")
         decode_impl = "pallas"
     if (decode_impl in ("pallas", "pallas-fused")
             and not packed_decode_supported([n.anchors for n in graph.yolo_nodes])):
@@ -137,6 +141,74 @@ def programs_to_evict(sizes: Sequence[int], need: int,
         free += sizes[n]
         n += 1
     return n
+
+
+def detect_step(graph, params, net_hw: Tuple[int, int], mode: str, bgr: bool,
+                route: str, interp, prob_thresh: float, nms: dict,
+                precision: Optional[str] = None, conv_impl: str = "xla",
+                act_scales=None, act_zeros=None, carrier: str = "int8",
+                block_impl: str = "xla", operands=None):
+    """The device work of one call by ``route`` on ``params``' device:
+    (B, H, W, 3) uint8 frames there → NMSResult, boxes in net-input pixels.
+    With ``act_scales``, ``params`` are the int8 ``qparams`` (and
+    ``operands`` their run-time forms) and the int8 walk runs. ``interp``
+    gives the interpolation matrices of a source shape (``_InterpCache``);
+    ``nms`` the NMS keywords. A Detector's program and each batch-DP
+    replica (``parallel.sharding``) run this; the closure holds no
+    reference to a Detector."""
+    if act_scales is not None:
+        from .quant import (forward_compact_int8, forward_packed_fused_int8,
+                            forward_packed_int8)
+
+        state = (graph, params, act_scales)
+        kw = dict(precision=precision or "bf16", carrier=carrier,
+                  block_impl=block_impl, zeros=act_zeros, operands=operands)
+        compact = lambda x: forward_compact_int8(  # noqa: E731
+            *state, x, decode_impl="xla", **kw)
+        packed = (forward_packed_fused_int8 if route == "pallas-fused"
+                  else forward_packed_int8)
+    else:
+        state = (graph, params)
+        kw = dict(precision=precision, conv_impl=conv_impl)
+        compact = lambda x: forward_compact(*state, x, **kw)  # noqa: E731
+        packed = (forward_packed_fused if route == "pallas-fused"
+                  else forward_packed)
+
+    def run(frames: torch.Tensor) -> NMSResult:
+        if bgr:
+            frames = frames.flip(-1)  # BGR→RGB on device
+        x = preprocess(frames, net_hw, mode=mode,
+                       interp=interp(tuple(frames.shape[1:3])))
+        if route == "xla":
+            return batched_nms_compact(*compact(x), prob_thresh=prob_thresh,
+                                       **nms)
+        payload, scores = packed(*state, x, prob_thresh=prob_thresh, **kw)
+        return batched_nms_packed(payload, scores, **nms)
+
+    return run
+
+
+def scanned(run, k: int):
+    """``run`` over ``k`` sub-batches back to back (the counterpart of the
+    reference's ``lax.scan``), results concatenated in submission order;
+    ``run`` itself for k = 1."""
+    if k == 1:
+        return run
+
+    def run_k(frames: torch.Tensor) -> NMSResult:
+        parts = [run(part) for part in frames.chunk(k)]
+        return NMSResult(*(torch.cat(f) for f in zip(*parts)))
+
+    return run_k
+
+
+def _packed(run):
+    """``run`` ending in ``pack_results``: ONE device tensor for ONE
+    device→host copy."""
+    def packed(frames: torch.Tensor) -> torch.Tensor:
+        return pack_results(run(frames))
+
+    return packed
 
 
 @dataclass
@@ -183,6 +255,13 @@ class _Program:
     def __call__(self, frames: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return self.run(frames)
+
+    def hold(self, res: torch.Tensor) -> torch.Tensor:
+        """A result that outlives the next call (the eager program's own)."""
+        return res
+
+    def bytes_on(self, device: torch.device) -> int:
+        return 0
 
     def release(self) -> None:
         """The caller's result has left the program's buffers."""
@@ -273,9 +352,17 @@ class _CapturedProgram(_Program):
         if frames is not self.input:
             raise ValueError("a captured program reads its own static input: "
                              "stage the frames with stage()")
-        self.graph.replay()
+        with torch.cuda.device(self.input.device):
+            self.graph.replay()
         self.replays += 1
         return self.output
+
+    def hold(self, res: torch.Tensor) -> torch.Tensor:
+        # a copy, queued after the replay: the next replay overwrites res
+        return res.clone()
+
+    def bytes_on(self, device: torch.device) -> int:
+        return self.nbytes if device == self.input.device else 0
 
     def release(self) -> None:
         self._released.record(torch.cuda.current_stream(self.input.device))
@@ -289,6 +376,61 @@ class _CapturedProgram(_Program):
             self._released.synchronize()
         self.graph.reset()
         self.input = self.output = None
+
+
+class _Shards(list):
+    """A batch-DP call's packed results: one device tensor per replica.
+    ``cpu()`` fetches each (one device→host copy a replica) and merges them
+    in submission order, as ``Detector._unpack`` merges the reference's
+    sharded results."""
+
+    def __init__(self, parts, scan: int):
+        super().__init__(parts)
+        self.scan = scan
+
+    def cpu(self) -> torch.Tensor:
+        from .parallel.sharding import merge_batch
+
+        return merge_batch([p.cpu() for p in self], self.scan)
+
+
+class _MeshProgram:
+    """A batch-DP program: one replica program per shard of the mesh, each
+    on its shard's device (on the card each one CUDA graph, captured on a
+    stream of that device), reading the replica's slice of the batch
+    (``parallel.sharding.split_batch``). A call stages every slice, then
+    queues every replica, so the devices run at once."""
+
+    def __init__(self, key: Tuple, route: str, replicas: List[_Program],
+                 devices: Sequence[torch.device], scan: int):
+        self.key, self.route, self.replicas = key, route, replicas
+        self.devices, self.scan = devices, scan
+
+    def stage(self, frames: np.ndarray, device: torch.device) -> List:
+        from .parallel.sharding import split_batch
+
+        parts = split_batch(frames, len(self.replicas), self.scan)
+        return [r.stage(p, d)
+                for r, p, d in zip(self.replicas, parts, self.devices)]
+
+    def __call__(self, staged: List[torch.Tensor]) -> _Shards:
+        return _Shards([r(s) for r, s in zip(self.replicas, staged)],
+                       self.scan)
+
+    def hold(self, res: _Shards) -> _Shards:
+        return _Shards([r.hold(p) for r, p in zip(self.replicas, res)],
+                       self.scan)
+
+    def bytes_on(self, device: torch.device) -> int:
+        return sum(r.bytes_on(device) for r in self.replicas)
+
+    def release(self) -> None:
+        for r in self.replicas:
+            r.release()
+
+    def close(self) -> None:
+        for r in self.replicas:
+            r.close()
 
 
 class Detector:
@@ -309,8 +451,20 @@ class Detector:
     ``scan=1``'s on the whole batch only where a conv's result for an image
     does not depend on the batch it is in: true on the CPU, not on the card,
     where the library picks its conv algorithm by batch size (PERF.md,
-    Findings). ``mesh`` / ``partition="spatial"`` (several devices) are not
-    ported yet and raise.
+    Findings).
+
+    ``mesh`` (``parallel.make_mesh``) with ``partition="data"`` runs
+    batch-DP: the batch, padded to a multiple of ``mesh.size`` (of ``scan ×
+    mesh.size`` with ``scan > 1``), splits over the shards, each shard runs
+    one replica of the route above on its own device and its own copy of
+    the weights (on the card its own captured program), and the results
+    merge in submission order. ``mesh`` from ``parallel.make_spatial_mesh``
+    with ``partition="spatial"`` shards each image's rows over the mesh
+    (``parallel.spatial_pipeline``; the float tiers only, ``scan`` 1): one
+    program on the first shard's device, captured on the card when every
+    shard sits on one device and eager otherwise. A device may repeat in a
+    mesh (a virtual mesh on one card). ``partition="spatial"`` with no mesh
+    runs on one device, as the reference's does.
 
     Programs are cached per (batch, source shape, channel order,
     quantization state, weights) in an LRU of ``_pipeline_capacity`` (16,
@@ -331,13 +485,6 @@ class Detector:
                  partition: str = "data", select_group: int = 2,
                  block_impl: str = "xla",
                  device: Union[str, torch.device, None] = None):
-        if partition not in PARTITIONS:
-            raise ValueError(f"unknown partition {partition!r}")
-        if mesh is not None or partition == "spatial":
-            raise NotImplementedError(
-                "Detector(mesh=..., partition=...): the multi-device routes "
-                "(parallel/) are not ported yet, see ROADMAP.md; this "
-                "Detector runs on one device and will not stand in for them")
         if nms_impl not in NMS_IMPLS:
             raise ValueError(f"unknown nms_impl {nms_impl!r} (expected 'xla' "
                              "or 'pallas')")
@@ -345,6 +492,13 @@ class Detector:
         self.scan = int(scan)
         if self.scan < 1:
             raise ValueError(f"scan must be >= 1, got {scan}")
+        if self.scan > 1 and mesh is not None and partition != "data":
+            # scan is a throughput knob; spatial partitioning is the latency
+            # mode (the reference's rule)
+            raise ValueError("scan > 1 requires partition='data' on a mesh")
+        if partition not in PARTITIONS:
+            raise ValueError(f"unknown partition {partition!r}")
+        self.partition, self.mesh = partition, mesh
         self.device = net.device
         if device is not None and resolve_device(device) != self.device:
             raise ValueError(f"the net's weights live on {self.device}, not "
@@ -387,6 +541,11 @@ class Detector:
         # the gates depend on the quantization state, which may change after
         # construction: resolved again (and warned about) per program
         self._resolve_route()
+        if mesh is not None:
+            self._check_mesh()
+        # the weights, int8 state and operands of each shard, by the net's
+        # state they copy (_replicas)
+        self._replica_state: Tuple = ()
         self._interp = _InterpCache(self.net_hw, resize_mode, self.device)
         # the cached programs, LRU-bounded: each holds its weights, its
         # quantization state and, on the card, a graph and its memory pool
@@ -407,13 +566,43 @@ class Detector:
         # the call.
         self.last_stage_s: Optional[Dict[str, float]] = None
 
+    def _check_mesh(self) -> None:
+        """The reference's construction checks of ``mesh`` / ``partition``."""
+        from .parallel.sharding import DATA_AXIS
+        from .parallel.spatial import SPACE_AXIS
+
+        mesh, net = self.mesh, self.net
+        if net.params is None:
+            raise RuntimeError(
+                "Detector(mesh=...) needs loaded weights — call "
+                "net.load_weights()/set_params() before constructing")
+        if self.partition == "spatial":
+            if tuple(mesh.axis_names) != (SPACE_AXIS,):
+                raise ValueError(
+                    "partition='spatial' needs a make_spatial_mesh() "
+                    f"mesh (axis {SPACE_AXIS!r}), got {mesh.axis_names}")
+            if net.quantized:
+                raise ValueError(
+                    "int8 + spatial partitioning is out of scope "
+                    "(parallel/spatial.py: the float tiers only; int8 is a "
+                    "throughput tier, spatial partitioning the latency mode)")
+        elif tuple(mesh.axis_names) != (DATA_AXIS,):
+            raise ValueError(
+                "partition='data' needs a make_mesh() mesh (axis "
+                f"{DATA_AXIS!r}), got {mesh.axis_names}")
+        kinds = {d.type for d in mesh.devices}
+        if kinds != {self.device.type}:
+            raise ValueError(f"the mesh's devices {mesh.devices} are not all "
+                             f"of the net's device type ({self.device})")
+
     def _gates(self, warn: bool) -> str:
         """The route for the net's current quantization state, by the JAX
         package's gates; with ``warn`` their warnings and the block
         fallback's, as the reference gives them per program."""
         net = self.net
         q_ok = not net.quantized or net.qcarrier == "int8"
-        route = decode_route(net.graph, self.decode_impl, q_ok, warn=warn)
+        route = decode_route(net.graph, self.decode_impl, q_ok, warn=warn,
+                             spatial=self.partition == "spatial")
         if (warn and net.quantized and self.block_impl == "pallas"
                 and net.act_zeros and any(net.act_zeros.values())):
             log.warning("fused residual blocks implement the symmetric "
@@ -428,67 +617,125 @@ class Detector:
 
     def _body(self, bgr: bool, route: str):
         """The device work of one call by ``route`` on the net's current
-        weights and quantization state: (B, H, W, 3) uint8 frames on the
-        device → NMSResult, boxes in net-input pixels. The closure holds no
-        reference to the Detector, so a dropped Detector frees its programs
-        at once, not at a later collection."""
+        weights and quantization state (``detect_step``): (B, H, W, 3)
+        uint8 frames on the device → NMSResult, boxes in net-input pixels.
+        The closure holds no reference to the Detector, so a dropped
+        Detector frees its programs at once, not at a later collection."""
         net = self.net
-        params = net.params
-        if params is None:
+        if net.params is None:
             raise RuntimeError("call net.load_weights()/set_params() first")
-        graph, prob = net.graph, self.prob_thresh
-        net_hw, mode, interp = self.net_hw, self.resize_mode, self._interp
         nms = dict(iou_thresh=self.iou_thresh, top_k=self.top_k,
                    impl=self.nms_impl, max_results=self.max_results,
                    select_group=self.select_group)
         if net.quantized:
-            from .quant import (forward_compact_int8,
-                                forward_packed_fused_int8,
-                                forward_packed_int8)
+            return detect_step(
+                net.graph, net.qparams, self.net_hw, self.resize_mode, bgr,
+                route, self._interp, self.prob_thresh, nms, net.precision,
+                act_scales=net.act_scales, act_zeros=net.act_zeros,
+                carrier=net.qcarrier, block_impl=self.block_impl,
+                operands=net.qoperands)
+        return detect_step(net.graph, net.params, self.net_hw,
+                           self.resize_mode, bgr, route, self._interp,
+                           self.prob_thresh, nms, net.precision, net.conv_impl)
 
-            state = (graph, net.qparams, net.act_scales)
-            kw = dict(precision=net.precision or "bf16", carrier=net.qcarrier,
-                      block_impl=self.block_impl, zeros=net.act_zeros,
-                      operands=net.qoperands)
-            compact = lambda x: forward_compact_int8(  # noqa: E731
-                *state, x, decode_impl="xla", **kw)
-            packed = (forward_packed_fused_int8 if route == "pallas-fused"
-                      else forward_packed_int8)
-        else:
-            state = (graph, params)
-            kw = dict(precision=net.precision, conv_impl=net.conv_impl)
-            compact = lambda x: forward_compact(*state, x, **kw)  # noqa: E731
-            packed = (forward_packed_fused if route == "pallas-fused"
-                      else forward_packed)
+    def _replicas(self) -> Tuple:
+        """(params, qparams, operands), one per shard of a data mesh, of the
+        net's current state: copied once per distinct device
+        (``parallel.shard_params``), the net's own tensors and
+        ``Darknet.qoperands`` where a shard sits on the net's device. Kept
+        while the net's state stays the same."""
+        from .parallel.sharding import shard_params
 
-        def run(frames: torch.Tensor) -> NMSResult:
-            if bgr:
-                frames = frames.flip(-1)  # BGR→RGB on device
-            x = preprocess(frames, net_hw, mode=mode,
-                           interp=interp(tuple(frames.shape[1:3])))
-            if route == "xla":
-                return batched_nms_compact(*compact(x), prob_thresh=prob,
-                                           **nms)
-            payload, scores = packed(*state, x, prob_thresh=prob, **kw)
-            return batched_nms_packed(payload, scores, **nms)
+        net = self.net
+        held = self._replica_state
+        if not held or held[0] is not net.params or held[1] is not net.qparams:
+            params = shard_params(net.params, self.mesh)
+            qparams = operands = None
+            if net.quantized:
+                from .quant import Operands
 
-        return run
+                qparams = shard_params(net.qparams, self.mesh)
+                made = {id(net.qparams): net.qoperands}
+                for q in qparams:
+                    if id(q) not in made:
+                        made[id(q)] = Operands(q)
+                operands = [made[id(q)] for q in qparams]
+            self._replica_state = (net.params, net.qparams, params, qparams,
+                                   operands)
+        return self._replica_state[2:]
+
+    def _sharded(self, bgr: bool):
+        """The batch-DP step over the data mesh
+        (``parallel.sharded_pipeline``), with the Detector's knobs."""
+        from .parallel.sharding import sharded_pipeline
+
+        net = self.net
+        quant = (dict(act_scales=net.act_scales, act_zeros=net.act_zeros,
+                      carrier=net.qcarrier) if net.quantized else {})
+        return sharded_pipeline(
+            net.graph, self.mesh, self.net_hw, self.prob_thresh,
+            self.iou_thresh, self.top_k, self.resize_mode, net.precision, bgr,
+            conv_impl=net.conv_impl, nms_impl=self.nms_impl,
+            decode_impl=self.decode_impl, max_results=self.max_results,
+            scan=self.scan, select_group=self.select_group,
+            block_impl=self.block_impl, **quant)
+
+    def _replica_steps(self, bgr: bool) -> List:
+        """One packed step per shard of the data mesh, each on its shard's
+        device, weights and int8 operands (``_replicas``)."""
+        run = self._sharded(bgr)
+        params, qparams, operands = self._replicas()
+        return [_packed(run.replica(p, d, operands and operands[r]))
+                for r, (p, d) in enumerate(zip(qparams or params,
+                                               self.mesh.devices))]
+
+    def _spatial_body(self, bgr: bool, route: str):
+        """The row-sharded step over the spatial mesh
+        (``parallel.spatial_pipeline``) on the net's current weights: (B,
+        H, W, 3) uint8 frames → NMSResult on the first shard's device."""
+        from .parallel.sharding import shard_params
+        from .parallel.spatial import spatial_pipeline
+
+        net = self.net
+        if net.quantized:  # quantized after construction
+            raise ValueError("int8 + spatial partitioning is out of scope "
+                             "(parallel/spatial.py)")
+        if net.conv_impl != "xla":
+            log.warning("spatial partitioning does not support "
+                        "conv_impl=%r; convs run via F.conv2d", net.conv_impl)
+        run = spatial_pipeline(
+            net.graph, self.mesh, self.net_hw, self.prob_thresh,
+            self.iou_thresh, self.top_k, self.resize_mode, net.precision, bgr,
+            self.nms_impl, route, self.max_results,
+            select_group=self.select_group)
+        params = shard_params(net.params, self.mesh)
+        return lambda frames: run(params, frames)
 
     @torch.inference_mode()
-    def _run(self, frames: torch.Tensor, bgr: Optional[bool] = None
-             ) -> torch.Tensor:
+    def _run(self, frames: torch.Tensor, bgr: Optional[bool] = None):
         """Eager, uncached: (B, H, W, 3) uint8 frames on the device →
-        packed results (B, R, 6) on the device, boxes in net-input pixels.
-        ``bgr`` overrides the Detector's channel order for this call (host
-        canvases arrive RGB)."""
+        packed results (B, R, 6) on the device, boxes in net-input pixels
+        (on a data mesh one tensor a replica, ``_Shards``). ``bgr``
+        overrides the Detector's channel order for this call (host canvases
+        arrive RGB)."""
         bgr = self.bgr if bgr is None else bgr
-        return pack_results(self._body(bgr, self._resolve_route())(frames))
+        route = self._resolve_route()
+        if self.mesh is None:
+            return pack_results(self._body(bgr, route)(frames))
+        if self.partition == "spatial":
+            return pack_results(self._spatial_body(bgr, route)(frames))
+        from .parallel.sharding import split_batch
+
+        parts = split_batch(frames, self.mesh.size, self.scan)
+        return _Shards([step(x.to(d)) for step, x, d in zip(
+            self._replica_steps(bgr), parts, self.mesh.devices)], self.scan)
 
     def _pipeline(self, batch: int, src_hw: Tuple[int, int],
-                  bgr: Optional[bool] = None) -> _Program:
+                  bgr: Optional[bool] = None):
         """The cached program for (batch, source shape, channel order) on
         the net's current quantization state and weights, built (on the
-        card: captured) on a miss, with the route gates' warnings."""
+        card: captured) on a miss, with the route gates' warnings. On a mesh
+        the key carries the mesh too."""
         bgr = self.bgr if bgr is None else bgr
         net = self.net
         if net.params is None:
@@ -498,7 +745,7 @@ class Detector:
         # the quantization state; the entry keeps both alive (``keep``), so
         # neither id() can be reused while it exists
         qstate = id(net.qparams) if net.quantized else None
-        key = (batch, tuple(src_hw), bgr, qstate, id(net.params))
+        key = (batch, tuple(src_hw), bgr, qstate, id(net.params), self.mesh)
         prog = self._pipelines.get(key)
         if prog is not None:
             self._pipelines.move_to_end(key)
@@ -507,7 +754,14 @@ class Detector:
                      "precision=%s", batch, src_hw, self.net_hw,
                      self.resize_mode, net.precision or "default")
             self.route = self._gates(warn=True)
-            prog = self._finalize(key, self._body(bgr, self.route))
+            if self.mesh is None:
+                prog = self._finalize(key, self._body(bgr, self.route))
+            elif self.partition == "spatial":
+                prog = self._finalize(key, self._spatial_body(bgr, self.route))
+            else:
+                # the scan runs inside each replica (the reference's
+                # sharded program); _unpack merges the replicas
+                prog = self._cache_pipeline(key, self._replica_steps(bgr))
         self.route = prog.route
         return prog
 
@@ -516,14 +770,7 @@ class Detector:
         back in one program (the counterpart of the reference's
         ``lax.scan``), results concatenated in submission order into the
         unscanned (scan·B, ...) contract; then cache it."""
-        if self.scan > 1:
-            base, k = run, self.scan
-
-            def run(frames: torch.Tensor) -> NMSResult:
-                parts = [base(part) for part in frames.chunk(k)]
-                return NMSResult(*(torch.cat(f) for f in zip(*parts)))
-
-        return self._cache_pipeline(key, run)
+        return self._cache_pipeline(key, scanned(run, self.scan))
 
     def _cache_pipeline(self, key, run):
         """Add the pack (ONE device tensor for ONE device→host copy), build
@@ -531,40 +778,76 @@ class Detector:
         evicting an entry frees its graph and its memory pool. On the card
         room is made twice (:meth:`_make_room`): before the warm-up for the
         largest program cached at the same batch, and before the capture for
-        what the warm-up measured."""
-        base = run
-
-        def packed(frames: torch.Tensor) -> torch.Tensor:
-            return pack_results(base(frames))
-
+        what the warm-up measured. On a data mesh (``run`` one packed step
+        per replica) one program per replica, room made on each device."""
         net = self.net
         keep = (net.params, net.qparams, net.qoperands if net.quantized
                 else None)
-        if self.device.type == "cuda":
-            self._make_room(max((p.nbytes for p in self._pipelines.values()
-                                 if p.key[0] == key[0]), default=0))
-            prog = _CapturedProgram(key, self.route, packed, keep, self.device)
-            self._make_room(prog.need)
+        if self.mesh is not None and self.partition == "data":
+            prog = self._replica_programs(key, run, keep)
+        elif self.device.type == "cuda" and len(self._devices()) == 1:
+            (device,) = self._devices()
+            self._make_room(max(self._held(device, key[0]), default=0), device)
+            prog = _CapturedProgram(key, self.route, _packed(run), keep,
+                                    device)
+            self._make_room(prog.need, device)
             prog.capture()
         else:
-            prog = _Program(key, self.route, packed, keep)
+            prog = _Program(key, self.route, _packed(run), keep)
         self._pipelines[key] = prog
         while len(self._pipelines) > self._pipeline_capacity:
             self._pipelines.popitem(last=False)[1].close()
         return prog
 
-    def _make_room(self, need: int) -> None:
-        """Evict least recently used programs until ``need`` more device
-        bytes fit the budget and the card's free memory
+    def _devices(self) -> Tuple[torch.device, ...]:
+        """The distinct devices the programs run on."""
+        if self.mesh is None:
+            return (self.device,)
+        return tuple(dict.fromkeys(self.mesh.devices))
+
+    def _replica_programs(self, key, steps, keep) -> _MeshProgram:
+        """One program per shard of the data mesh, each on its device: on
+        the card all warmed up, room made on each device for their need,
+        then all captured."""
+        mesh = self.mesh
+        rkey = (key[0] // mesh.size, *key[1:])
+        keep = (*keep, *self._replicas())
+        if self.device.type != "cuda":
+            reps = [_Program(rkey, self.route, s, keep) for s in steps]
+        else:
+            for d in self._devices():
+                self._make_room(max(self._held(d, key[0]), default=0), d)
+            reps = [_CapturedProgram(rkey, self.route, s, keep, d)
+                    for s, d in zip(steps, mesh.devices)]
+            for d in self._devices():
+                self._make_room(sum(r.need for r, rd in
+                                    zip(reps, mesh.devices) if rd == d), d)
+            for r in reps:
+                r.capture()
+        return _MeshProgram(key, self.route, reps, mesh.devices, self.scan)
+
+    def _make_room(self, need: int, device: Optional[torch.device] = None
+                   ) -> None:
+        """Evict least recently used programs until ``need`` more bytes fit
+        the budget and the free memory of ``device`` (the net's by
+        default; on a mesh, every device counts its own programs' bytes)
         (:func:`programs_to_evict`)."""
+        device = self.device if device is None else device
         torch.cuda.empty_cache()
-        n = programs_to_evict([p.nbytes for p in self._pipelines.values()],
-                              need, self._pipeline_budget,
-                              torch.cuda.mem_get_info(self.device)[0])
+        n = programs_to_evict(self._held(device), need, self._pipeline_budget,
+                              torch.cuda.mem_get_info(device)[0])
         for _ in range(n):
             self._pipelines.popitem(last=False)[1].close()
         if n:
             torch.cuda.empty_cache()
+
+    def _held(self, device: torch.device, batch: Optional[int] = None
+              ) -> List[int]:
+        """The bytes each cached program (of ``batch`` only, when given)
+        holds on ``device``, least recently used first."""
+        return [p.bytes_on(device) if self.mesh else p.nbytes
+                for p in self._pipelines.values()
+                if batch is None or p.key[0] == batch]
 
     def _stage(self, frames: np.ndarray) -> torch.Tensor:
         self._check_frames(frames)
@@ -582,12 +865,15 @@ class Detector:
             raise ValueError(f"frames must be (B, H, W, 3), got {frames.shape}")
 
     def _pad_batch(self, frames: np.ndarray) -> Tuple[np.ndarray, int]:
-        """(checked frames, real batch): with ``scan > 1`` padded with zero
-        frames to a multiple of ``scan`` (callers drop the pad results)."""
+        """(checked frames, real batch): padded with zero frames to a
+        multiple of ``scan``, on a data mesh of ``scan × mesh.size`` (callers
+        drop the pad results)."""
         self._check_frames(frames)
         n_real = frames.shape[0]
-        if self.scan > 1 and n_real % self.scan:
-            pad = self.scan - n_real % self.scan
+        unit = self.scan * (self.mesh.size if self.mesh is not None
+                            and self.partition == "data" else 1)
+        if n_real % unit:
+            pad = unit - n_real % unit
             frames = np.concatenate(
                 [frames, np.zeros((pad, *frames.shape[1:]), frames.dtype)])
         return frames, n_real
@@ -637,17 +923,16 @@ class Detector:
         with self._lock:
             prog = self._pipeline(frames.shape[0], tuple(frames.shape[1:3]),
                                   bgr)
-            res = prog(prog.stage(frames, self.device))
-            if isinstance(prog, _CapturedProgram):
-                res = res.clone()
+            res = prog.hold(prog(prog.stage(frames, self.device)))
             prog.release()
         return res, n_real
 
     def _unpack(self, res, src_hw: Optional[Tuple[int, int]]
                 ) -> List[Detection]:
-        """ONE device→host copy of the packed results (a device tensor, or a
-        host tensor already copied), then per-image survivors rescaled to
-        source pixels (``src_hw=None`` keeps net-input pixels)."""
+        """ONE device→host copy of the packed results (a device tensor, a
+        host tensor already copied, or a data mesh's replicas, merged in
+        submission order), then per-image survivors rescaled to source
+        pixels (``src_hw=None`` keeps net-input pixels)."""
         arr = res.cpu().numpy()
         boxes = arr[..., :4]
         scores = arr[..., 4]
@@ -786,16 +1071,19 @@ class PipelinedDetector:
     memory (which frees the output for the next replay), and returns;
     results are waited for only when more than ``depth`` batches are in
     flight (or on ``flush()``), so host work (decode, drawing, I/O) overlaps
-    device compute. On the CPU it keeps the same ordering with no streams:
-    each batch is computed at ``submit()`` and handed back ``depth``
-    submissions later.
+    device compute. On the CPU, and for a Detector on a mesh, it keeps the
+    same ordering with no stream of its own: each batch is queued at
+    ``submit()`` (``Detector._enqueue``: on the card the replays of every
+    replica and the copies of their results, not waited for) and handed
+    back ``depth`` submissions later.
     """
 
     def __init__(self, detector: Detector, depth: int = 2):
         self.detector = detector
         self.depth = max(1, int(depth))
         self._stream = (torch.cuda.Stream(detector.device)
-                        if detector.device.type == "cuda" else None)
+                        if detector.device.type == "cuda"
+                        and detector.mesh is None else None)
         self._inflight: List[Tuple] = []
 
     def submit(self, frames: np.ndarray) -> List[List[Detection]]:

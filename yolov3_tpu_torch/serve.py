@@ -26,6 +26,10 @@ Two modes:
   device batch via the host-letterboxed pipeline — the standard
   accelerator-serving pattern (small latency tax, large throughput gain
   under concurrency).
+
+``--devices N`` serves from a batch-DP mesh of N cards (``parallel/``):
+each device batch, padded by the Detector to a multiple of N, splits over
+the cards, one replica program each.
 """
 from __future__ import annotations
 
@@ -540,8 +544,10 @@ def main(argv=None):
                          "top-k survivors); also sizes the per-image "
                          "device->host result payload (24 bytes each)")
     ap.add_argument("--devices", type=int, default=1, metavar="N",
-                    help="shard each request batch over N cards; N > 1 is "
-                         "not ported yet (ROADMAP.md): exits")
+                    help="shard each request batch over N cards (batch-DP "
+                         "mesh, parallel/sharding.py; N CPU shards with "
+                         "--device cpu; pair with --batch-window so "
+                         "requests coalesce into mesh-wide batches)")
     ap.add_argument("--no-compile-cache", action="store_true",
                     help="accepted for compatibility with the JAX "
                          "package's server and does nothing: a Detector "
@@ -549,10 +555,6 @@ def main(argv=None):
                          "key, taking 0.04-15 s, and a captured graph cannot "
                          "outlive its process")
     args = ap.parse_args(argv)
-
-    if args.devices > 1:
-        raise SystemExit(f"--devices {args.devices}: the multi-device routes "
-                         "(parallel/) are not ported yet, see ROADMAP.md")
 
     from pathlib import Path
 
@@ -563,8 +565,8 @@ def main(argv=None):
     from .utils.drawing import load_class_names
 
     precision = None if args.precision == "default" else args.precision
-    net = Darknet(args.config, precision=precision,
-                  device=_resolve_device(args.device))
+    device = _resolve_device(args.device)
+    net = Darknet(args.config, precision=precision, device=device)
     net.load_weights(args.weights)
     net_hw = (args.net_size, args.net_size) if args.net_size else None
     if args.quant_state and Path(args.quant_state).exists():
@@ -586,10 +588,19 @@ def main(argv=None):
     elif args.quant_state:
         raise SystemExit(f"--quant-state {args.quant_state}: file not found "
                          "(pass --quantize-int8 CALIB_DIR to create it)")
+    mesh = None
+    if args.devices > 1:
+        from .parallel.sharding import make_mesh
+
+        try:  # --device cpu: N CPU shards; else N visible cards
+            mesh = make_mesh(args.devices, devices=(
+                [device] * args.devices if device.type == "cpu" else None))
+        except ValueError as e:
+            raise SystemExit(f"--devices {args.devices}: {e}")
     try:
         detector = Detector(net, prob_thresh=args.prob_thresh,
                             iou_thresh=args.iou_thresh, net_hw=net_hw,
-                            decode_impl=args.decode_impl,
+                            decode_impl=args.decode_impl, mesh=mesh,
                             select_group=args.select_group,
                             block_impl=args.block_impl,
                             top_k=args.top_k,

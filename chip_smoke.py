@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases k1,k1c,k2,k3,k4,k5,int8conv,k6,golden,main,int8,
                                     eval,cache,profile,probes,dots,native,entry,
-                                    serve,mesh]
+                                    serve,mesh,tools]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. With no arguments every phase runs, in this order, and
@@ -153,9 +153,20 @@ each raises on failure (the build always runs):
     crossover and FLOP fractions, the collectives of a call, one program
     captured on the card, its call beside one device's at B=1); tiny@416
     spatial detection sets equal to one device's (K1c and K2 inside the
-    program); ``parallel.dryrun.dryrun_multichip(2)``.
+    program); ``parallel.dryrun.dryrun_multichip(2)``;
+22. tools, the parameter checkpoint and the port's measuring tools at full
+    width: ``save_params`` / ``load_params`` exact and a captured call on
+    the reloaded tree equal to the original's; ``tools.gen_golden``'s three
+    fixtures against the frozen ones; ``tools.bench_serve`` (yolov3@416
+    bf16, one request at a time and 16 clients under a 5 ms window, 0
+    errors, the device-busy share under load); ``tools.bench_scan``
+    (scanned == unscanned, bf16 + K1 and int8 K6 + K1); ``tools.bench_tiny_k``
+    (the truncation audit, then each K's time); ``tools.bench_stem``;
+    ``tools.traffic_model``'s floors beside the profilers' marks; the
+    selection microbenches, each variant checked exactly before it is
+    timed; ``tools.probe_quant_error`` (mode ``none`` at mAP 1.0 exactly).
 
-Every kernel's launch count is zeroed just before phases 11 to 15 and 20
+Every kernel's launch count is zeroed just before phases 11 to 15, 20 and 22
 (in 20 after the server's own warm-up), in 21 read before and after each
 mesh Detector's calls (the single-device references are not counted and
 each kernel of the path must have run), in 19 just before one
@@ -184,13 +195,19 @@ from pathlib import Path
 
 import numpy as np
 
+# the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds:
+# one definition, the port's traffic model's (outside a checkout this
+# import fails, and the script with it)
+from yolov3_tpu_torch.tools.traffic_model import (
+    BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S)
+
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 BATCH = 8
 SRC_HW = (480, 640)
 PHASES = ("build", "k1", "k1c", "k2", "k3", "k4", "k5", "int8conv", "k6",
           "golden", "main", "int8", "eval", "cache", "profile", "probes",
-          "dots", "native", "entry", "serve", "mesh")
+          "dots", "native", "entry", "serve", "mesh", "tools")
 YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights file
 # float lanes of K1 / K1c against their plain versions: both run the same
 # float operations in the same order (no FMA contraction, full-precision
@@ -209,11 +226,6 @@ K5_ATOL, K5_RTOL, K5_BF16_RTOL = 5e-5, 1e-4, 2.0 ** -7
 # the DESIGN bf16 parity bar: IoU > 0.99 on >= 90% of the float32
 # detections scoring >= 0.45
 PARITY_IOU, PARITY_SHARE, PARITY_SCORE = 0.99, 0.9, 0.45
-# the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS_PER_S = 989e12
-FP32_FLOPS_PER_S = 67e12
 # the DESIGN int8 bar (tests/test_quant.py): pre-NMS, the float32 forward's
 # top-200 candidates per image
 INT8_BAR_TOP, INT8_BAR_SCORE, INT8_BAR_BOX = 200, 0.01, 0.5
@@ -3601,6 +3613,189 @@ def phase_mesh(card: str) -> dict:
     return {"launches": dict(counts), "batch_dp": rows, "spatial": spatial}
 
 
+def phase_tools(card: str) -> dict:
+    """The port's measuring tools and its parameter checkpoint at full width
+    on the card (yolov3@416 unless said): (a) ``save_params`` /
+    ``load_params`` exact, and a captured bf16 + K1 call on the reloaded
+    tree equal to the original's bit for bit; (b) ``tools.gen_golden``'s
+    three fixtures against the frozen ones within ``test_golden``'s bars;
+    (c) ``tools.bench_serve`` bf16, 20 requests one at a time, then 16
+    clients x 8 requests at a 5 ms window and ``max_batch`` 8, 0 errors in
+    both, with the device-busy share under load; (d) ``tools.bench_scan``
+    B=8 ``scan=4`` at bf16 + K1 and int8 K6 + K1, scanned == unscanned bit
+    for bit; (e) ``tools.bench_tiny_k`` on tiny@416 B=8 ``scan=8``: the
+    truncation audit exact on the untruncated images, then each K's time;
+    (f) ``tools.bench_stem`` at 416 and 608 B=8, bf16 and float32, parity
+    before timing; (g) ``tools.traffic_model``'s floors for B=8, int8 and
+    bf16, beside the profilers' measured marks; (h) the selection variants
+    (``bench_topk``, ``bench_select_group``, ``bench_gather``) at N =
+    10,647, B=8, K=512, each checked exactly first; (i)
+    ``tools.probe_quant_error``'s four modes, ``none`` at mAP 1.0 exactly.
+    Returns the kernel wrappers' launches of the phase (zeroed at its
+    start): K1, K2 and K6 must have run."""
+    import gc
+    import json as _json
+    import tempfile
+
+    import torch
+    from yolov3_tpu_torch import Darknet, Detector
+    from yolov3_tpu_torch.graph import load_graph
+    from yolov3_tpu_torch.tools import (bench_gather, bench_scan,
+                                        bench_select_group, bench_serve,
+                                        bench_stem, bench_tiny_k, bench_topk,
+                                        gen_golden, probe_quant_error,
+                                        traffic_model)
+    from yolov3_tpu_torch.weights import (fold_raw, load_params, random_raw,
+                                          save_params)
+
+    def say(msg: str) -> None:
+        log(f"[tools] {msg}")
+
+    def released() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    wrappers = path_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    cfg = REPO / "models" / "yolov3.cfg"
+    yolo = load_graph(cfg)
+
+    # (a) the checkpoint
+    params = fold_raw(random_raw(yolo, seed=0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "yolov3.npz"
+        t0 = time.perf_counter()
+        save_params(path, params)
+        t1 = time.perf_counter()
+        loaded = load_params(path)
+        t2 = time.perf_counter()
+        nbytes = path.stat().st_size
+    if set(loaded) != set(params) or not all(
+            loaded[i][k].dtype == np.float32
+            and np.array_equal(loaded[i][k], params[i][k])
+            for i in params for k in ("w", "b")):
+        raise AssertionError("[tools] the checkpoint's round trip is not exact")
+    frames = np.random.default_rng(21).integers(0, 256, (BATCH, *SRC_HW, 3),
+                                                dtype=np.uint8)
+    results = []
+    for tree in (params, loaded):
+        det = Detector(Darknet(cfg, precision="bf16",
+                               device=DEVICE).set_params(tree))
+        det.detect_batch(frames)                      # warm-up and capture
+        prog = det._pipeline(BATCH, SRC_HW)
+        replays = prog.replays
+        got, _, _ = det._detect(frames, SRC_HW, None)
+        if prog.replays != replays + 1:
+            raise AssertionError("[tools] the checkpoint call did not replay")
+        results.append(got)
+        del det, prog
+        released()
+    if not torch.equal(results[0], results[1]):
+        raise AssertionError("[tools] a captured call on the reloaded "
+                             "parameters differs from the original's")
+    say(f"checkpoint: yolov3 folded tree, {len(params)} convs, {nbytes} bytes "
+        f"npz, saved in {t1 - t0:.3f} s, loaded in {t2 - t1:.3f} s, every "
+        f"array equal; a captured bf16 + K1 call at B={BATCH} on the reloaded "
+        f"tree == the original's bit for bit ({int((results[0][..., 4] > 0).sum())}"
+        f" survivors) on {card}")
+
+    # (b) the golden fixtures
+    for name in gen_golden.FIXTURES:
+        made = gen_golden.make_fixture(name, DEVICE)
+        frozen = _json.loads((REPO / "tests" / "data" /
+                              f"golden_{name}.json").read_text())
+        diffs = gen_golden.check_against(made, frozen)
+        if not made["threshold_margin"] > 3 * gen_golden.SCORE_ATOL:
+            raise AssertionError(f"[tools] golden {name}: margin "
+                                 f"{made['threshold_margin']:.2e}")
+        say(f"gen_golden {name}: meets the frozen fixture ({diffs})")
+    released()
+
+    # (c) serving under load
+    rows = bench_serve.main([
+        "--config", "models/yolov3.cfg", "--size", "416", "--precision",
+        "bf16", "--seq-requests", "20", "--clients", "16", "--requests", "8",
+        "--window-ms", "5", "--max-batch", "8"])
+    for row in rows:
+        if row["errors"] or row["requests"] != (20 if row["mode"] ==
+                                               "sequential" else 128):
+            raise AssertionError(f"[tools] bench_serve {row['mode']}: {row}")
+    say("bench_serve: 0 errors in both modes (the two JSON lines above), "
+        f"device-busy share {rows[0]['device_busy_share']:.3f} sequential, "
+        f"{rows[1]['device_busy_share']:.3f} under load, on {card}")
+    released()
+
+    # (d) scan
+    for extra in (["--precision", "bf16"],
+                  ["--precision", "int8", "--block-impl", "pallas"]):
+        bench_scan.main(["--cfg", "yolov3.cfg", "--size", "416", "--batch",
+                         str(BATCH), "--scan", "4", "--dispatches", "2",
+                         *extra])
+        released()
+    say(f"bench_scan: scanned == unscanned bit for bit at bf16 + K1 and int8 "
+        f"K6 + K1 (the JSON lines above), on {card}")
+
+    # (e) the K-truncation audit and sweep
+    rows = bench_tiny_k.main(["--batch", str(BATCH), "--scan", "8",
+                              "--iters", "3"])
+    bite = False
+    for row in rows:
+        for key, cell in row.items():
+            if key.startswith("K="):
+                if not cell["untruncated_equal"]:
+                    raise AssertionError(f"[tools] bench_tiny_k: {row}")
+                bite |= bool(cell["truncated_images"]
+                             and cell["untruncated_images"])
+    say(f"bench_tiny_k: the untruncated images' sets equal at every K "
+        f"(a K splitting the images: {bite}), on {card}")
+    released()
+
+    # (f) the stem
+    for size in (416, 608):
+        for dtype in ("bf16", "f32"):
+            r = bench_stem.run(size, BATCH, dtype, DEVICE)
+            say(f"bench_stem {size} B={BATCH} {dtype}: parity "
+                f"{r['parity_rel']:.2e}; device ms by graph replay " +
+                ", ".join(f"{k} {v:.4f}" for k, v in r["ms"].items()) +
+                f" on {card}")
+    released()
+
+    # (g) the traffic floors beside the measured marks
+    for precision in ("int8", "bf16"):
+        floors = traffic_model.stage_floors(yolo, 416, BATCH, precision)
+        measured = traffic_model.measured_marks(yolo, 416, BATCH, precision,
+                                                False, DEVICE)
+        say(f"traffic_model yolov3@416 B={BATCH} {precision}: floors at the "
+            f"card's peaks against the profiler's prefixes ({'profile_int8, blocks unfused' if precision == 'int8' else 'profile_layers, cuDNN'}) on {card}")
+        traffic_model.table(floors, measured, log=say)
+        released()
+
+    # (h) the selection stage
+    for tool, make in ((bench_topk, bench_topk.variants),
+                       (bench_select_group, bench_select_group.variants()),
+                       (bench_gather, bench_gather.variants)):
+        bench_topk.run(BATCH, bench_topk.N_416, 512, 0.02, DEVICE, make,
+                       log=lambda s, t=tool.__name__.rsplit(".", 1)[1]:
+                       say(f"{t} N={bench_topk.N_416} B={BATCH} K=512 "
+                           f"(checked exactly first): {s}"))
+    released()
+
+    # (i) the int8 error probe
+    maps = probe_quant_error.score_modes(DEVICE)
+    if maps["none"] != {"mAP50": 1.0, "mAP50_95": 1.0}:
+        raise AssertionError(f"[tools] probe_quant_error none: {maps['none']}")
+    say(f"probe_quant_error on eval_golden.json: {maps} on {card}")
+
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for name in ("decode_packed", "nms_suppress", "residual_block_int8"):
+        if not launches[name]:
+            raise AssertionError(f"[tools] {name} never launched in the "
+                                 f"phase: {launches}")
+    say(f"kernel launches of the phase: {launches}")
+    return launches
+
+
 def probe_records(dots, probes, bound):
     """The kernels-line entries of T1 (one per core), T2 and T3a-e. A dot's
     times are sums over its tool's shape list (one step at each shape); its
@@ -3726,6 +3921,8 @@ def main() -> int:
         res["serve"] = phase_serve(card)
     if "mesh" in phases:
         res["mesh"] = phase_mesh(card)
+    if "tools" in phases:
+        res["tools"] = phase_tools(card)
     if set(phases) != set(PHASES):
         log(f"phases run: {phases}; no result printed for a partial run")
         return 0
@@ -3850,7 +4047,7 @@ def main() -> int:
         if entry["name"] in res["entry"]:
             entry["launches_entry_path"] = res["entry"][entry["name"]]
             entry["launches_serve_path"] = res["serve"][entry["name"]]
-        for phase in ("eval", "cache", "profile"):
+        for phase in ("eval", "cache", "profile", "tools"):
             if res[phase].get(entry["name"]):
                 entry[f"launches_{phase}_path"] = res[phase][entry["name"]]
         if entry["name"] in res["mesh"]["launches"]:

@@ -32,7 +32,8 @@ import torch
 from ..ops import cuda_probe
 from ..weights import resolve_device
 from .bench_int8_dot import DOT_ATOL, DOT_RTOL
-from .clock import BF16_FLOPS_PER_S, differential_s, event_ms
+from .clock import differential_s, event_ms
+from .traffic_model import BF16_FLOPS_PER_S
 
 # (M, K, N): the JAX tool's list, then K5's own products at yolov3's
 # eligible layers (M = 128, K = 9 Cin, N = 128)

@@ -30,7 +30,8 @@ import torch
 
 from ..ops import cuda_probe
 from ..weights import resolve_device
-from .clock import BF16_FLOPS_PER_S, INT8_OPS_PER_S, differential_s, event_ms
+from .clock import differential_s, event_ms
+from .traffic_model import BF16_FLOPS_PER_S, INT8_OPS_PER_S
 
 # (M, K, N): the JAX tool's candidate formulations of the fused block on the
 # TPU (152- and 304-grid), then the products of the port's own K6 tiles

@@ -9,10 +9,6 @@ from typing import Callable, Sequence
 
 import torch
 
-# the card's published dense peaks (NVIDIA H100 SXM data sheet)
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS_PER_S = 989e12
-
 
 def event_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls."""

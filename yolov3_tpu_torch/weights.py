@@ -175,6 +175,35 @@ def load_weights_cached(path: Union[str, Path], graph: Graph,
     return params
 
 
+def save_params(path: Union[str, Path], params: Params) -> None:
+    """Persist a folded param tree as ONE ``.npz``: keys ``"{idx}.w"``
+    (HWIO) and ``"{idx}.b"``, float32, the layout of
+    :func:`load_weights_cached`'s files. The counterpart of the JAX
+    package's ``save_params_orbax`` (``yolov3_tpu/weights.py``), which
+    needs orbax and so JAX. Written to a temp file and replaced into
+    place, so a reader never sees half a checkpoint. ``path`` is used as
+    given (``np.savez`` would add ``.npz`` to a bare name)."""
+    path = Path(path)
+    flat = {}
+    for idx, p in params.items():
+        flat[f"{int(idx)}.w"] = np.asarray(p["w"], np.float32)
+        flat[f"{int(idx)}.b"] = np.asarray(p["b"], np.float32)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    tmp.replace(path)
+
+
+def load_params(path: Union[str, Path]) -> Params:
+    """Load a tree saved by :func:`save_params`: ``{idx: {"w": HWIO,
+    "b": (C,)}}`` numpy float32, bit for bit what was saved (the
+    counterpart of ``load_params_orbax``); :func:`params_from_jax` or
+    ``Darknet.set_params`` take it as it is."""
+    with np.load(Path(path)) as z:
+        return {int(name[:-2]): {"w": z[name], "b": z[f"{name[:-2]}.b"]}
+                for name in z.files if name.endswith(".w")}
+
+
 def write_weights(path: Union[str, Path], graph: Graph, raw: Dict[int, RawConv],
                   header: Tuple[int, int, int, int] = (0, 2, 0, 0)) -> None:
     """Write a darknet-format stream from raw OIHW params (test fixture tool)."""

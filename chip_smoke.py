@@ -35,19 +35,22 @@ each raises on failure (the build always runs):
    spatial-slice views, each head alone, yolov3@608, B=1; one launch a call;
    by graph replay at both map types, with its math and its stores each
    taken out (``tools/ablate_phases.py``) and the share of the bound;
-6. K4 (head-fused decode: the tensor-core kernel at bf16, the CUDA-core
-   kernel at float32) at the three yolov3@416 B=8 pre-head shapes, float32
-   and bf16 operands (bf16 over four seeds), then off the main path at
-   B=1, at 608, on tiny, with 20, 150 and 251 classes, on a channel slice,
-   and the inputs it must refuse; per head and over the three, the
-   kernel's, its plain version's and cuDNN 1x1 + K1's device time from
-   replayed CUDA graphs, and the bf16 kernel's time at each tile choice;
-7. K5 (fused 3x3 conv: the tensor-core kernel at bf16, the CUDA-core kernel
-   at float32) at every distinct eligible yolov3@416 B=8 layer shape, at
+6. K4 (head-fused decode: a tensor-core kernel at bf16, split TF32 at
+   float32) at the three yolov3@416 B=8 pre-head shapes, float32 and bf16
+   operands (bf16 over four seeds), then off the main path at B=1, at 608,
+   on tiny, with 20, 150 and 251 classes, on a channel slice, and the
+   inputs it must refuse; per head and over the three, the kernel's, its
+   plain version's and cuDNN 1x1 + K1's device time from replayed CUDA
+   graphs (at float32 with TF32 allowed and off), each kernel's share of
+   its bound (at float32 the split-TF32 floor), and the time at each tile
+   choice at both types;
+7. K5 (fused 3x3 conv: a tensor-core kernel at bf16, split TF32 at
+   float32) at every distinct eligible yolov3@416 B=8 layer shape, at
    three ragged shapes, one yolov3@608 layer and an odd Cout, and on
    strided views, float32 and bf16, leaky and linear, a bias in either
    type; per shape the kernel's and cuDNN's device time from replayed CUDA
-   graphs;
+   graphs (at float32 with TF32 allowed and off) and the share of the
+   bound; both tile heights at both types;
 8. int8conv: the card's im2col + ``torch._int_mm`` int8 conv against the
    CPU's int32 ``F.conv2d``: 1x1, 3x3 at stride 1 and 2, asymmetric
    zero-points, a padded N and a short M, the exact-u8 stem;
@@ -67,7 +70,9 @@ each raises on failure (the build always runs):
     file through ``Darknet.load_weights``, then ``Detector.detect_batch``
     at 416 on 8 frames of 480x640: yolov3 precision None (K1), bf16 (K1 on
     bf16 maps), bf16 with the fused head (K4), bf16 with the fused head and
-    fused convs (K4, K5), None on the compact route, and yolov3-tiny; each
+    fused convs (K4, K5), None on the compact route, yolov3-tiny, "highest"
+    (K1), and "highest" and None with the fused head and fused convs (the
+    float32 forms of K4 and K5, split TF32); each
     route eager (``_run``) and through its captured program: the warm-up
     and capture launch each wrapper twice a forward's count (K1 1, K2 1,
     K4 3, K5 29), a steady call is one replay and no eager launch, the
@@ -199,7 +204,8 @@ import numpy as np
 # one definition, the port's traffic model's (outside a checkout this
 # import fails, and the script with it)
 from yolov3_tpu_torch.tools.traffic_model import (
-    BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S)
+    BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S,
+    TF32_FLOPS_PER_S)
 
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -230,6 +236,9 @@ PARITY_IOU, PARITY_SHARE, PARITY_SCORE = 0.99, 0.9, 0.45
 # top-200 candidates per image
 INT8_BAR_TOP, INT8_BAR_SCORE, INT8_BAR_BOX = 200, 0.01, 0.5
 K6_BLOCKS_YOLOV3 = 10  # fused_block_plan on models/yolov3.cfg (the JAX plan's count)
+# the float32 forms of K4 and K5 run split TF32: three TF32 products a
+# product, so their floor is three times the work at the TF32 peak
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 
 
 def log(msg: str) -> None:
@@ -770,15 +779,16 @@ def k4_check(heads, anchors, strides, ncls, what: str):
 
 def k4_bound(x, cout: int, n_anchors: int):
     """(operations, bytes, bound ms, bound by) of K4 on one head: x and w
-    read once, the records written once; operations at the peak of x's
-    type."""
+    read once, the records written once; operations at the rate of x's
+    type on the kernel's route (bf16 on the tensor cores; float32 as split
+    TF32, a third of the TF32 peak)."""
     import torch
 
     bsz, g, _, cin = x.shape
     es = x.element_size()
     flop = 2 * bsz * g * g * cin * cout
     nbytes = es * (bsz * g * g * cin + cin * cout) + 32 * bsz * n_anchors * g * g
-    peak = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    peak = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else TF32X3_FLOPS_PER_S
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flop / peak * 1e3
     return flop, nbytes, max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
@@ -787,8 +797,11 @@ def phase_k4(graph):
     """K4 at yolov3@416 B=8's three pre-head shapes, float32 and bf16
     operands, bf16 over four seeds; off the main path yolov3@416 B=1,
     yolov3@608, yolov3-tiny, 20-, 150- and 251-class heads, a strided view
-    and the refusals; both tile heights. Times (graph replay): K4, its plain
-    version, cuDNN 1x1 head conv + K1, per head and over the three."""
+    and the refusals; both tile heights at both types. Times (graph
+    replay): K4, its plain version, cuDNN 1x1 head conv + K1 (at float32
+    with TF32 allowed, and off as precision "highest" runs it), per head and
+    over the three, with each kernel's share of its bound (at float32 the
+    split-TF32 floor)."""
     import torch
     import torch.nn.functional as F
     from yolov3_tpu_torch.graph import load_graph
@@ -817,7 +830,7 @@ def phase_k4(graph):
         xs, ws, bs = zip(*heads)
         eager_ms = cuda_ms(lambda: decode_packed_fused(xs, ws, bs, anchors,
                                                        strides, ncls, 0.2))
-        tot = [0.0, 0.0, 0.0]
+        tot = [0.0, 0.0, 0.0, 0.0, 0.0]
         n_total = sum(len(a) * x.shape[1] * x.shape[2] for x, a in zip(xs, anchors))
         out = torch.empty((BATCH, n_total, 8), device=DEVICE)
         off = 0
@@ -838,22 +851,35 @@ def phase_k4(graph):
                 x, w, b, a, s, ncls, 0.2, off), iters=5, warmup=1)
             with tf32(True):
                 lib_ms = graph_ms(unfused)
-            for i, t in enumerate((ms, plain_ms, lib_ms)):
-                tot[i] += t
+            lib_off_ms = lib_ms  # TF32 does not touch a bf16 conv
+            if dtype == torch.float32:
+                with tf32(False):  # as precision "highest" runs it
+                    lib_off_ms = graph_ms(unfused)
             flop, nbytes, bound_ms, by = k4_bound(x, w.shape[0], len(a))
+            for i, t in enumerate((ms, plain_ms, lib_ms, lib_off_ms,
+                                   bound_ms)):
+                tot[i] += t
             log(f"[K4] {name} head {x.shape[1]}x{x.shape[2]} Cin {x.shape[3]} "
                 f"B={BATCH}: kernel {ms * 1e3:.2f} us ({flop / ms / 1e9:.1f} "
                 f"TFLOP/s, bound {bound_ms * 1e3:.2f} us by {by} = "
                 f"{bound_ms / ms:.1%} of it), plain {plain_ms * 1e3:.1f} us, "
-                f"cuDNN 1x1 + K1 {lib_ms * 1e3:.2f} us (graph replays, L2-hot)")
+                f"cuDNN 1x1 + K1 {lib_ms * 1e3:.2f} us"
+                + (f" with TF32, {lib_off_ms * 1e3:.2f} us without"
+                   if dtype == torch.float32 else "")
+                + " (graph replays, L2-hot)")
             off += len(a) * x.shape[1] * x.shape[2]
         flop = sum(k4_bound(x, w.shape[0], len(a))[0]
                    for (x, w, _), a in zip(heads, anchors))
         times[dtype] = (*tot, eager_ms)
         log(f"[K4] yolov3@416 B={BATCH} {name} all three heads: kernel "
-            f"{tot[0]:.4f} ms ({flop / tot[0] / 1e9:.1f} TFLOP/s), plain "
-            f"{tot[1]:.4f} ms, cuDNN 1x1 + K1 {tot[2]:.4f} ms (graph "
-            f"replays); eager wrapper calls (CUDA events) {eager_ms:.4f} ms")
+            f"{tot[0]:.4f} ms ({flop / tot[0] / 1e9:.1f} TFLOP/s, "
+            f"{tot[4] / tot[0]:.1%} of its bound {tot[4]:.4f} ms"
+            + (", the split-TF32 floor" if dtype == torch.float32 else "")
+            + f"), plain {tot[1]:.4f} ms, cuDNN 1x1 + K1 {tot[2]:.4f} ms"
+            + (f" with TF32, {tot[3]:.4f} ms without"
+               if dtype == torch.float32 else "")
+            + f" (graph replays); eager wrapper calls (CUDA events) "
+            f"{eager_ms:.4f} ms")
     # off the main path, bf16 (float32 where the float32 kernel runs a new
     # shape): other batches, sizes, graphs and class counts
     rng = np.random.default_rng(8)
@@ -903,18 +929,23 @@ def phase_k4(graph):
         f"bars, max |err| {err!r}; refused a base 8 bytes in, a pixel stride "
         f"of 260 and 5 + C = 257, with no launch")
     # the tile plan on the card: both heights, and one or two resident
-    # blocks where a head's K allows two, at each main-path head and at the
-    # 13x13 head at one image, held to the bars and timed
+    # blocks where a head's K allows two (bf16 only), at each main-path head
+    # and at the 13x13 head at one image, at both types, held to the bars
+    # and timed
     plan = cuda_decode.plan_fused_tiles
-    for bsz, gi in ((BATCH, 0), (BATCH, 1), (BATCH, 2), (1, 0)):
-        x, w, b = k4_heads(graph, 416, bsz, rng, dtype=torch.bfloat16)[gi]
+    for dtype, (bsz, gi) in [(dt, case) for dt in (torch.bfloat16, torch.float32)
+                             for case in ((BATCH, 0), (BATCH, 1), (BATCH, 2),
+                                          (1, 0))]:
+        x, w, b = k4_heads(graph, 416, bsz, rng, dtype=dtype)[gi]
         per, a, s, cin = 5 + ncls, anchors[gi], strides[gi], x.shape[3]
         m = bsz * x.shape[1] * x.shape[2]
-        chosen = plan(m, per, len(a), cin, sm_count(x.get_device()))
+        chosen = plan(m, per, len(a), cin, sm_count(x.get_device()),
+                      x.element_size())
         tile_us = {}
         for block_m in (64, 128):
             for resident in (1, 2):
-                if resident == 2 and (cin > 256 or block_m + chosen.n_tile > 224):
+                if resident == 2 and (dtype == torch.float32 or cin > 256
+                                      or block_m + chosen.n_tile > 224):
                     continue
                 cuda_decode.plan_fused_tiles = (
                     lambda *args, t=chosen._replace(block_m=block_m,
@@ -922,13 +953,14 @@ def phase_k4(graph):
                 try:
                     k4_check([(x, w, b)], [a], [s], ncls,
                              f"K4 B={bsz} {x.shape[1]}x{x.shape[2]} "
-                             f"{block_m}-row tiles, {resident} resident")
+                             f"{str(dtype)[6:]} {block_m}-row tiles, "
+                             f"{resident} resident")
                     tile_us[block_m, resident] = 1e3 * graph_ms(
                         lambda: decode_packed_fused_head(x, w, b, a, s, ncls, 0.2))
                 finally:
                     cuda_decode.plan_fused_tiles = plan
-        log(f"[K4] B={bsz} {x.shape[1]}x{x.shape[2]} Cin {cin} bfloat16 by "
-            f"(tile rows, resident blocks): " + ", ".join(
+        log(f"[K4] B={bsz} {x.shape[1]}x{x.shape[2]} Cin {cin} {str(dtype)[6:]} "
+            f"by (tile rows, resident blocks): " + ", ".join(
                 f"{k} {v:.2f} us" for k, v in tile_us.items())
             + f"; plan_fused_tiles takes {tuple(chosen)}")
     return max_err, times
@@ -992,6 +1024,12 @@ def k5_check(x, wt, b, what: str) -> float:
 
 
 def phase_k5(graph):
+    """K5 at every distinct eligible yolov3@416 B=8 layer shape and the
+    extra shapes, float32 (split TF32) and bf16, within the bars; per shape
+    the kernel, its plain version and cuDNN + leaky (at float32 with TF32
+    allowed, and off as precision "highest" runs it) by graph replay, with
+    the kernel's share of its bound (at float32 the split-TF32 floor); both
+    tile heights at both types; strided views."""
     import torch
     import torch.nn.functional as F
     from yolov3_tpu_torch.ops import cuda_conv
@@ -999,6 +1037,7 @@ def phase_k5(graph):
     from yolov3_tpu_torch.ops.cuda_conv import (conv3x3_fused,
                                                 conv3x3_fused_reference,
                                                 plan_tiles)
+    from yolov3_tpu_torch.precision import tf32
 
     shapes = k5_shapes(graph)
     rng = np.random.default_rng(5)
@@ -1030,42 +1069,60 @@ def phase_k5(graph):
             plain_ms = graph_ms(lambda: conv3x3_fused_reference(x, wt, b),
                                 iters=5, warmup=1)
             xc = x.permute(0, 3, 1, 2)
+
+            def cudnn():
+                return F.leaky_relu(F.conv2d(xc, wt, b, padding=1), 0.1)
+
             # what the main path runs without K5: cuDNN in the working type
-            # (TF32 allowed for float32, as at precision None), then leaky
-            cudnn_ms = graph_ms(lambda: F.leaky_relu(
-                F.conv2d(xc, wt, b, padding=1), 0.1))
-            if count:
-                tot = totals.setdefault(dtype, [0.0, 0.0, 0.0])
-                for i, t in enumerate((ms, plain_ms, cudnn_ms)):
-                    tot[i] += count * t
+            # (float32: TF32 allowed, as at precision None; and off, as at
+            # "highest"), then leaky
+            with tf32(True):
+                cudnn_ms = graph_ms(cudnn)
+            cudnn_off_ms = cudnn_ms  # TF32 does not touch a bf16 conv
+            if dtype == torch.float32:
+                with tf32(False):
+                    cudnn_off_ms = graph_ms(cudnn)
             size = x.element_size()
             flop = 2 * bsz * h * w * cin * cout * 9
             nbytes = size * (bsz * h * w * (cin + cout) + 9 * cin * cout)
-            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+            peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                    else TF32X3_FLOPS_PER_S)
             bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flop / peak)
+            if count:
+                tot = totals.setdefault(dtype, [0.0] * 5)
+                for i, t in enumerate((ms, plain_ms, cudnn_ms, cudnn_off_ms,
+                                       bound_ms)):
+                    tot[i] += count * t
             log(f"[K5] {what} x{count} layers: leaky/linear within bars; "
                 f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, bound "
                 f"{bound_ms:.4f} ms = {bound_ms / ms:.1%} of it), plain "
-                f"{plain_ms:.4f} ms, cuDNN {cudnn_ms:.4f} ms (all three: one "
-                f"call repeated in a CUDA graph, operands hot in L2)")
+                f"{plain_ms:.4f} ms, cuDNN {cudnn_ms:.4f} ms"
+                + (f" with TF32, {cudnn_off_ms:.4f} ms without"
+                   if dtype == torch.float32 else "")
+                + " (all: one call repeated in a CUDA graph, operands hot "
+                "in L2)")
     # the tile rule (plan_tiles) on the card: each main-path shape at one
-    # image, where 64-row tiles each get a multiprocessor, and the 13 x 13
-    # shape at the batch, where they do not; both heights held to the bars
-    for bsz, (h, w, cin, cout) in [(1, shape) for shape in sorted(shapes)] + [
-            (BATCH, min(shapes))]:
-        x, wt, b = (t.to(torch.bfloat16) for t in operands(bsz, h, w, cin, cout))
+    # image, where 64-row tiles each get a multiprocessor, and at the
+    # batch, where they do not; both heights at both types held to the
+    # bars
+    for dtype, bsz, (h, w, cin, cout) in [
+            (dtype, bsz, shape) for dtype in (torch.bfloat16, torch.float32)
+            for bsz in (1, BATCH) for shape in sorted(shapes)]:
+        x, wt, b = (t.to(dtype) for t in operands(bsz, h, w, cin, cout))
+        name = str(dtype)[6:]
         chosen = cuda_conv.plan_tiles(bsz * h * w, cout,
-                                      sm_count(x.get_device()))
+                                      sm_count(x.get_device()),
+                                      x.element_size())
         tile_ms = {}
         for block_m in (64, 128):
-            cuda_conv.plan_tiles = lambda m, n, sms, block_m=block_m: block_m
+            cuda_conv.plan_tiles = lambda *args, block_m=block_m: block_m
             try:
-                k5_check(x, wt, b, f"B={bsz} {h}x{w} {cin}->{cout} bfloat16, "
+                k5_check(x, wt, b, f"B={bsz} {h}x{w} {cin}->{cout} {name}, "
                                    f"{block_m}-row tiles")
                 tile_ms[block_m] = graph_ms(lambda: conv3x3_fused(x, wt, b))
             finally:
                 cuda_conv.plan_tiles = plan_tiles
-        log(f"[K5] B={bsz} {h}x{w} {cin}->{cout} bfloat16 by tile height: "
+        log(f"[K5] B={bsz} {h}x{w} {cin}->{cout} {name} by tile height: "
             f"64 rows {tile_ms[64] * 1e3:.1f} us, 128 rows "
             f"{tile_ms[128] * 1e3:.1f} us; plan_tiles takes {chosen}")
     # strided views, as the walk produces them: the NHWC view of a
@@ -1086,11 +1143,16 @@ def phase_k5(graph):
                 f"B=2 19x19 256->128 {str(dtype)[6:]} {what}"))
     log("[K5] strided inputs (channels_last torch.cat view, channel slice "
         "with pixel stride 512), float32 and bfloat16: within bars")
-    for dtype, (ms, plain_ms, cudnn_ms) in totals.items():
+    for dtype, (ms, plain_ms, cudnn_ms, cudnn_off_ms, bound_ms) in totals.items():
         log(f"[K5] yolov3@416 B={BATCH} all {sum(shapes.values())} eligible "
-            f"layers, {str(dtype)[6:]}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms (L2-hot graph "
-            f"replays per shape; the main phase's walk is the cold figure)")
+            f"layers, {str(dtype)[6:]}: kernel {ms:.3f} ms ({bound_ms / ms:.1%} "
+            f"of its bound {bound_ms:.3f} ms"
+            + (", the split-TF32 floor" if dtype == torch.float32 else "")
+            + f"), plain {plain_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms"
+            + (f" with TF32, {cudnn_off_ms:.3f} ms without"
+               if dtype == torch.float32 else "")
+            + " (L2-hot graph replays per shape; the main phase's walk is "
+            "the cold figure)")
     return max_err, totals
 
 
@@ -1766,7 +1828,9 @@ def phase_main(card: str):
             raise AssertionError(f"yolov3.weights is {size} bytes, "
                                  f"published file is {YOLOV3_WEIGHTS_BYTES}")
         for key, prec, conv in (("none", None, "xla"), ("highest", "highest", "xla"),
-                                ("bf16", "bf16", "xla"), ("bf16-k5", "bf16", "pallas")):
+                                ("bf16", "bf16", "xla"), ("bf16-k5", "bf16", "pallas"),
+                                ("highest-k5", "highest", "pallas"),
+                                ("none-k5", None, "pallas")):
             nets[key] = Darknet(cfg, precision=prec, device=DEVICE,
                                 conv_impl=conv).load_weights(path)
     tiny = Darknet(REPO / "models" / "yolov3-tiny.cfg", device=DEVICE)
@@ -1794,6 +1858,12 @@ def phase_main(card: str):
         run_main_path(det, "yolov3", frames, card)
     run_main_path(Detector(nets["none"], decode_impl="xla"), "yolov3", frames, card)
     run_main_path(Detector(tiny), "yolov3-tiny", frames, card)
+    # the float32 forms of K5 and K4 (split TF32) on the captured path,
+    # beside "highest" with cuDNN and K1 (None + K1 ran first)
+    run_main_path(Detector(nets["highest"]), "yolov3", frames, card)
+    for key in ("highest-k5", "none-k5"):
+        run_main_path(Detector(nets[key], decode_impl="pallas-fused"),
+                      "yolov3", frames, card)
     # forward_compact through K1c against the plain compact decode, on the
     # same preprocessed frames
     det = Detector(nets["none"])
@@ -3934,7 +4004,7 @@ def main() -> int:
     k5_err, k5 = res["k5"]
     k6_err, k6 = res["k6"]
     k3 = res["k3"]
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     # bounds: the larger of bytes over the memory rate (each input read
     # once, each output written once) and operations over the unit's peak
     grids = [416 // s for s in yolo.head_strides()]
@@ -4013,8 +4083,14 @@ def main() -> int:
          "max_abs_err": k4_err, "ms": k4[bf16][0], "plain_ms": k4[bf16][1],
          **bound(2 * pre_elems + 32 * BATCH * n_cand, k4_flop, BF16_FLOPS_PER_S),
          # no single call: the cuDNN 1x1 head conv followed by K1
-         "library_ms": k4[bf16][2], "ms_float32": k4[torch.float32][0],
-         "ms_eager": k4[bf16][3]},
+         "library_ms": k4[bf16][2], "ms_eager": k4[bf16][5],
+         # float32 operands (split TF32): the bound is the split-TF32 floor;
+         # the library's head conv with TF32 allowed and off
+         "ms_float32": k4[f32][0], "plain_ms_float32": k4[f32][1],
+         "bound_ms_float32": k4[f32][4],
+         "library_ms_float32_tf32": k4[f32][2],
+         "library_ms_float32_tf32_off": k4[f32][3],
+         "ms_eager_float32": k4[f32][5]},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/conv3x3.cu",
          "headers": ["yolov3_tpu_torch/csrc/conv3x3_mma.cuh",
@@ -4023,7 +4099,13 @@ def main() -> int:
          "launches": launches["conv3x3_fused"], "max_abs_err": k5_err,
          "ms": k5[bf16][0], "plain_ms": k5[bf16][1],
          **bound(k5_bytes, k5_flop, BF16_FLOPS_PER_S),
-         "library_ms": k5[bf16][2]},
+         "library_ms": k5[bf16][2],
+         # float32 operands (split TF32), 29 layers: the bound is the
+         # split-TF32 floor; cuDNN with TF32 allowed and off
+         "ms_float32": k5[f32][0], "plain_ms_float32": k5[f32][1],
+         "bound_ms_float32": k5[f32][4],
+         "library_ms_float32_tf32": k5[f32][2],
+         "library_ms_float32_tf32_off": k5[f32][3]},
         {"name": "residual_block_int8", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/block_int8.cu",
          "headers": ["yolov3_tpu_torch/csrc/wgmma_common.cuh",

@@ -183,6 +183,25 @@ def test_tile_plan_of_the_main_path():
                  cuda_conv.plan_tiles(13 * 13, 1024, H100_SMS)) == (3, 8)
 
 
+def test_tile_plan_float32():
+    """float32 (split TF32) counts waves: yolov3@416, batch 8, takes 128-row
+    tiles at 52 x 52 (3 waves against 6 of 64 rows) and 13 x 13 (1 against
+    2) and 64-row tiles at 26 x 26 (3 waves of 340 small tiles against 2 of
+    172 large ones, as measured on the card); a single image, and any shape
+    whose 64-row tiles each get a multiprocessor, takes 64 rows, as bf16."""
+    grids = {hw: _grid(8 * hw * hw, cout,
+                       cuda_conv.plan_tiles(8 * hw * hw, cout, H100_SMS, 4))
+             for hw, cout in ((52, 256), (26, 512), (13, 1024))}
+    assert grids == {52: (169, 2), 26: (85, 4), 13: (11, 8)}
+    for shape in PLAN_SHAPES:
+        bsz, h, w, _, cout = shape
+        m = bsz * h * w
+        if -(-m // 64) * -(-cout // cuda_conv.BLOCK_N) <= H100_SMS:
+            assert cuda_conv.plan_tiles(m, cout, H100_SMS, 4) == 64
+    assert all(cuda_conv.plan_tiles(hw * hw, cout, H100_SMS, 4) == 64
+               for hw, cout in ((52, 256), (26, 512), (13, 1024)))
+
+
 def test_k5_layout_check_by_type():
     """Rows are read in 16-byte pieces: strides in multiples of 4 float32 or
     8 bfloat16 elements. A pixel stride of 132 elements is fine for float32

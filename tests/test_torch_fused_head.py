@@ -204,6 +204,36 @@ def test_k4_tile_columns(classes, n_tile):
         assert (t.block_m, t.resident) == (128, 2 if n_tile <= 96 else 1)
 
 
+@pytest.mark.parametrize("size,bsz", [(416, 8), (416, 1), (608, 8), (608, 1)])
+def test_k4_tile_plan_float32(size, bsz):
+    """At float32 (split TF32) the plan takes the bf16 kernel's tile rows
+    and columns, and one resident block: the ring of split weights leaves
+    no room for a second."""
+    for m, cin in HEADS[size, bsz]:
+        t16 = cuda_decode.plan_fused_tiles(m, 85, 3, cin, 132)
+        t32 = cuda_decode.plan_fused_tiles(m, 85, 3, cin, 132, 4)
+        assert (t32.block_m, t32.n_tile, t32.resident) == (t16.block_m,
+                                                           t16.n_tile, 1)
+
+
+def test_k4_check_float32_rows_on_16_bytes():
+    """The float32 kernel reads channel rows in 16-byte pieces too: strides
+    that are multiples of 4 elements and a 16-byte aligned base pass (a
+    pixel stride of 260 floats is 1,040 bytes), a base 8 bytes in or a
+    pixel stride of 258 is refused; 5 + C above 256 is refused at float32
+    as at bf16."""
+    wide = torch.zeros(2, 4, 4, 512)
+    cuda_decode.check_fused_mma_input(wide[..., 128:384], 80, 3)
+    cuda_decode.check_fused_mma_input(torch.zeros(2, 4, 4, 260)[..., :256],
+                                      80, 3)
+    for bad in (wide[..., 2:258], torch.zeros(2, 4, 4, 258)[..., :256],
+                wide[..., ::2]):
+        with pytest.raises(ValueError, match="16-byte pieces"):
+            cuda_decode.check_fused_mma_input(bad, 80, 3)
+    with pytest.raises(ValueError, match="widest wgmma N"):
+        cuda_decode.check_fused_mma_input(wide, 252, 3)
+
+
 def test_k4_plan_and_check_refuse_wide_anchors():
     with pytest.raises(ValueError, match="5 \\+ C <= 256"):
         cuda_decode.plan_fused_tiles(1352, 257, 3, 1024, 132)

@@ -376,6 +376,42 @@ def test_serve_cli_errors(tmp_path, extra, match):
         tserve.main(argv + extra)
 
 
+def test_listen_backlog_takes_a_burst():
+    """A burst of 32 new connections, none accepted yet (the server is bound
+    and listening, its loop not started): all 32 connect within 0.5 s. The
+    reference's server keeps socketserver's backlog of 5, so the same burst
+    has connections dropped there (each would wait ~1 s for the SYN
+    retransmit)."""
+    from http.server import BaseHTTPRequestHandler
+
+    from yolov3_tpu.serve import (
+        GracefulThreadingHTTPServer as JGracefulThreadingHTTPServer)
+
+    def burst(server_cls) -> int:
+        srv = server_cls(("127.0.0.1", 0), BaseHTTPRequestHandler)
+        addr = srv.server_address
+
+        def connect(_):
+            try:
+                return socket.create_connection(addr, timeout=0.5)
+            except OSError:
+                return None
+
+        try:
+            with ThreadPoolExecutor(max_workers=32) as pool:
+                socks = list(pool.map(connect, range(32)))
+            for sock in socks:
+                if sock is not None:
+                    sock.close()
+            return sum(sock is not None for sock in socks)
+        finally:
+            srv.server_close()
+
+    assert tserve.GracefulThreadingHTTPServer.request_queue_size == 128
+    assert burst(tserve.GracefulThreadingHTTPServer) == 32
+    assert burst(JGracefulThreadingHTTPServer) < 32
+
+
 def test_same_png_to_both_servers():
     """One PNG, both packages' servers, same weights: the same JSON within
     the golden bars (``latency_ms`` aside)."""

@@ -3,9 +3,9 @@
 // The TPU kernels share one body too (yolov3_tpu/ops/pallas_decode.py ::
 // _decode_ft_records); here it is k1_decode_anchor_group, a device function
 // that a group of lanes runs for one (cell, anchor) with the kernel's own
-// row loader: G lanes in K1 and K1c (decode_packed.cu) and in K4's bf16
-// kernel, the whole warp in K4's float32 kernel (k1_decode_anchor), so
-// their record math cannot drift apart. For one (cell, anchor) it computes
+// row loader: G lanes in K1 and K1c (decode_packed.cu) and in both of K4's
+// kernels (decode_fused.cu), so their record math cannot drift apart. For
+// one (cell, anchor) it computes
 //
 //   cx = (sig(tx) + col) * stride,   w = exp(min(tw, 60)) * anchor_w,
 //   x0 = cx - w * 0.5,  x1 = cx + w * 0.5,  (same for y)
@@ -138,16 +138,6 @@ __device__ __forceinline__ K1Record k1_decode_anchor_group(
   return r;
 }
 
-// The warp-wide decode of K4's float32 kernel: all 32 lanes decode one
-// cell's anchor together.
-template <class Load>
-__device__ __forceinline__ K1Record k1_decode_anchor(
-    const Load& load, int base, int n_classes, int lane, int col, int row,
-    float stride, float anchor_w, float anchor_h, float prob_thresh) {
-  return k1_decode_anchor_group<32>(load, base, n_classes, lane, col, row,
-                                    stride, anchor_w, anchor_h, prob_thresh);
-}
-
 // lane `lane` of the 8-float record [x0, y0, x1, y1, score, class, cand, 0]
 __device__ __forceinline__ float k1_record_lane(const K1Record& r, int lane,
                                                 int cand) {
@@ -161,11 +151,4 @@ __device__ __forceinline__ float k1_record_lane(const K1Record& r, int lane,
     case 6: return (float)cand;
     default: return 0.0f;
   }
-}
-
-// K4's float32 epilogue: lanes 0..7 store the 8-float record
-// [x0, y0, x1, y1, score, class, cand, 0] as one 32-byte coalesced store.
-__device__ __forceinline__ void k1_store_packed(const K1Record& r, int lane,
-                                                int cand, float* rec8) {
-  if (lane < 8) rec8[lane] = k1_record_lane(r, lane, cand);
 }

@@ -6,9 +6,12 @@
 // MN-major swizzled tiles, the wgmma fences, commits and waits, the bf16
 // m64nNk16 products with float32 sums for N = 8, 32, 64, 96 and 128 (either
 // operand K-major or, by the transpose flag, MN-major) with their float32
-// promotion, and the int8 m64nNk32 products with int32 sums for N = 64, 128
-// and 256. Included by conv3x3_mma.cuh (K5), decode_fused.cu (K4),
-// block_int8.cu (K6) and probe.cu (T1's wgmma cores, T2); decode_packed.cu
+// promotion, the int8 m64nNk32 products with int32 sums for N = 64, 128
+// and 256, and the TF32 m64nNk8 products (A in registers) for N = 32, 64,
+// 96 and 128 with the split of float32 operands into two TF32 parts and the
+// 3xTF32 K loop that K5's and K4's float32 kernels share. Included by
+// conv3x3_mma.cuh (K5), decode_fused.cu (K4), block_int8.cu (K6) and
+// probe.cu (T1's wgmma cores, T2); decode_packed.cu
 // (K1, K1c), decode_full.cu (K3) and nms_suppress.cu (K2) take the opt-in
 // and the asynchronous copies.
 //
@@ -429,4 +432,261 @@ __device__ __forceinline__ void wg_mma_m64k32_s8(int (&d)[N / 2],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
   WgmmaM64K32S8<N>::run(d, desc_a, desc_b, scale_d);
+}
+
+
+// ---------------------------------------------------------------- TF32
+//
+// float32 operands on the tensor cores as split TF32 ("3xTF32"): each
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi), where tf32()
+// rounds to the 10 mantissa bits TF32 keeps (to nearest, ties away from
+// zero: cvt.rna, which is (bits + 0x1000) & ~0x1fff) and x - hi is exact.
+// a * b is then hi_a * hi_b + hi_a * lo_b + lo_a * hi_b, three TF32
+// products whose sum misses a * b by at most about 2^-21 |a b| (lo_a *
+// lo_b, under 2^-22, and the rounding of the two lo parts): float32
+// accuracy at the TF32 rate, 495 TFLOP/s dense on an H100, 165 TFLOP/s of
+// float32 work against the CUDA cores' 67. The plain split is
+// ops/tf32.py :: split_tf32 (hi, and lo before its rounding to TF32).
+//
+// Layout: TF32 products take both operands K-major (wgmma's transpose flag
+// exists only for 16-bit types). A 128-byte tile row holds 32 float32
+// values (WG_F32) in the same 128-byte swizzle as the bf16 tiles; a
+// product (k = 8) reads 32 bytes of every row, so the k-th product of a
+// tile starts +2 in the descriptor's address field, as for bf16. The A
+// operand (activations) comes from registers (the fragment below), split
+// there; B (weights) is a pair of shared-memory tiles, hi and lo, copied
+// from the two halves the wrapper splits once per weight tensor
+// (ops/tf32.py :: tf32_operands): splitting B in the kernel would cost a
+// pass over the tile in shared memory every K step, where the products'
+// operand reads already leave little bandwidth.
+
+#define WG_F32 32  // float32 values of one operand tile row (128 bytes)
+
+// x rounded to TF32, as a float32 bit pattern with the low 13 bits zero
+__device__ __forceinline__ uint32_t wg_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void wg_split_tf32(float x, uint32_t& hi,
+                                              uint32_t& lo) {
+  hi = wg_tf32(x);
+  lo = wg_tf32(x - __uint_as_float(hi));
+}
+
+// d (64 x N, float32, the fragment layout of the bf16 products) = A (64 x 8,
+// TF32 in registers) * B (N x 8, TF32, K-major in shared memory) + (scale_d
+// ? d : 0). A's fragment, thread (warp, lane) of the warpgroup, g = lane /
+// 4, t = lane % 4: a[0] = A[warp * 16 + g][t], a[1] = A[warp * 16 + g +
+// 8][t], a[2] = A[warp * 16 + g][t + 4], a[3] = A[warp * 16 + g + 8][t + 4].
+template <int N>
+struct WgmmaM64K8TF32;
+
+template <>
+struct WgmmaM64K8TF32<32> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaM64K8TF32<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaM64K8TF32<96> {
+  static __device__ __forceinline__ void run(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaM64K8TF32<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(scale_d));
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void wg_mma_m64k8_tf32(float (&d)[N / 2],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b,
+                                                  int scale_d) {
+  WgmmaM64K8TF32<N>::run(d, a, desc_b, scale_d);
+}
+
+// The K loop of a float32 GEMM tile on the tensor cores, 3xTF32, shared by
+// K5's and K4's float32 kernels. The block's ring holds STAGES K steps of
+// 32 channels, each [A: BM rows][B hi: NP rows][B lo: NP rows] of 128-byte
+// swizzled rows, every tile on a 1,024-byte boundary. `load_next(stage)`
+// copies the next step's A rows, B hi rows and B lo rows into that stage
+// (A at +0, B hi at +BM * 128, B lo at +(BM + NP) * 128) as ONE cp.async
+// group, an empty group past the last step. The warpgroup (wm, wn)
+// multiplies A rows wm * 64 .. + 63 by B rows wn * N .. + N - 1 into `sum`
+// (its N / 2 fragment values, zeroed here).
+//
+// Step s: its A fragment is read from shared memory and split in
+// registers; three products a K slice of 8, the small ones first (lo * hi,
+// hi * lo, then hi * hi), summed by the tensor cores from zero over the
+// step's 32 channels and added to `sum` on the CUDA cores (wg_promote: the
+// tensor cores truncate when they align the addends). While they run, the
+// block copies step s + STAGES - 1 into the stage step s - 1 left.
+template <int BM, int NP, int N, int STAGES, typename Load>
+__device__ __forceinline__ void wg_gemm_tf32x3(float (&sum)[N / 2], int steps,
+                                               uint32_t ring,
+                                               unsigned char* ring_ptr,
+                                               int wm, int wn,
+                                               Load& load_next) {
+  constexpr uint32_t A_BYTES = BM * WG_ROW;
+  constexpr uint32_t B_BYTES = NP * WG_ROW;
+  constexpr uint32_t STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  static_assert(STAGES >= 2, "one step multiplied, one in flight");
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's A rows (row & 7 == g: the swizzle term) and float t
+  const uint32_t a_row = (uint32_t)(wm * 64 + warp * 16 + g) * WG_ROW + 4 * t;
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = sum[i] = 0.0f;
+
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) load_next(p);
+
+  int st = 0;  // the stage of step s
+  for (int s = 0; s < steps; ++s) {
+    // step s has landed: this thread's copies, then everyone's; the
+    // barrier also says every warpgroup is done with step s - 1's products
+    wg_cp_async_wait<STAGES - 2>();
+    wg_fence_async_proxy();
+    __syncthreads();
+    const uint32_t stage = ring + st * STAGE_BYTES;
+    const unsigned char* a_tile = ring_ptr + st * STAGE_BYTES;
+    uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // a[q]: row + 8 * (q & 1), float t + 4 * (q >> 1) of slice kk,
+        // which lies in 16-byte chunk 2 * kk + (q >> 1) of its row
+        const uint32_t chunk = (uint32_t)(2 * kk + (q >> 1)) ^ (uint32_t)g;
+        const float v = *reinterpret_cast<const float*>(
+            a_tile + a_row + (q & 1) * 8 * WG_ROW + (chunk << 4));
+        wg_split_tf32(v, ahi[kk][q], alo[kk][q]);
+      }
+    const uint64_t dhi = wg_desc(stage + A_BYTES + wn * N * WG_ROW);
+    const uint64_t dlo = wg_desc(stage + A_BYTES + B_BYTES + wn * N * WG_ROW);
+    wg_fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg_mma_m64k8_tf32<N>(acc, alo[kk], dhi + 2 * kk, kk > 0);
+      wg_mma_m64k8_tf32<N>(acc, ahi[kk], dlo + 2 * kk, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg_mma_m64k8_tf32<N>(acc, ahi[kk], dhi + 2 * kk, 1);
+    wg_commit();
+    // while the products run: step s + STAGES - 1 into the stage step s - 1
+    // has left
+    load_next(st == 0 ? STAGES - 1 : st - 1);
+    wg_wait<0>();
+    wg_fence_acc(acc);
+    wg_promote(sum, acc);
+    st = st + 1 == STAGES ? 0 : st + 1;
+  }
+  // every product is done; the copy groups still open are empty
+  wg_cp_async_wait<0>();
+  __syncthreads();
 }

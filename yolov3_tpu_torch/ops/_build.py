@@ -5,8 +5,8 @@ tools' kernels) compile with ``nvcc`` into ONE shared library with a plain C
 interface, loaded with ``ctypes``; ``decode_common.cuh`` (the decode body),
 ``block_int8_common.cuh`` (K6's arithmetic, shared with the probes),
 ``wgmma_common.cuh`` (the tensor-core building blocks of K4's and K5's bf16
-kernels, K6's int8 kernel and T1's ``wgmma`` cores) and ``conv3x3_mma.cuh``
-(K5's tensor-core kernel) are their headers. The build
+and split-TF32 float32 kernels, K6's int8 kernel and T1's ``wgmma`` cores)
+and ``conv3x3_mma.cuh`` (K5's bf16 kernel) are their headers. The build
 runs at first use from the sources in the checkout and lands in
 ``build/kernels/`` at the repository root (git-ignored): one ``nvcc -c`` per
 source, all started together, then one link. The library's file name carries
@@ -38,7 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false and no --use_fast_math: the decode and suppression epilogues
 # must match their plain PyTorch versions bit for bit (see the notes in each
-# .cu file); the conv / head-projection loops use __fmaf_rn explicitly.
+# .cu file).
 # -Xptxas -v writes registers / shared memory / spills into the build log.
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -116,11 +116,11 @@ def load_kernels() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), anchors, i32, anchors, i32, i32,
         i32, i32, i32, i32, i32, i32, f32, i32, p, p, p, p, p]
     lib.yolo_decode_packed_fused_head.argtypes = [
-        p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, anchors,
+        p, i64, i64, i64, i32, p, p, p, i32, i32, i32, i32, i32, i32, anchors,
         f32, f32, i32, i32, i32, i32, i32, p, p]
     lib.yolo_conv3x3_fused.argtypes = [
-        p, i64, i64, i64, i32, p, p, i32, i32, i32, i32, i32, i32, i32, i32,
-        p, p]
+        p, i64, i64, i64, i32, p, p, p, i32, i32, i32, i32, i32, i32, i32,
+        i32, p, p]
     lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p, p]
     lib.yolo_decode_full.argtypes = [
         ctypes.POINTER(ctypes.c_longlong), anchors, i32, anchors, i32, i32,

@@ -4,10 +4,11 @@ wrapper and its plain version.
 Port of ``yolov3_tpu/ops/pallas_conv.py :: conv3x3_fused_roll2``, the
 kernel behind ``conv_impl="pallas"``; its twins ``conv3x3_fused_roll`` and
 ``conv3x3_fused`` compute the same function with other TPU layouts and map
-onto the same kernel (``csrc/conv3x3.cu``): for bfloat16 operands an
-implicit GEMM on the tensor cores (``wgmma``, ``csrc/conv3x3_mma.cuh``, tiled
-by :func:`plan_tiles`), for float32 operands a CUDA-core kernel (TF32 would
-miss the float32 bar). Eligible convs (:func:`supported`, the JAX package's
+onto the same kernels (``csrc/conv3x3.cu``), implicit GEMMs on the tensor
+cores (``wgmma``) tiled by :func:`plan_tiles`: for bfloat16 operands
+``csrc/conv3x3_mma.cuh``, for float32 operands split TF32 (each operand
+split into two TF32 parts, three TF32 products a product: float32 accuracy,
+``ops/tf32.py``). Eligible convs (:func:`supported`, the JAX package's
 predicate) go through it; every other conv stays on ``F.conv2d``.
 
 Layouts are the port's: ``x`` NHWC (B, H, W, Cin) with channel stride 1 —
@@ -27,26 +28,43 @@ import torch.nn.functional as F
 
 from ..precision import tf32
 from ._build import check_launch, load_kernels, sm_count
+from .tf32 import tf32_operands
 
 ACTIVATIONS = ("leaky", "linear")
 CIN_MULTIPLE = 128
 BLOCK_N = 128  # output channels of a tile of the tensor-core kernel
 
 
-def plan_tiles(m: int, n: int, sm_count: int) -> int:
-    """Rows of the bf16 kernel's output tiles (``block_m`` x 128, grid
-    ceil(M / block_m) x ceil(N / 128); ``csrc/conv3x3_mma.cuh``) for M =
-    B·H·W pixels and N = Cout channels on a card with ``sm_count``
-    multiprocessors: 64 or 128.
+# float32 (split TF32): a 64-row tile takes this share of a 128-row tile's
+# time on a multiprocessor of its own (chip_smoke.py's k5 phase at
+# yolov3@416's three layer shapes, one image: 0.56-0.59, PERF.md)
+F32_HALF_TILE_COST = 0.57
+
+
+def plan_tiles(m: int, n: int, sm_count: int, elem_size: int = 2) -> int:
+    """Rows of the kernels' output tiles (``block_m`` x 128, grid
+    ceil(M / block_m) x ceil(N / 128); ``csrc/conv3x3.cu``) for M = B·H·W
+    pixels, N = Cout channels and operands of ``elem_size`` bytes (2: bf16,
+    4: float32) on a card with ``sm_count`` multiprocessors: 64 or 128.
 
     128 x 128 tiles, two warpgroups a block, move the fewest bytes per
-    product. 64 x 128 tiles pay only while each of them gets a
+    product. bf16: 64 x 128 tiles pay only while each of them gets a
     multiprocessor of its own: then halving the tile halves the time. With
     more tiles than that the busiest multiprocessor does the same work
     either way and the small tile re-reads the weights twice as often
     (measured at yolov3@416's 13 x 13 layers, B = 8: 88 tiles of 128 rows
-    beat 176 of 64, ``PERF.md``)."""
-    return 64 if -(-m // 64) * -(-n // BLOCK_N) <= sm_count else 128
+    beat 176 of 64, ``PERF.md``). float32: a tile's many K steps make its
+    time what counts, so the plan compares the waves of tiles each height
+    needs, a 64-row tile costing ``F32_HALF_TILE_COST`` of a 128-row one:
+    at yolov3@416's 26 x 26 layers, B = 8, three waves of 64-row tiles (340)
+    beat two of 128-row tiles (172), as measured."""
+    cols = -(-n // BLOCK_N)
+    tiles64 = -(-m // 64) * cols
+    if elem_size == 2:
+        return 64 if tiles64 <= sm_count else 128
+    waves64 = -(-tiles64 // sm_count)
+    waves128 = -(-(-(-m // 128) * cols) // sm_count)
+    return 64 if waves64 * F32_HALF_TILE_COST < waves128 else 128
 
 
 def supported(node_size: int, node_stride: int, c_in: int,
@@ -109,7 +127,9 @@ def conv3x3_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     ``w`` (cast to x's type, as the JAX package casts: a weight of another
     type costs a copy per call) → NHWC output in x's type. The bias is read
     as it is when float32 or bfloat16. Cin must be a multiple of 128 on the
-    card (:func:`supported`).
+    card (:func:`supported`). At float32 the kernel reads the weights split
+    into two TF32 halves, made at the first call and kept on ``w``
+    (:func:`~yolov3_tpu_torch.ops.tf32.tf32_operands`).
 
     CUDA tensor: launches K5 on the current stream or raises. CPU tensor:
     the plain version."""
@@ -130,18 +150,21 @@ def conv3x3_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if not (x.device == w_ohwi.device == bias.device):
         raise ValueError("K5 needs x, w and b on one device")
     is_bf16 = x.dtype == torch.bfloat16
-    block_m = 0  # the float32 kernel's tiles are fixed
-    if is_bf16:
-        block_m = plan_tiles(bsz * h * wd, cout, sm_count(x.get_device()))
+    block_m = plan_tiles(bsz * h * wd, cout, sm_count(x.get_device()),
+                         x.element_size())
+    w_hi, w_lo = w_ohwi, None  # float32: the weights split once, kept on w
+    if not is_bf16:
+        w_hi, w_lo = tf32_operands(w_ohwi)
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = load_kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.yolo_conv3x3_fused(
             x.data_ptr(), x.stride(0), x.stride(1), x.stride(2), int(is_bf16),
-            w_ohwi.data_ptr(), bias.data_ptr(),
-            int(bias.dtype == torch.bfloat16), bsz, h, wd, cin, cout,
-            int(activation == "leaky"), block_m, y.data_ptr(), stream)
+            w_hi.data_ptr(), None if w_lo is None else w_lo.data_ptr(),
+            bias.data_ptr(), int(bias.dtype == torch.bfloat16), bsz, h, wd,
+            cin, cout, int(activation == "leaky"), block_m, y.data_ptr(),
+            stream)
     check_launch(rc, "conv3x3_fused")
     conv3x3_fused.launches += 1
     return y

@@ -23,10 +23,11 @@ Ports of ``yolov3_tpu/ops/pallas_decode.py``:
 * K4 ``decode_packed_fused_head`` (``decode_packed_head_fused_pallas``): K1's
   records computed from the PRE-head activation (B, gy, gx, Cin) and the 1×1
   head conv's weights (Cout, Cin) + bias, float32 sums; the head map never
-  reaches device memory. ``forward_packed_fused``. bf16 operands run a 1×1
-  GEMM on the tensor cores (``wgmma``) with the decode as its epilogue, one
-  block per (tile of cells, anchor), tiled by :func:`plan_fused_tiles`;
-  float32 operands a CUDA-core kernel (TF32 would miss the float32 bar).
+  reaches device memory. ``forward_packed_fused``. A 1×1 GEMM on the
+  tensor cores (``wgmma``) with the decode as its epilogue, one block per
+  (tile of cells, anchor), tiled by :func:`plan_fused_tiles`: bf16 operands
+  as they are, float32 operands as split TF32 (three TF32 products a
+  product: float32 accuracy, ``ops/tf32.py``).
 * K3 ``decode_all`` / ``decode_head`` (``decode_all_pallas`` /
   ``decode_head_pallas``): the full decode, the head maps → the reference
   ``Darknet.forward`` tensor (B, N, 5+C), cell-major within a head, heads
@@ -56,6 +57,7 @@ import torch
 from ..precision import tf32
 from . import decode as plain_decode
 from ._build import check_launch, load_kernels, sm_count
+from .tf32 import tf32_operands
 
 Anchors = Sequence[Tuple[float, float]]
 MAX_ANCHORS = 64  # K1_MAX_ANCHORS in csrc/decode_common.cuh: the kernels' parameter block
@@ -64,8 +66,7 @@ MAX_ANCHORS = 64  # K1_MAX_ANCHORS in csrc/decode_common.cuh: the kernels' param
 # does, so a graph takes the same route in both packages
 GATE_ANCHORS = 4
 FUSED_CIN_MULTIPLE = 128  # ``fused_head_supported``'s lane boundary
-K4_MAX_CHANNELS = 1024  # 4 * K4_THREADS in csrc/decode_fused.cu (float32)
-K4_MMA_MAX_PER = 256  # 5 + C of the bf16 kernel: the widest wgmma N
+K4_MMA_MAX_PER = 256  # 5 + C of a K4 block: the widest wgmma N
 MAP_DTYPES = (torch.float32, torch.bfloat16)
 # K1 / K1c (csrc/decode_packed.cu): heads a launch's table holds, the cells
 # of a block's tile (the first that fits shared memory), the lanes that
@@ -542,56 +543,60 @@ class FusedTiles(NamedTuple):
 
 
 def plan_fused_tiles(m: int, per: int, anchors: int, cin: int,
-                     sm_count: int) -> FusedTiles:
-    """The tiles of K4's bf16 kernel (``csrc/decode_fused.cu``) for M =
-    B·gy·gx cells, ``per`` = 5 + C channels an anchor, ``anchors`` per head
-    and ``cin`` pre-head channels, on a card with ``sm_count``
-    multiprocessors. The grid is ceil(M / block_m) × anchors blocks of
-    block_m cells × one anchor.
+                     sm_count: int, elem_size: int = 2) -> FusedTiles:
+    """The tiles of K4's kernels (``csrc/decode_fused.cu``) for M = B·gy·gx
+    cells, ``per`` = 5 + C channels an anchor, ``anchors`` per head,
+    ``cin`` pre-head channels and operands of ``elem_size`` bytes (2: bf16,
+    4: float32), on a card with ``sm_count`` multiprocessors. The grid is
+    ceil(M / block_m) × anchors blocks of block_m cells × one anchor.
 
     ``n_tile``: ``per`` rounded up to a multiple of 32 (one warpgroup's
     ``wgmma`` N, at most 128), above 128 to a multiple of 64 (two
     warpgroups, each half the columns, and then 64-row tiles).
     ``block_m``: 64 while every 64-row tile of the head gets a
     multiprocessor of its own, else 128, which re-reads the anchor's weights
-    half as often. ``resident``: 2 where the whole K fits a ring of two
-    128-channel steps (Cin ≤ 256) and two such blocks fit a
+    half as often. ``resident``: 2 for bf16 where the whole K fits a ring
+    of two 128-channel steps (Cin ≤ 256) and two such blocks fit a
     multiprocessor's shared memory (block_m + n_tile ≤ 224): one block's
     fill and decode then overlap the other's products; with a longer K the
-    deeper ring of one block a multiprocessor wins. ``chip_smoke.py``'s
-    ``k4`` phase times every choice at yolov3@416's heads (``PERF.md``)."""
+    deeper ring of one block a multiprocessor wins. The float32 kernel's
+    ring (the activations beside the weights' hi and lo tiles, up to four
+    32-channel steps) leaves room for one block: resident 1. ``chip_smoke.py``'s ``k4`` phase times every
+    choice at yolov3@416's heads (``PERF.md``)."""
     if not 5 < per <= K4_MMA_MAX_PER:
-        raise ValueError(f"K4's bf16 kernel takes 5 < 5 + C <= "
+        raise ValueError(f"K4's kernels take 5 < 5 + C <= "
                          f"{K4_MMA_MAX_PER} channels an anchor, got {per}")
     if per > 128:
         block_m, n_tile = 64, -(-per // 64) * 64
     else:
         n_tile = -(-per // 32) * 32
         block_m = 64 if -(-m // 64) * anchors <= sm_count else 128
-    resident = 2 if cin <= 256 and block_m + n_tile <= 224 else 1
+    resident = (2 if elem_size == 2 and cin <= 256 and block_m + n_tile <= 224
+                else 1)
     return FusedTiles(block_m, n_tile, resident)
 
 
 def check_fused_mma_input(x: torch.Tensor, num_classes: int,
                           n_anchors: int) -> None:
-    """Raise for a bf16 head that K4's tensor-core kernel does not take:
-    5 + C above 256, more than ``MAX_ANCHORS`` anchors, or channel rows that
-    do not start on 16-byte boundaries (batch, row and pixel strides a
-    multiple of 8 elements and a 16-byte aligned base). There is no
+    """Raise for a head that K4's kernels do not take: 5 + C above 256,
+    more than ``MAX_ANCHORS`` anchors, or channel rows that do not start on
+    16-byte boundaries (batch, row and pixel strides a multiple of 16 bytes
+    (8 bf16, 4 float32 elements) and a 16-byte aligned base). There is no
     fallback: the wrapper calls this before any launch."""
     per = 5 + num_classes
     if per > K4_MMA_MAX_PER:
-        raise ValueError(f"K4's bf16 kernel takes 5 + C <= {K4_MMA_MAX_PER} "
+        raise ValueError(f"K4's kernels take 5 + C <= {K4_MMA_MAX_PER} "
                          f"channels an anchor (the widest wgmma N), got {per}")
     if n_anchors > MAX_ANCHORS:
         raise ValueError(f"K4 takes at most {MAX_ANCHORS} anchors per head, "
                          f"got {n_anchors}")
-    if (x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3])
+    row = 16 // x.element_size()
+    if (x.stride(3) != 1 or any(s % row for s in x.stride()[:3])
             or x.data_ptr() % 16):
-        raise ValueError(f"K4's bf16 kernel reads channel rows in 16-byte "
+        raise ValueError(f"K4's kernels read channel rows in 16-byte "
                          f"pieces: it needs channel stride 1, batch / row / "
-                         f"pixel strides that are multiples of 8 elements "
-                         f"and a 16-byte aligned x, got strides "
+                         f"pixel strides that are multiples of {row} "
+                         f"elements and a 16-byte aligned x, got strides "
                          f"{tuple(x.stride())}")
 
 
@@ -608,8 +613,8 @@ def decode_packed_fused_head(x: torch.Tensor, w: torch.Tensor,
 
     CUDA tensor: launches the K4 kernel on the current stream (counted in
     ``decode_packed_fused_head.launches``) or raises: the tensor-core kernel
-    for bf16 (:func:`check_fused_mma_input` says what it refuses), the
-    CUDA-core kernel for float32. CPU tensor: the plain version."""
+    of x's type, bf16 or float32 as split TF32 (:func:`check_fused_mma_input`
+    says what they refuse). CPU tensor: the plain version."""
     need = _check_fused(x, w, bias, anchors, num_classes)
     b, gy, gx, cin = x.shape
     a = len(anchors)
@@ -621,24 +626,23 @@ def decode_packed_fused_head(x: torch.Tensor, w: torch.Tensor,
                                                num_classes, prob_thresh,
                                                head_offset))
         return out
-    tiles = FusedTiles(0, 0, 0)  # the float32 kernel's tiles are fixed
-    if x.dtype == torch.bfloat16:
-        check_fused_mma_input(x, num_classes, a)
-        tiles = plan_fused_tiles(b * gy * gx, 5 + num_classes, a, cin,
-                                 sm_count(x.get_device()))
-    elif need > K4_MAX_CHANNELS:
-        raise ValueError(f"K4 takes at most {K4_MAX_CHANNELS} head channels "
-                         f"at float32, got {need}")
+    check_fused_mma_input(x, num_classes, a)
+    tiles = plan_fused_tiles(b * gy * gx, 5 + num_classes, a, cin,
+                             sm_count(x.get_device()), x.element_size())
     w = w[:need].to(x.dtype).contiguous()
     bias = bias[:need].float().contiguous()
     if w.device != x.device or bias.device != x.device:
         raise ValueError("K4 needs x, w and bias on one device")
     _check_kernel_io(x, [out], a, "K4")
+    w_lo = None  # float32: the weights split once, kept on w
+    if x.dtype == torch.float32:
+        w, w_lo = tf32_operands(w)
     lib = load_kernels()
     with torch.cuda.device(x.device):
         rc = lib.yolo_decode_packed_fused_head(
             x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
-            int(x.dtype == torch.bfloat16), w.data_ptr(), bias.data_ptr(),
+            int(x.dtype == torch.bfloat16), w.data_ptr(),
+            None if w_lo is None else w_lo.data_ptr(), bias.data_ptr(),
             b, gy, gx, cin, a, num_classes, _anchors_c(anchors), float(stride),
             float(prob_thresh), head_offset, out.shape[1], *tiles,
             out.data_ptr(), _stream(x.device))

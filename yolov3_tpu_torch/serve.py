@@ -50,10 +50,15 @@ class GracefulThreadingHTTPServer(ThreadingHTTPServer):
     threads (``daemon_threads=False`` + ``block_on_close``) instead of
     abandoning them — the property graceful drain needs: after
     ``shutdown()`` stops the accept loop, ``server_close()`` returns only
-    once every accepted request has been answered."""
+    once every accepted request has been answered.
+
+    The listen backlog is 128, not ``socketserver``'s 5: a burst of more
+    new connections than the backlog holds has its SYNs dropped, and each
+    dropped client waits about a second for the retransmit."""
 
     daemon_threads = False
     block_on_close = True
+    request_queue_size = 128
 
 
 # latency histogram bucket upper bounds in SECONDS (Prometheus `le`

@@ -34,10 +34,12 @@ REPO = Path(__file__).resolve().parents[2]
 
 # the card's published dense peaks (NVIDIA H100 SXM data sheet, at the
 # full 700 W power limit): HBM3 bytes/s, int8 tensor-core ops/s, bf16
-# tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+# tensor-core FLOP/s, TF32 tensor-core FLOP/s (split-TF32 float32 work
+# runs three of them a product), float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 FP32_FLOPS_PER_S = 67e12
 PRECISIONS = ("int8", "bf16")
 

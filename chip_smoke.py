@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases k1,k1c,k2,k3,k4,k5,int8conv,k6,golden,main,int8,
                                     eval,cache,profile,probes,dots,native,entry,
-                                    serve,mesh,tools]
+                                    serve,mesh,tools,bench]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. With no arguments every phase runs, in this order, and
@@ -169,10 +169,19 @@ each raises on failure (the build always runs):
     (the truncation audit, then each K's time); ``tools.bench_stem``;
     ``tools.traffic_model``'s floors beside the profilers' marks; the
     selection microbenches, each variant checked exactly before it is
-    timed; ``tools.probe_quant_error`` (mode ``none`` at mAP 1.0 exactly).
+    timed; ``tools.probe_quant_error`` (mode ``none`` at mAP 1.0 exactly);
+23. bench, the port's benchmark (``yolov3_tpu_torch/bench.py``): its step
+    (``make_step``, yolov3@416 bf16 B=8 ``scan=2``) captured as one CUDA
+    graph equal, step by step, to the eager step bit for bit, K1 and K2
+    launched once a forward by the warm-up and the capture and never by
+    the replays; then ``python -m yolov3_tpu_torch.bench --quick`` and the
+    default matrix (yolov3@608 and @416 B=128 bf16 and int8, K6, tiny@416,
+    yolov3@320, spp@608, K4 at bf16 and int8, latency at B=1 and 8) with
+    its own ``--deadline``, as subprocesses: every row measured, none with
+    ``error``; both last lines are printed before the kernels' record.
 
-Every kernel's launch count is zeroed just before phases 11 to 15, 20 and 22
-(in 20 after the server's own warm-up), in 21 read before and after each
+Every kernel's launch count is zeroed just before phases 11 to 15, 20, 22
+and 23 (in 20 after the server's own warm-up), in 21 read before and after each
 mesh Detector's calls (the single-device references are not counted and
 each kernel of the path must have run), in 19 just before one
 ``detect_mixed`` call and before the pipelined batches, in 16 and 17 before
@@ -213,7 +222,7 @@ BATCH = 8
 SRC_HW = (480, 640)
 PHASES = ("build", "k1", "k1c", "k2", "k3", "k4", "k5", "int8conv", "k6",
           "golden", "main", "int8", "eval", "cache", "profile", "probes",
-          "dots", "native", "entry", "serve", "mesh", "tools")
+          "dots", "native", "entry", "serve", "mesh", "tools", "bench")
 YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights file
 # float lanes of K1 / K1c against their plain versions: both run the same
 # float operations in the same order (no FMA contraction, full-precision
@@ -3866,6 +3875,109 @@ def phase_tools(card: str) -> dict:
     return launches
 
 
+BENCH_DEADLINE = 600   # s, the default matrix's own --deadline
+BENCH_SCAN = 2
+
+
+def bench_rows_ok(line: dict, what: str) -> None:
+    """The bench's last line: no error, every row measured (``img_s`` > 0;
+    the latency row's batches ``img_s_sync`` > 0), none with ``error``."""
+    if "error" in line or not line["value"] > 0:
+        raise AssertionError(f"[bench] {what}: {line}")
+    for key, row in line["rows"].items():
+        rates = ([r["img_s_sync"] for k, r in row.items() if k.startswith("b")]
+                 if key.startswith("latency") else [row.get("img_s", 0)])
+        if "error" in row or not rates or not all(v > 0 for v in rates):
+            raise AssertionError(f"[bench] {what}: row {key!r}: {row}")
+
+
+def phase_bench(card: str) -> dict:
+    """The port's benchmark (``yolov3_tpu_torch/bench.py``). (i) In
+    process at yolov3@416 B=8 bf16 ``scan=2``: ``make_step``'s step eager
+    on three staged inputs, then captured (``capture_step``: its warm-up
+    and capture launch K1 and K2 once a forward, 2 x scan each) and
+    replayed on the same inputs: each step's (sum of scores, survivors)
+    equal to the eager one's bit for bit, and no wrapper launch in the
+    replays. (ii) ``python -m yolov3_tpu_torch.bench --quick``, then the
+    default matrix with ``--deadline`` BENCH_DEADLINE, as subprocesses the
+    way a user runs them: each last line parses, every row measured and
+    none with ``error``; their stderr (each row's peak memory) is echoed.
+    Returns the in-process launches and both lines."""
+    import gc
+
+    import torch
+    from yolov3_tpu_torch import bench
+    from yolov3_tpu_torch.graph import load_graph
+    from yolov3_tpu_torch.tools.clock import event_ms
+
+    t_phase = time.perf_counter()
+    device = torch.device(DEVICE, torch.cuda.current_device())
+    yolo = load_graph(REPO / "models" / "yolov3.cfg")
+    _, params = bench._bench_raw(yolo)
+    step = bench.make_step(yolo, bench.device_params(params, device,
+                                                     torch.bfloat16),
+                           (416, 416), precision="bf16", scan=BENCH_SCAN)
+    shape = (BENCH_SCAN * BATCH, 416, 416, 3)
+    inputs = bench._stage(np.random.default_rng(7), shape, 3, device)
+    with torch.inference_mode():
+        eager = [tuple(t.clone() for t in step(x)) for x in inputs]
+    wrappers = path_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    prog = bench.capture_step(step, shape, device)
+    captured = {n: w.launches for n, w in wrappers.items()}
+    want = {n: 0 for n in wrappers}
+    want.update(decode_packed=2 * BENCH_SCAN, nms_suppress=2 * BENCH_SCAN)
+    if captured != want:
+        raise AssertionError(f"[bench] warm-up + capture launched {captured}, "
+                             f"expected {want}")
+    for i, x in enumerate(inputs):
+        got = bench.call_step(prog, x)
+        if not all(torch.equal(g, e) for g, e in zip(got, eager[i])):
+            raise AssertionError(f"[bench] captured step {i} {got} differs "
+                                 f"from the eager step {eager[i]}")
+    replay = event_ms(prog.graph.replay, iters=10, warmup=1)
+    replays = {n: w.launches - captured[n] for n, w in wrappers.items()}
+    if any(replays.values()):
+        raise AssertionError(f"[bench] the replays launched {replays}")
+    log(f"[bench] make_step yolov3@416 bf16 B={BATCH} scan={BENCH_SCAN}: "
+        f"captured == eager bit for bit on 3 inputs "
+        f"({[(float(s), int(n)) for s, n in eager]}); warm-up + capture "
+        f"{prog.capture_s:.2f} s launching {captured}; replay "
+        f"{replay:.3f} ms ({BENCH_SCAN * BATCH / replay * 1e3:.1f} img/s), "
+        f"0 launches in the replays, on {card}")
+    prog.close()
+    del prog, step, inputs, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lines = {}
+    for name, flags, limit in (
+            ("quick", ["--quick"], 300),
+            ("matrix", ["--deadline", str(BENCH_DEADLINE)],
+             BENCH_DEADLINE + 60)):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "yolov3_tpu_torch.bench",
+                            *flags], cwd=REPO, capture_output=True, text=True,
+                           timeout=limit)
+        for ln in r.stderr.strip().splitlines():
+            log(f"[bench] {name} | {ln}")
+        out = r.stdout.strip().splitlines()
+        if r.returncode != 0 or not out:
+            raise AssertionError(f"[bench] {name}: exit {r.returncode}, "
+                                 f"stdout {r.stdout[-2000:]!r}")
+        line = json.loads(out[-1])
+        bench_rows_ok(line, name)
+        lines[name] = line
+        log(f"[bench] {name} in {time.perf_counter() - t0:.1f} s: "
+            f"{line['metric']} = {line['value']} img/s "
+            f"(vs_baseline {line['vs_baseline']}) on {line['card']}")
+        for key, row in line["rows"].items():
+            log(f"[bench] {name} | {key}: {json.dumps(row)}")
+    log(f"[bench] phase in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": captured, "lines": lines}
+
+
 def probe_records(dots, probes, bound):
     """The kernels-line entries of T1 (one per core), T2 and T3a-e. A dot's
     times are sums over its tool's shape list (one step at each shape); its
@@ -3993,6 +4105,8 @@ def main() -> int:
         res["mesh"] = phase_mesh(card)
     if "tools" in phases:
         res["tools"] = phase_tools(card)
+    if "bench" in phases:
+        res["bench"] = phase_bench(card)
     if set(phases) != set(PHASES):
         log(f"phases run: {phases}; no result printed for a partial run")
         return 0
@@ -4132,9 +4246,12 @@ def main() -> int:
         for phase in ("eval", "cache", "profile", "tools"):
             if res[phase].get(entry["name"]):
                 entry[f"launches_{phase}_path"] = res[phase][entry["name"]]
+        if res["bench"]["launches"].get(entry["name"]):
+            entry["launches_bench_path"] = res["bench"]["launches"][entry["name"]]
         if entry["name"] in res["mesh"]["launches"]:
             entry["launches_mesh_path"] = res["mesh"]["launches"][entry["name"]]
     log(card)
+    log(json.dumps({"bench": res["bench"]["lines"]}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -198,8 +198,9 @@ def test_import_leaves_jax_out():
             "p.__name__ + '.')]\n"
             "for n in names:\n"
             "    importlib.import_module(n)\n"
-            "want = ['__main__', 'serve', 'native', 'ops.cuda_probe', "
-            "'tools.probe_block', 'tools.bench_int8_dot', 'tools.bench_dot', "
+            "want = ['__main__', 'bench', 'serve', 'native', "
+            "'ops.cuda_probe', 'tools.probe_block', 'tools.bench_int8_dot', "
+            "'tools.bench_dot', "
             "'tools.clock', 'tools.eval_coco', 'tools.gen_eval_golden', "
             "'tools.profile_layers', 'tools.profile_int8', "
             "'utils.drawing', 'utils.export', "

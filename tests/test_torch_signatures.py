@@ -77,6 +77,34 @@ def _params(fn):
     return list(inspect.signature(fn).parameters)
 
 
+# the port's bench against the JAX package's (the repository's bench.py):
+# port name -> (reference name, parameters appended after the reference's)
+BENCH = {
+    "device_reachable": ("device_reachable", ("device",)),
+    "_probe_with_retry": ("_probe_with_retry", ()),
+    "measure_gpu": ("measure_tpu", ("device",)),
+    "measure_gpu_int8": ("measure_tpu_int8", ("device",)),
+    "latency_row": ("latency_row", ()),
+    "measure_latency": ("measure_latency", ("device",)),
+    "measure_torch_cpu": ("measure_torch_cpu", ()),
+    "torch_baseline": ("torch_baseline", ()),
+    "main": ("main", ("argv",)),
+    "_fail_row": ("_fail_row", ()),
+    "_run": ("_run", ()),
+    "auto_top_k": ("auto_top_k", ()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BENCH))
+def test_bench_positional_order_matches_the_reference(name):
+    import bench as jbench
+    from yolov3_tpu_torch import bench as tbench
+
+    ref_name, appended = BENCH[name]
+    assert _params(getattr(tbench, name)) == \
+        _params(getattr(jbench, ref_name)) + list(appended)
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_positional_order_matches_the_reference(module):
     port = _functions(importlib.import_module(f"yolov3_tpu_torch.{module}"))

@@ -39,11 +39,14 @@ each raises on failure (the build always runs):
    float32) at the three yolov3@416 B=8 pre-head shapes, float32 and bf16
    operands (bf16 over four seeds), then off the main path at B=1, at 608,
    on tiny, with 20, 150 and 251 classes, on a channel slice, and the
-   inputs it must refuse; per head and over the three, the kernel's, its
-   plain version's and cuDNN 1x1 + K1's device time from replayed CUDA
-   graphs (at float32 with TF32 allowed and off), each kernel's share of
-   its bound (at float32 the split-TF32 floor), and the time at each tile
-   choice at both types;
+   inputs it must refuse; 601 classes (darknet's Open Images head: three
+   256-column pieces an anchor, ties across pieces keeping the first
+   class) at bf16 and float32, timed, and one captured 601-class
+   ``Detector`` call equal to its eager run; per head and over the three,
+   the kernel's, its plain version's and cuDNN 1x1 + K1's device time from
+   replayed CUDA graphs (at float32 with TF32 allowed and off), each
+   kernel's share of its bound (at float32 the split-TF32 floor), and the
+   time at each tile choice at both types;
 7. K5 (fused 3x3 conv: a tensor-core kernel at bf16, split TF32 at
    float32) at every distinct eligible yolov3@416 B=8 layer shape, at
    three ragged shapes, one yolov3@608 layer and an odd Cout, and on
@@ -154,9 +157,13 @@ each raises on failure (the build always runs):
     replica's captured program equal bit for bit to one device's at the
     same B/n sub-batch and captured == eager, both call times beside one
     device's at B=8; ``scan=2`` on the mesh; spatial yolov3@416 B=1
-    "highest" at n = 2 and 4 (head maps within the reference's bars,
-    crossover and FLOP fractions, the collectives of a call, one program
-    captured on the card, its call beside one device's at B=1); tiny@416
+    "highest" and bf16 at n = 2 and 4 (head maps within the reference's
+    bars at "highest", crossover and FLOP fractions, the collectives of a
+    call and the bytes they move between shards and between cards, those
+    copies alone by graph replay, the program ONE graph captured over the
+    mesh's cards and equal to the eager ``_run`` bit for bit, no wrapper
+    launch in its replays, its replay's device time and its call beside
+    one device's at B=1; the peer access of each pair of cards); tiny@416
     spatial detection sets equal to one device's (K1c and K2 inside the
     program); ``parallel.dryrun.dryrun_multichip(2)``;
 22. tools, the parameter checkpoint and the port's measuring tools at full
@@ -200,6 +207,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -254,8 +262,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def card_line(device=None) -> str:
+    """The name and power limit of the card ``device`` (``cuda:0`` by
+    default) is, found by its UUID (``bench.smi_id``: nvidia-smi's own
+    numbering ignores ``CUDA_VISIBLE_DEVICES``)."""
+    import torch
+    from yolov3_tpu_torch.bench import smi_id
+
+    device = torch.device(DEVICE, 0) if device is None else device
+    out = subprocess.run(["nvidia-smi", f"--id={smi_id(device)}",
+                          "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
@@ -918,25 +934,20 @@ def phase_k4(graph):
                       "K4 channel slice")
     max_err = max(max_err, err)
     refused = 0
-    for bad in (wide[..., 4:516], torch.cat([x, x[..., :4]], dim=3)[..., :512]):
+    before = decode_packed_fused_head.launches
+    for bad in (wide[..., 4:516], torch.cat([x, x[..., :4]], dim=3)[..., :512],
+                torch.cat([x, x], dim=3)[..., ::2]):
         try:
             decode_packed_fused_head(bad, w, b, anchors[1], strides[1], ncls)
         except ValueError:
             refused += 1
-    try:
-        decode_packed_fused_head(x, torch.zeros(3 * 257, 512, device=DEVICE,
-                                                dtype=torch.bfloat16),
-                                 torch.zeros(3 * 257, device=DEVICE),
-                                 anchors[1], strides[1], 252)
-    except ValueError:
-        refused += 1
     torch.cuda.synchronize()
-    if refused != 3:
+    if refused != 3 or decode_packed_fused_head.launches != before:
         raise AssertionError(f"K4 took {3 - refused} of three inputs it must "
                              f"refuse")
     log(f"[K4] a channel slice (pixel stride 512, base 256 bytes in) within "
         f"bars, max |err| {err!r}; refused a base 8 bytes in, a pixel stride "
-        f"of 260 and 5 + C = 257, with no launch")
+        f"of 260 and a channel stride of 2, with no launch")
     # the tile plan on the card: both heights, and one or two resident
     # blocks where a head's K allows two (bf16 only), at each main-path head
     # and at the 13x13 head at one image, at both types, held to the bars
@@ -972,7 +983,126 @@ def phase_k4(graph):
             f"by (tile rows, resident blocks): " + ", ".join(
                 f"{k} {v:.2f} us" for k, v in tile_us.items())
             + f"; plan_fused_tiles takes {tuple(chosen)}")
+    # last, so that the cases above draw the same operands as before
+    times["open_images"] = k4_open_images(graph, rng)
+    max_err = max(max_err, times["open_images"].pop("max_abs_err"))
     return max_err, times
+
+
+OPEN_IMAGES = 601  # classes of darknet's yolov3-openimages.cfg
+
+
+def open_images_graph(graph):
+    """``graph`` with 601 classes at every head (darknet's
+    yolov3-openimages.cfg: head convs of 3 x 606 filters), made with
+    ``dataclasses.replace``."""
+    import dataclasses
+
+    nodes = list(graph.nodes)
+    for yn in graph.yolo_nodes:
+        cout = len(yn.anchors) * (5 + OPEN_IMAGES)
+        hc = nodes[yn.inputs[0]]
+        nodes[hc.index] = dataclasses.replace(hc, filters=cout,
+                                              out_channels=cout)
+        nodes[yn.index] = dataclasses.replace(yn, classes=OPEN_IMAGES,
+                                              out_channels=cout)
+    return dataclasses.replace(graph, nodes=tuple(nodes))
+
+
+def k4_open_images(graph, rng) -> dict:
+    """K4 on a 601-class yolov3@416 B=8 (5 + C = 606 columns an anchor: the
+    kernel's three pieces of 256) at bf16 and float32 against its plain
+    version within K4's bars, with anchor 1 of every head given three equal
+    top logits in three pieces (classes 100, 400 and 600: zero weights and
+    the same bias, exact in any order): its class must be 100, the first.
+    Timed by graph replay over the three heads beside the plain version and
+    the bound; then one captured bf16 Detector call on the graph (route
+    "pallas-fused": K4 in its program) equal to the eager ``_run``."""
+    import torch
+    from yolov3_tpu_torch import Darknet, Detector
+    from yolov3_tpu_torch.ops.cuda_decode import (
+        decode_packed_fused, decode_packed_fused_head,
+        decode_packed_fused_head_reference)
+    from yolov3_tpu_torch.weights import fold_raw, random_raw
+
+    oi = open_images_graph(graph)
+    anchors, strides, ncls = head_spec(oi)
+    per = 5 + ncls
+    out = {"max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        heads = k4_heads(oi, 416, BATCH, rng, dtype=dtype)
+        for _, w, b in heads:
+            for k in (100, 400, 600):
+                w[per + 5 + k] = 0
+                b[per + 5 + k] = 8.0
+        err, near = k4_check(heads, anchors, strides, ncls,
+                             f"K4 {OPEN_IMAGES} classes {name}")
+        xs, ws, bs = zip(*heads)
+        got, _ = decode_packed_fused(xs, ws, bs, anchors, strides, ncls, 0.2)
+        off = 0
+        for x, a in zip(xs, anchors):
+            cells = x.shape[1] * x.shape[2]
+            tied = got[:, off + cells:off + 2 * cells, 5]
+            if not bool((tied == 100).all()):
+                raise AssertionError(f"K4 {OPEN_IMAGES} classes {name}: a tie "
+                                     f"across pieces did not keep the first "
+                                     f"class")
+            off += len(a) * cells
+        ms = graph_ms(lambda: decode_packed_fused(xs, ws, bs, anchors,
+                                                  strides, ncls, 0.2))
+        offs = np.cumsum([0] + [len(a) * x.shape[1] * x.shape[2]
+                                for x, a in zip(xs, anchors)])
+        plain_ms = graph_ms(lambda: [decode_packed_fused_head_reference(
+            x, w, b, a, s, ncls, 0.2, int(o)) for (x, w, b), a, s, o in zip(
+                heads, anchors, strides, offs)], iters=5, warmup=1)
+        bounds = [k4_bound(x, w.shape[0], len(a))
+                  for (x, w, _), a in zip(heads, anchors)]
+        bound_ms = sum(bd[2] for bd in bounds)
+        flop = sum(bd[0] for bd in bounds)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "max_abs_err": err}
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        log(f"[K4] yolov3@416 B={BATCH} with {OPEN_IMAGES} classes ({per} "
+            f"columns an anchor, pieces of 256) {name}: within bars, max "
+            f"|err| {err!r} ({near} cell-anchors inside the class margin), "
+            f"the ties across pieces keep class 100; all three heads kernel "
+            f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} "
+            f"of its bound {bound_ms:.4f} ms), plain {plain_ms:.4f} ms "
+            f"(graph replays)")
+    net = Darknet(REPO / "models" / "yolov3.cfg", precision="bf16",
+                  device=DEVICE)
+    net.graph = oi
+    net.set_params(fold_raw(random_raw(oi, seed=0)))
+    det = Detector(net, decode_impl="pallas-fused")
+    if det.route != "pallas-fused":
+        raise AssertionError(f"the {OPEN_IMAGES}-class graph took route "
+                             f"{det.route}")
+    frames = np.random.default_rng(3).integers(0, 256, (BATCH, *SRC_HW, 3),
+                                               dtype=np.uint8)
+    k4 = decode_packed_fused_head.launches
+    det.detect_batch(frames)
+    if decode_packed_fused_head.launches - k4 != 2 * len(oi.yolo_nodes):
+        raise AssertionError("the warm-up and capture did not launch K4 once "
+                             "a head each")
+    k4 = decode_packed_fused_head.launches
+    res, host, dev = timed_calls(lambda: det.detect_batch(frames), 10)
+    if decode_packed_fused_head.launches != k4:
+        raise AssertionError("a steady call launched K4 outside its replay")
+    eager = det._run(det._stage(frames)).cpu()
+    if not torch.equal(eager, det._detect(frames, SRC_HW, None)[0]):
+        raise AssertionError(f"{OPEN_IMAGES} classes: captured != eager")
+    out["detector"] = {"host_ms": float(np.median(host)),
+                       "event_ms": float(np.median(dev)),
+                       "detections": [len(r.class_idx) for r in res]}
+    log(f"[K4] a {OPEN_IMAGES}-class yolov3@416 bf16 Detector, route "
+        f"pallas-fused, B={BATCH}: captured == eager bit for bit; per call "
+        f"median over 10 {out['detector']['host_ms']:.3f} ms host clock / "
+        f"{out['detector']['event_ms']:.3f} ms CUDA events; detections "
+        f"{out['detector']['detections']}")
+    del det, net
+    torch.cuda.empty_cache()
+    return out
 
 
 def k5_shapes(graph):
@@ -3528,22 +3658,17 @@ def mesh_batch_dp(net, name: str, devices, frames, kw, counts, card: str,
 def phase_mesh(card: str) -> dict:
     """``parallel/`` at full width on the card: batch-DP yolov3@416 B=8
     (bf16 + K1, bf16 + K4 + K5, int8 K6 + K1, and ``scan=2``), spatial
-    yolov3@416 B=1 "highest" at n = 2 and 4 (head maps within the
-    reference's bars, crossover and FLOP fractions, collectives a call, the
-    call against one device at B=1), tiny@416 spatial detection sets against
-    one device, and the dry run. Returns the launches of K1, K1c, K2, K4, K5
-    and K6 in the phase's mesh Detectors' calls (counts zeroed before each
-    drive and read after; the single-device references are not counted)."""
+    yolov3@416 B=1 at "highest" and bf16 at n = 2 and 4
+    (:func:`mesh_spatial`: one graph over the cards), tiny@416 spatial
+    detection sets against one device, and the dry run. Returns the
+    launches of K1, K1c, K2, K4, K5 and K6 in the phase's mesh Detectors'
+    calls (counts read before and after each drive; the single-device
+    references are not counted)."""
     import torch
     from yolov3_tpu_torch import Detector
-    from yolov3_tpu_torch.model import forward_features
     from yolov3_tpu_torch.ops import cuda_decode
-    from yolov3_tpu_torch.ops.preprocess import preprocess
-    from yolov3_tpu_torch.parallel import (collectives, make_mesh,
-                                           make_spatial_mesh, plan_spatial)
+    from yolov3_tpu_torch.parallel import make_mesh, make_spatial_mesh
     from yolov3_tpu_torch.parallel.dryrun import dryrun_multichip
-    from yolov3_tpu_torch.parallel.sharding import shard_params
-    from yolov3_tpu_torch.parallel.spatial import forward_features_spatial
 
     devices, which = card_mesh_devices()
     n = len(devices)
@@ -3586,83 +3711,22 @@ def phase_mesh(card: str) -> dict:
     del det, one, net, q
     torch.cuda.empty_cache()
 
-    # spatial, yolov3@416 B=1 "highest": head maps, then the Detector
-    net = entry_net("highest")
-    frame = frames[:1]
-    x = preprocess(torch.from_numpy(frame).to(DEVICE).flip(-1), (416, 416))
-    with torch.inference_mode():
-        full = forward_features(net.graph, net.params, x, precision="highest")
+    # spatial, yolov3@416 B=1 at "highest" and bf16: head maps, then the
+    # Detector's program over the mesh's cards
+    cards = torch.cuda.device_count()
+    for i, j in [(i, j) for i in range(cards) for j in range(cards) if i != j]:
+        log(f"[mesh] peer access cuda:{i} -> cuda:{j}: "
+            f"{torch.cuda.can_device_access_peer(i, j)}")
     spatial = {}
-    for ns in (2, 4):
-        sdev = devices if n >= ns else [torch.device(DEVICE, 0)] * ns
-        plan = plan_spatial(net.graph, ns, (416, 416))
-        mesh = make_spatial_mesh(ns, devices=sdev[:ns])
-        h = 416 // ns
-        with torch.inference_mode():
-            heads = forward_features_spatial(
-                net.graph, shard_params(net.params, mesh),
-                [x[:, i * h:(i + 1) * h].to(d)
-                 for i, d in enumerate(mesh.devices)], n_shards=ns,
-                crossover=plan.crossover, precision="highest",
-                channel_roles=dict(plan.roles))
-        err = 0.0
-        for hd, f in zip(heads, full):
-            d = (hd.float().to(f.device) - f.float()).abs()
-            err = max(err, float(d.max()))
-            if not bool((d <= 2e-4 + 1e-4 * f.float().abs()).all()):
-                raise AssertionError(f"[mesh] spatial n={ns}: head maps off "
-                                     f"the bar (max |diff| {err})")
-        n_rows = sum(1 for _, role in plan.roles if role == "row")
-        det = Detector(net, mesh=mesh, partition="spatial")
-        collectives.reset_counts()
-        eager = det._run(det._stage(frame)).cpu()
-        coll = dict(collectives.counts)
-        if (coll.get("psum", 0) != n_rows
-                or not 1 <= coll.get("all_gather", 0) <= 6):
-            raise AssertionError(f"[mesh] spatial n={ns}: collectives {coll}, "
-                                 f"{n_rows} row convs planned")
-        one = Detector(net)
-        want = one.detect_batch(frame)
-        _, one_host, one_dev = timed_calls(lambda: one.detect_batch(frame), 10)
-        before = {k: w.launches for k, w in path_wrappers().items()}
-        k1c = cuda_decode.decode_compact.launches
-        got = det.detect_batch(frame)
-        for k, w in path_wrappers().items():
-            counts[k] += w.launches - before[k]
-        counts["decode_compact"] += cuda_decode.decode_compact.launches - k1c
-        captured = len(set(mesh.devices)) == 1
-        if not torch.equal(eager, det._detect(frame, SRC_HW, None)[0]):
-            raise AssertionError(f"[mesh] spatial n={ns}: program != eager")
-        _, host, dev = timed_calls(lambda: det.detect_batch(frame), 10)
-        # random weights at yolov3's depth move borderline candidates (the
-        # bf16 bar is gated on tiny for the same reason): logged, not gated
-        box = [len(got[0].class_idx), len(want[0].class_idx)]
-        spatial[ns] = {"crossover": plan.crossover,
-                       "row_frac": plan.sharded_flop_frac,
-                       "total_frac": plan.total_sharded_flop_frac,
-                       "head_err": err, "collectives": coll,
-                       "host_ms": float(np.median(host)),
-                       "event_ms": float(np.median(dev)),
-                       "one_host_ms": float(np.median(one_host)),
-                       "one_event_ms": float(np.median(one_dev)),
-                       "detections": box}
-        log(f"[mesh] spatial yolov3@416 B=1 \"highest\" n={ns} on "
-            f"{[str(d) for d in mesh.devices]}: crossover node "
-            f"{plan.crossover}, sharded FLOP fraction row-only "
-            f"{plan.sharded_flop_frac:.3f}, with the channel tail "
-            f"{plan.total_sharded_flop_frac:.3f}; head maps against the full "
-            f"walk max |diff| {err:.3e} (bar atol 2e-4, rtol 1e-4); "
-            f"collectives a call {coll} ({n_rows} row convs); detections "
-            f"{box[0]} against one device's {box[1]}; the program "
-            f"({'one captured graph' if captured else 'eager over the cards'}) "
-            f"== eager; per "
-            f"call median over 10: spatial {spatial[ns]['host_ms']:.3f} ms "
-            f"host clock / {spatial[ns]['event_ms']:.3f} ms CUDA events "
-            f"against one device at B=1 {spatial[ns]['one_host_ms']:.3f} / "
-            f"{spatial[ns]['one_event_ms']:.3f} ms (on {card})")
-        del det, one
-    del net
-    torch.cuda.empty_cache()
+    for precision in ("highest", "bf16"):
+        net = entry_net(precision)
+        for ns in (2, 4):
+            sdev = devices if n >= ns else [torch.device(DEVICE, 0)] * ns
+            spatial[f"{precision} n={ns}"] = mesh_spatial(
+                net, precision, make_spatial_mesh(ns, devices=sdev[:ns]),
+                frames[:1], counts, card)
+        del net
+        torch.cuda.empty_cache()
     # tiny@416: spatial detection sets against one device
     tiny = entry_net("highest", "yolov3-tiny.cfg", seed=42)
     one = Detector(tiny, prob_thresh=0.3)
@@ -3690,6 +3754,155 @@ def phase_mesh(card: str) -> dict:
             raise AssertionError(f"[mesh] the mesh path launched {k} no time")
     log(f"[mesh] kernel launches of the phase's mesh Detectors: {dict(counts)}")
     return {"launches": dict(counts), "batch_dp": rows, "spatial": spatial}
+
+
+def copies_ms(copies, devices) -> float:
+    """Device ms of one call's copies between devices alone
+    (``collectives.copies`` of one call: the same shapes, sources and
+    destinations, as many of each), captured as one graph over ``devices``
+    as a spatial program is, by replay."""
+    import torch
+    from yolov3_tpu_torch.inference import _CapturedProgram
+
+    srcs = {(src, shape, dtype): torch.ones(shape, device=src, dtype=dtype)
+            for (_, src, _, shape, dtype) in copies}
+
+    def run(frames):
+        for (_, src, dst, shape, dtype), k in copies.items():
+            for _ in range(k):
+                srcs[src, shape, dtype].to(dst)
+        return frames
+
+    prog = _CapturedProgram((1, (1, 1)), "copies", run, (), *devices)
+    prog.capture()
+    try:
+        return replay_ms(prog, iters=20)
+    finally:
+        prog.close()
+
+
+def mesh_spatial(net, precision: str, mesh, frame: np.ndarray, counts,
+                 card: str) -> dict:
+    """Spatial yolov3@416 B=1 on ``mesh`` at ``precision``: the banded
+    walk's head maps against the full walk's (within the reference's bars
+    at "highest", logged at bf16); the collectives of one eager call (their
+    count, the bytes they hand between shards and those that cross between
+    cards, and those copies alone by graph replay); then the Detector: its
+    program ONE captured graph over the mesh's distinct cards, equal to
+    the eager ``_run`` bit for bit, K1c and K2 launched in its warm-up and
+    capture (added to ``counts``) and never in a steady call, each steady
+    call one replay; the replay's device time and both call times beside
+    one device's at B=1."""
+    import torch
+    from yolov3_tpu_torch import Detector
+    from yolov3_tpu_torch.inference import _CapturedProgram
+    from yolov3_tpu_torch.model import forward_features
+    from yolov3_tpu_torch.ops import cuda_decode
+    from yolov3_tpu_torch.ops.preprocess import preprocess
+    from yolov3_tpu_torch.parallel import collectives, plan_spatial
+    from yolov3_tpu_torch.parallel.sharding import shard_params
+    from yolov3_tpu_torch.parallel.spatial import forward_features_spatial
+
+    ns = mesh.size
+    cards = tuple(dict.fromkeys(mesh.devices))
+    what = f"[mesh] spatial n={ns} {precision}"
+    x = preprocess(torch.from_numpy(frame).to(DEVICE).flip(-1), (416, 416))
+    plan = plan_spatial(net.graph, ns, (416, 416))
+    h = 416 // ns
+    with torch.inference_mode():
+        full = forward_features(net.graph, net.params, x, precision=precision)
+        heads = forward_features_spatial(
+            net.graph, shard_params(net.params, mesh),
+            [x[:, i * h:(i + 1) * h].to(d) for i, d in enumerate(mesh.devices)],
+            n_shards=ns, crossover=plan.crossover, precision=precision,
+            channel_roles=dict(plan.roles))
+    err = 0.0
+    for hd, f in zip(heads, full):
+        d = (hd.float().to(f.device) - f.float()).abs()
+        err = max(err, float(d.max()))
+        if precision == "highest" and not bool(
+                (d <= 2e-4 + 1e-4 * f.float().abs()).all()):
+            raise AssertionError(f"{what}: head maps off the bar (max |diff| "
+                                 f"{err})")
+    n_rows = sum(1 for _, role in plan.roles if role == "row")
+    det = Detector(net, mesh=mesh, partition="spatial")
+    collectives.reset_counts()
+    eager = det._run(det._stage(frame)).cpu()
+    coll = dict(collectives.counts)
+    moved = dict(collectives.shard_bytes)
+    crossed = dict(collectives.device_bytes)
+    copies = dict(collectives.copies)
+    if (coll.get("psum", 0) != n_rows
+            or not 1 <= coll.get("all_gather", 0) <= 6):
+        raise AssertionError(f"{what}: collectives {coll}, {n_rows} row convs "
+                             f"planned")
+    if len(cards) == ns and crossed != moved:
+        raise AssertionError(f"{what}: {crossed} bytes crossed between cards, "
+                             f"{moved} handed between shards")
+    cross_ms = copies_ms(copies, cards) if copies else 0.0
+    one = Detector(net)
+    want = one.detect_batch(frame)
+    _, one_host, one_dev = timed_calls(lambda: one.detect_batch(frame), 10)
+    wrappers = dict(path_wrappers(), decode_compact=cuda_decode.decode_compact)
+    before = {k: w.launches for k, w in wrappers.items()}
+    got = det.detect_batch(frame)
+    warm = {k: w.launches - before[k] for k, w in wrappers.items()}
+    prog = det._pipeline(1, SRC_HW)
+    if not isinstance(prog, _CapturedProgram) or prog.devices != cards:
+        raise AssertionError(f"{what}: the program is not one graph over "
+                             f"{cards}")
+    if warm["decode_compact"] != 2 or warm["nms_suppress"] != 2:
+        raise AssertionError(f"{what}: the warm-up and capture launched "
+                             f"{warm}: K1c and K2 twice expected")
+    for k, v in warm.items():
+        counts[k] += v
+    replays = prog.replays
+    before = {k: w.launches for k, w in wrappers.items()}
+    _, host, dev = timed_calls(lambda: det.detect_batch(frame), 10)
+    steady = {k: w.launches - before[k] for k, w in wrappers.items()}
+    if any(steady.values()) or prog.replays - replays != 10:
+        raise AssertionError(f"{what}: steady calls launched {steady} outside "
+                             f"the replay, or a call did not replay once")
+    packed = det._detect(frame, SRC_HW, None)[0]
+    if not torch.equal(eager, packed):
+        raise AssertionError(f"{what}: the captured program != eager _run")
+    replay = replay_ms(prog)
+    # random weights at yolov3's depth move borderline candidates (the bf16
+    # bar is gated on tiny for the same reason): logged, not gated
+    box = [len(got[0].class_idx), len(want[0].class_idx)]
+    row = {"precision": precision, "devices": [str(d) for d in mesh.devices],
+           "crossover": plan.crossover, "row_frac": plan.sharded_flop_frac,
+           "total_frac": plan.total_sharded_flop_frac, "head_err": err,
+           "collectives": coll, "shard_bytes": moved, "card_bytes": crossed,
+           "cross_ms": cross_ms, "replay_ms": replay,
+           "host_ms": float(np.median(host)),
+           "event_ms": float(np.median(dev)),
+           "one_host_ms": float(np.median(one_host)),
+           "one_event_ms": float(np.median(one_dev)),
+           "program_mib": {str(d): prog.bytes_on(d) / 2 ** 20 for d in cards},
+           "capture_s": prog.capture_s, "detections": box,
+           "design": (f"one multi-device capture over {len(cards)} cards"
+                      if len(cards) > 1 else "one capture on one card")}
+    log(f"{what} yolov3@416 B=1 on {row['devices']}: crossover node "
+        f"{plan.crossover}, sharded FLOP fraction row-only "
+        f"{plan.sharded_flop_frac:.3f}, with the channel tail "
+        f"{plan.total_sharded_flop_frac:.3f}; head maps against the full "
+        f"walk max |diff| {err:.3e}"
+        + (" (bar atol 2e-4, rtol 1e-4)" if precision == "highest" else
+           " (logged)")
+        + f"; collectives a call {coll} ({n_rows} row convs), bytes handed "
+        f"between shards {moved} ({sum(moved.values())}), across cards "
+        f"{crossed} ({sum(crossed.values())}), those copies alone "
+        f"{cross_ms:.4f} ms by graph replay; the program: {row['design']} "
+        f"({row['program_mib']} MiB, warm-up + capture {prog.capture_s:.2f} "
+        f"s), == eager _run bit for bit, K1c and K2 inside it (no launch in "
+        f"10 steady calls), replay {replay:.3f} ms device time; per call "
+        f"median over 10: spatial {row['host_ms']:.3f} ms host clock / "
+        f"{row['event_ms']:.3f} ms CUDA events against one device at B=1 "
+        f"{row['one_host_ms']:.3f} / {row['one_event_ms']:.3f} ms; "
+        f"detections {box[0]} against one device's {box[1]} (on {card})")
+    del det, one
+    return row
 
 
 def phase_tools(card: str) -> dict:
@@ -4054,7 +4267,12 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False; this check "
               "needs a CUDA device", file=sys.stderr)
         return 1
+    from yolov3_tpu_torch.bench import smi_id
+
     card = card_line()
+    log(f"card: {smi_id(torch.device(DEVICE, 0))} (torch's uuid "
+        f"{torch.cuda.get_device_properties(0).uuid!s}, "
+        f"CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')})")
     log(card)
     phase_build()
     from yolov3_tpu_torch.graph import load_graph
@@ -4204,7 +4422,16 @@ def main() -> int:
          "bound_ms_float32": k4[f32][4],
          "library_ms_float32_tf32": k4[f32][2],
          "library_ms_float32_tf32_off": k4[f32][3],
-         "ms_eager_float32": k4[f32][5]},
+         "ms_eager_float32": k4[f32][5],
+         # 601 classes (three 256-column pieces an anchor), the three heads
+         "ms_601_classes": k4["open_images"]["bfloat16"]["ms"],
+         "plain_ms_601_classes": k4["open_images"]["bfloat16"]["plain_ms"],
+         "bound_ms_601_classes": k4["open_images"]["bfloat16"]["bound_ms"],
+         "ms_601_classes_float32": k4["open_images"]["float32"]["ms"],
+         "plain_ms_601_classes_float32":
+             k4["open_images"]["float32"]["plain_ms"],
+         "bound_ms_601_classes_float32":
+             k4["open_images"]["float32"]["bound_ms"]},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/conv3x3.cu",
          "headers": ["yolov3_tpu_torch/csrc/conv3x3_mma.cuh",

@@ -18,6 +18,7 @@ from yolov3_tpu_torch import Darknet, Detector, inference as one_shot
 from yolov3_tpu_torch import native as tnative
 from yolov3_tpu_torch.weights import (fold_raw, load_weights_cached,
                                       random_raw, write_weights)
+from tests.test_torch_jax_loader import private_jax_loader
 
 torch.set_num_threads(1)
 # the package exports the function ``inference``, which hides the module
@@ -60,25 +61,27 @@ def frames():
 
 
 @pytest.fixture(scope="module")
-def jax_results(params, frames):
+def jax_results(params, frames, tmp_path_factory):
     """The JAX Detector's answers, computed once: detect_mixed through the
-    C++ loader, detect_mixed through the per-shape groups, and detect_batch
-    on four same-shape frames."""
+    C++ loader (built privately: ``private_jax_loader``), detect_mixed
+    through the per-shape groups, and detect_batch on four same-shape
+    frames."""
     jdet = JDetector(JDarknet(SMALL_CFG, precision="highest").set_params(params), **KW)
-    assert jnative.available()
-    out = {"mixed": jdet.detect_mixed(frames),
-           "stage_keys_mixed": set(jdet.last_stage_s)}
-    same = np.stack([frames[0], frames[2], frames[0][::-1].copy(),
-                     frames[2][:, ::-1].copy()])
-    out["batch"] = jdet.detect_batch(same)
-    out["stage_keys_batch"] = set(jdet.last_stage_s)
-    out["same"] = same
-    real = jnative.available
-    jnative.available = lambda: False
-    try:
-        out["grouped"] = jdet.detect_mixed(frames)
-    finally:
-        jnative.available = real
+    with private_jax_loader(tmp_path_factory.mktemp("jax_loader")):
+        assert jnative.available()
+        out = {"mixed": jdet.detect_mixed(frames),
+               "stage_keys_mixed": set(jdet.last_stage_s)}
+        same = np.stack([frames[0], frames[2], frames[0][::-1].copy(),
+                         frames[2][:, ::-1].copy()])
+        out["batch"] = jdet.detect_batch(same)
+        out["stage_keys_batch"] = set(jdet.last_stage_s)
+        out["same"] = same
+        real = jnative.available
+        jnative.available = lambda: False
+        try:
+            out["grouped"] = jdet.detect_mixed(frames)
+        finally:
+            jnative.available = real
     assert sum(len(d.class_idx) for d in out["mixed"]) > 0
     return out
 

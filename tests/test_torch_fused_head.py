@@ -191,13 +191,13 @@ def test_k4_tile_plan(size, bsz, want):
 
 @pytest.mark.parametrize("classes,n_tile", [
     (80, 96), (20, 32), (1, 32), (27, 32), (28, 64), (123, 128), (124, 192),
-    (187, 192), (188, 256), (251, 256)])
+    (187, 192), (188, 256), (251, 256), (252, 256), (601, 256)])
 def test_k4_tile_columns(classes, n_tile):
     """5 + C rounded up to a multiple of 32 (one warpgroup's N, at most
     128), above 128 to a multiple of 64 (two warpgroups, 64-row tiles, one
-    resident block)."""
+    resident block), at most 256 (above it the kernel runs pieces)."""
     t = cuda_decode.plan_fused_tiles(21632, 5 + classes, 3, 256, 132)
-    assert t.n_tile == n_tile >= 5 + classes
+    assert t.n_tile == n_tile >= min(5 + classes, 256)
     if n_tile > 128:
         assert (t.block_m, t.resident) == (64, 1)
     else:  # two blocks' two-step rings fit 228 KB up to 128 + 96 rows
@@ -220,29 +220,113 @@ def test_k4_check_float32_rows_on_16_bytes():
     """The float32 kernel reads channel rows in 16-byte pieces too: strides
     that are multiples of 4 elements and a 16-byte aligned base pass (a
     pixel stride of 260 floats is 1,040 bytes), a base 8 bytes in or a
-    pixel stride of 258 is refused; 5 + C above 256 is refused at float32
-    as at bf16."""
+    pixel stride of 258 is refused; 5 + C above 256 passes at float32 as
+    at bf16 (the kernel runs it in pieces), rows off 16 bytes are refused
+    at any class count."""
     wide = torch.zeros(2, 4, 4, 512)
     cuda_decode.check_fused_mma_input(wide[..., 128:384], 80, 3)
     cuda_decode.check_fused_mma_input(torch.zeros(2, 4, 4, 260)[..., :256],
                                       80, 3)
     for bad in (wide[..., 2:258], torch.zeros(2, 4, 4, 258)[..., :256],
                 wide[..., ::2]):
-        with pytest.raises(ValueError, match="16-byte pieces"):
-            cuda_decode.check_fused_mma_input(bad, 80, 3)
-    with pytest.raises(ValueError, match="widest wgmma N"):
-        cuda_decode.check_fused_mma_input(wide, 252, 3)
+        for classes in (80, 601):
+            with pytest.raises(ValueError, match="16-byte pieces"):
+                cuda_decode.check_fused_mma_input(bad, classes, 3)
+    cuda_decode.check_fused_mma_input(wide, 252, 3)
+    cuda_decode.check_fused_mma_input(wide, 601, 3)
 
 
 def test_k4_plan_and_check_refuse_wide_anchors():
-    with pytest.raises(ValueError, match="5 \\+ C <= 256"):
-        cuda_decode.plan_fused_tiles(1352, 257, 3, 1024, 132)
+    """Any class count passes, as the route gate's does: 5 + C = 257 plans
+    a 256-column tile of 64 rows (two pieces), 251, 252 and 601 classes
+    pass the check; more than 64 anchors is still refused."""
+    t = cuda_decode.plan_fused_tiles(1352, 257, 3, 1024, 132)
+    assert (t.block_m, t.n_tile, t.resident) == (64, 256, 1)
     x = torch.zeros(1, 4, 4, 128, dtype=torch.bfloat16)
-    cuda_decode.check_fused_mma_input(x, 251, 3)
-    with pytest.raises(ValueError, match="widest wgmma N"):
-        cuda_decode.check_fused_mma_input(x, 252, 3)
+    for classes in (251, 252, 601):
+        cuda_decode.check_fused_mma_input(x, classes, 3)
+    for classes in (80, 601):
+        with pytest.raises(ValueError, match="at most 64 anchors"):
+            cuda_decode.check_fused_mma_input(x, classes, 65)
+
+
+@pytest.mark.parametrize("elem_size", [2, 4])
+@pytest.mark.parametrize("per,cin", [(257, 1024), (606, 128), (606, 256),
+                                     (606, 1024), (1005, 512)])
+def test_k4_plans_any_class_count_in_pieces(per, cin, elem_size):
+    """Above 256 columns an anchor the plan takes the widest tile, 256
+    columns of 64 rows and one resident block, at both operand types; the
+    kernel runs ceil((5 + C) / 256) pieces of it. The check takes the 606
+    columns of Open Images' 601 classes at both types and refuses more
+    than 64 anchors."""
+    for m in (16, 1352, 21632):
+        t = cuda_decode.plan_fused_tiles(m, per, 3, cin, 132, elem_size)
+        assert (t.block_m, t.n_tile, t.resident) == (64, 256, 1)
+    dtype = torch.bfloat16 if elem_size == 2 else torch.float32
+    x = torch.zeros(2, 4, 4, cin, dtype=dtype)
+    cuda_decode.check_fused_mma_input(x, per - 5, 3)
     with pytest.raises(ValueError, match="at most 64 anchors"):
-        cuda_decode.check_fused_mma_input(x, 80, 65)
+        cuda_decode.check_fused_mma_input(x, per - 5, 65)
+    with pytest.raises(ValueError, match="16-byte pieces"):
+        cuda_decode.check_fused_mma_input(
+            torch.zeros(2, 4, 4, cin + 8, dtype=dtype)[..., 2:cin + 2],
+            per - 5, 3)
+
+
+OPEN_IMAGES = 601  # darknet's yolov3-openimages.cfg
+
+
+def _open_images_head(rng, cin, tie_anchor=1, ties=(100, 400, 600)):
+    """A 601-class head's weights (Cout, Cin) and bias, random but for one
+    anchor whose classes ``ties`` have zero weights and the same large bias:
+    their logits equal it exactly in any summation order, and every cell
+    of that anchor has a tie for its max across the kernel's 256-column
+    pieces (columns 105, 405, 605)."""
+    per = 5 + OPEN_IMAGES
+    w = rng.normal(0, 1 / np.sqrt(cin), (3 * per, cin)).astype(np.float32)
+    bias = rng.normal(0, 0.1, 3 * per).astype(np.float32)
+    for k in ties:
+        w[tie_anchor * per + 5 + k] = 0.0
+        bias[tie_anchor * per + 5 + k] = 8.0
+    return w, bias
+
+
+def test_k4_plain_matches_pallas_open_images():
+    """K4's plain version on a 601-class head (5 + C = 606 columns an
+    anchor) against the JAX kernel in interpret mode, Cin 128, a 4x4 map,
+    B=2, with the bars of ``test_k4_plain_matches_pallas``; the class lane
+    equal wherever the top two logits are further apart than 1e-4, and on
+    the tied anchor the first of the tied classes."""
+    rng = np.random.default_rng(601)
+    cin, g, per = 128, 4, 5 + OPEN_IMAGES
+    x = rng.normal(0, 1, (2, g, g, cin)).astype(np.float32)
+    w, bias = _open_images_head(rng, cin)
+    c_pad = -(-3 * per // 128) * 128
+    w_pad = np.zeros((cin, c_pad), np.float32)
+    w_pad[:, :3 * per] = w.T
+    b_pad = np.zeros(c_pad, np.float32)
+    b_pad[:3 * per] = bias
+    want_p, want_s = decode_packed_head_fused_pallas(
+        jnp.asarray(x), jnp.asarray(w_pad), jnp.asarray(b_pad), ANCHORS, 32,
+        OPEN_IMAGES, prob_thresh=0.2, head_offset=5, precision="highest")
+    got = cuda_decode.decode_packed_fused_head(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+        ANCHORS, 32, OPEN_IMAGES, prob_thresh=0.2, head_offset=5)[:, 5:].numpy()
+    want = np.asarray(want_p)
+    assert got.shape == want.shape == (2, 3 * g * g, 8)
+    np.testing.assert_array_equal(np.asarray(want_s), want[..., 4])
+    _assert_records_close(got, want)
+    # the class lane where the top two logits stand apart
+    logits = (x.reshape(-1, cin).astype(np.float64) @ w.T.astype(np.float64)
+              + bias).reshape(2, g * g, 3, per)[..., 5:]
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    apart = (top2[..., 1] - top2[..., 0] > 1e-4).transpose(0, 2, 1).reshape(
+        2, 3 * g * g)
+    assert apart.sum() >= 2 * 2 * g * g  # the two untied anchors
+    np.testing.assert_array_equal(got[..., 5][apart], want[..., 5][apart])
+    tied = slice(g * g, 2 * g * g)  # anchor 1's records
+    np.testing.assert_array_equal(got[:, tied, 5], 100.0)
+    np.testing.assert_array_equal(want[:, tied, 5], 100.0)
 
 
 def test_k4_check_refuses_rows_off_16_bytes():

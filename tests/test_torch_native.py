@@ -14,11 +14,20 @@ from yolov3_tpu import native as jnative
 from yolov3_tpu_torch import native as tnative
 from yolov3_tpu_torch.ops.preprocess import PAD_FLOAT, preprocess
 from yolov3_tpu_torch.utils.boxes import letterbox_geometry
+from tests.test_torch_jax_loader import private_jax_loader
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 NET_HW = (96, 128)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_loader(tmp_path_factory):
+    """The JAX loader this module holds the port's to, built privately
+    (``private_jax_loader``)."""
+    with private_jax_loader(tmp_path_factory.mktemp("jax_loader")):
+        yield
 
 
 def _frames(seed, shapes):

@@ -504,15 +504,24 @@ def torch_baseline(graph, raw, size, batch, iters, remeasure=False):
     return entry
 
 
+def smi_id(device: torch.device) -> str:
+    """``nvidia-smi``'s name for the card ``device`` is: ``GPU-<uuid>``,
+    with the UUID CUDA reports for it. nvidia-smi numbers every card of the
+    machine whatever ``CUDA_VISIBLE_DEVICES`` hides, so a device's index
+    may name another card; its UUID does not."""
+    uuid = str(torch.cuda.get_device_properties(device).uuid)
+    return uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"
+
+
 def card_line(device: torch.device) -> str:
-    """The card's name and power limit as ``nvidia-smi
-    --query-gpu=name,power.limit --format=csv,noheader`` gives them; "cpu"
-    for the CPU."""
+    """The name and power limit of the card ``device`` is, found by its
+    UUID (:func:`smi_id`), as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them; "cpu" for the CPU."""
     if device.type != "cuda":
         return "cpu"
     try:
         out = subprocess.run(
-            ["nvidia-smi", f"--id={device.index or 0}",
+            ["nvidia-smi", f"--id={smi_id(device)}",
              "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True).stdout
         return out.strip().splitlines()[0]

@@ -60,30 +60,29 @@ struct K1Record {
   int cls;
 };
 
-// Decode anchor channels [base, base + 5 + n_classes) of one cell with a
-// group of G adjacent lanes (G a power of two, at most 32): lane j of the
-// group takes class logits j, j + G, ... and a share of the sigmoids and
-// exps; every lane of the WARP calls it together (the reductions shuffle)
-// and every lane of the group gets the record. `load(c)` returns channel c
-// of the cell's row as float. The max and its first argmax do not depend on
-// the order of the reduction: equal values keep the lower index, and a NaN
-// never wins.
+// Lane j of a group of G scans class logits k = k_begin + j, + G, ...
+// below k_end, read as channel col0 + k of the row, into its running max
+// `best` and first argmax `best_i`: a larger value wins, an equal one keeps
+// the lower index, and a NaN never wins. A caller that holds a row in
+// pieces calls it once a piece, with the same `best` and `best_i`.
 template <int G, class Load>
-__device__ __forceinline__ K1Record k1_decode_anchor_group(
-    const Load& load, int base, int n_classes, int j, int col, int row,
-    float stride, float anchor_w, float anchor_h, float prob_thresh) {
-  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two");
-  // lane-local max and first argmax over this lane's class logits
-  float best = -INFINITY;
-  int best_i = n_classes;
-  for (int k = j; k < n_classes; k += G) {
-    const float v = load(base + 5 + k);
+__device__ __forceinline__ void k1_scan_classes(const Load& load, int col0,
+                                                int k_begin, int k_end, int j,
+                                                float& best, int& best_i) {
+  for (int k = k_begin + j; k < k_end; k += G) {
+    const float v = load(col0 + k);
     if (v > best || (v == best && k < best_i)) {
       best = v;
       best_i = k;
     }
   }
-  // group reduction: larger value wins, equal values keep the lower index
+}
+
+// the group's reduction of its lanes' (best, best_i): every lane of the
+// group gets the max and its first argmax, whatever order the lanes'
+// classes were scanned in. Every lane of the WARP calls it together.
+template <int G>
+__device__ __forceinline__ void k1_group_best(float& best, int& best_i) {
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1) {
     const float ov = __shfl_xor_sync(0xffffffffu, best, off);
@@ -93,6 +92,16 @@ __device__ __forceinline__ K1Record k1_decode_anchor_group(
       best_i = oi;
     }
   }
+}
+
+// The record of one (cell, anchor) from its box and objectness channels
+// base .. base + 4 (`load(c)`) and the group's class max and first argmax
+// (k1_group_best). Every lane of the WARP calls it together.
+template <int G, class Load>
+__device__ __forceinline__ K1Record k1_decode_finish(
+    const Load& load, int base, float best, int best_i, int j, int col,
+    int row, float stride, float anchor_w, float anchor_h,
+    float prob_thresh) {
   // the record's six transcendental values, sigmoid of tx, ty, obj and
   // the best logit and exp of the clamped tw and th, spread over the
   // group: lane j computes sigmoid input j mod 4 (and j + 2 with two
@@ -136,6 +145,27 @@ __device__ __forceinline__ K1Record k1_decode_anchor_group(
   r.score = score;
   r.cls = best_i;
   return r;
+}
+
+// Decode anchor channels [base, base + 5 + n_classes) of one cell with a
+// group of G adjacent lanes (G a power of two, at most 32): lane j of the
+// group takes class logits j, j + G, ... and a share of the sigmoids and
+// exps; every lane of the WARP calls it together (the reductions shuffle)
+// and every lane of the group gets the record. `load(c)` returns channel c
+// of the cell's row as float. The max and its first argmax do not depend on
+// the order of the reduction: equal values keep the lower index, and a NaN
+// never wins.
+template <int G, class Load>
+__device__ __forceinline__ K1Record k1_decode_anchor_group(
+    const Load& load, int base, int n_classes, int j, int col, int row,
+    float stride, float anchor_w, float anchor_h, float prob_thresh) {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two");
+  float best = -INFINITY;
+  int best_i = n_classes;
+  k1_scan_classes<G>(load, base + 5, 0, n_classes, j, best, best_i);
+  k1_group_best<G>(best, best_i);
+  return k1_decode_finish<G>(load, base, best, best_i, j, col, row, stride,
+                             anchor_w, anchor_h, prob_thresh);
 }
 
 // lane `lane` of the 8-float record [x0, y0, x1, y1, score, class, cand, 0]

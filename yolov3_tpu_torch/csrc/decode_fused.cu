@@ -23,19 +23,27 @@
 // both operands K-major as they lie in memory (a cell's channels, a weight
 // row). The decode needs a whole anchor's 5 + C channels in one block, so a
 // block takes BM cells x ONE anchor: its N is 5 + C padded (to a multiple
-// of 32, up to 128; to a multiple of 64 above), weight rows a*(5+C) .. +
-// 5+C, the padded rows zero-filled by the copy's source size 0 (as are rows
-// past M). Grid: ceil(M / BM) x anchors, the anchors of one tile side by
+// of 32, up to 128; to a multiple of 64 above, up to 256, the widest wgmma
+// N), weight rows a*(5+C) .. + 5+C, the padded rows zero-filled by the
+// copy's source size 0 (as are rows past M). Above 256 columns (more than
+// 251 classes: Open Images' 601) the block runs them in pieces of 256, one
+// K loop each over the same cells: the first piece carries the box and
+// objectness columns, every piece a share of the classes, and each cell's
+// running class max and first argmax pass from piece to piece (an equal
+// logit of a later piece keeps the earlier index, the reference's first
+// argmax). Grid: ceil(M / BM) x anchors, the anchors of one tile side by
 // side so that they find its x rows in L2. BM / 64 warpgroups each own 64
 // rows (two more for N above 128, each owning half the columns); each K
 // step's sums are added in float32 on the CUDA cores (wg_promote: the bar
-// on scores is 1e-5 absolute). Epilogue (k4_decode_epilogue): sum + bias
-// staged as a BM x N float32 tile in the freed ring; then G = 2 (or 4)
-// adjacent lanes decode one cell (k1_decode_anchor_group<G>, K1's no-FMA
-// float order), G times fewer issue slots per record than K1's warp per
-// cell, and store its 32-byte record in 16- (8-) byte pieces: a warp writes
-// whole runs of consecutive records. The wrapper's plan (ops/cuda_decode.py
-// :: plan_fused_tiles) picks the tile rows BM (64 or 128).
+// on scores is 1e-5 absolute). Epilogue of a piece (k4_piece_epilogue):
+// sum + bias staged as a BM x N float32 tile in the freed ring, then G = 2
+// (or 4) adjacent lanes scan one cell's class columns; after the last
+// piece (k4_store_record) they finish the cell's record
+// (k1_decode_finish<G>, K1's no-FMA float order), G times fewer issue
+// slots per record than K1's warp per cell, and store its 32-byte record
+// in 16- (8-) byte pieces: a warp writes whole runs of consecutive
+// records. The wrapper's plan (ops/cuda_decode.py :: plan_fused_tiles)
+// picks the tile rows BM (64 or 128).
 //
 // bf16: decode_fused_head_mma_kernel, bf16 from device memory to the tensor
 // cores, a K step of 128 channels, a ring of three steps keeping two in
@@ -65,41 +73,53 @@
 #include "decode_common.cuh"
 #include "wgmma_common.cuh"
 
+// the widest tile (the widest wgmma N): an anchor's columns above it run
+// in pieces of it
+#define K4_MAX_N 256
+
 struct SharedRow {
   const float* row;
   __device__ __forceinline__ float operator()(int c) const { return row[c]; }
 };
 
-// The epilogue of both kernels, after the K loop (every product done, the
-// ring free): sum + bias into a BM x S float32 tile in the ring, S = NP + G
-// (S % 32 == G, so the G lanes of 32 / G cells hit 32 banks); then G
-// adjacent lanes decode one cell and store its record. Rows past M decode
-// their zero-filled products (every lane takes part in the shuffles) and
-// store nothing.
+// One cell's decode state across the pieces of its anchor's columns: this
+// lane's running class max and first argmax and, in the widest tile (the
+// only one that runs pieces), the box and objectness logits (columns 0 ..
+// 4 of the first piece, held in registers and read by selects).
+struct K4Cell {
+  float tx, ty, tw, th, obj;
+  float best;
+  int best_i;
+  __device__ __forceinline__ float operator()(int c) const {
+    return c == 0 ? tx : c == 1 ? ty : c == 2 ? tw : c == 3 ? th : obj;
+  }
+};
+
+// The epilogue of one piece of both kernels, after its K loop (every
+// product done, the ring free): the piece's columns c_base .. c_base +
+// ncol - 1 of the anchor, sum + bias, into a BM x S float32 tile in the
+// ring, S = NP + G (S % 32 == G, so the G lanes of 32 / G cells hit 32
+// banks); then the G adjacent lanes of each cell scan its class columns of
+// the piece into `cell` (the first piece also gives the box columns). The
+// caller syncs before the ring is filled again.
 template <int BM, int N, int WN>
-__device__ __forceinline__ void k4_decode_epilogue(
+__device__ __forceinline__ void k4_piece_epilogue(
     const float (&sum)[N / 2], unsigned char* ring_ptr, int wm, int wn,
-    int m0, int a, const float* __restrict__ bias, int m_total, int gy,
-    int gx, int n_classes, const AnchorSet& anchors, float stride,
-    float prob_thresh, int head_offset, int n_total,
-    float* __restrict__ payload) {
+    const float* __restrict__ pbias, int c_base, int ncol, K4Cell& cell) {
   constexpr int NP = N * WN;
   constexpr int THREADS = BM * 2 * WN;
   constexpr int G = THREADS / BM;  // lanes decoding one cell: 2 or 4
   constexpr int S = NP + G;
   const int tid = threadIdx.x;
-  const int per = 5 + n_classes;
-  const int cells = gy * gx;
   float* tile = reinterpret_cast<float*>(ring_ptr);
   const int lane = tid & 31, warp = (tid >> 5) & 3;
   const int row_a = wm * 64 + warp * 16 + (lane >> 2);
   const int col0 = wn * N + (lane & 3) * 2;
-  const float* abias = bias + a * per;  // columns past 5 + C: no bias
 #pragma unroll
   for (int nb = 0; nb < N / 8; ++nb) {
-    const int col = col0 + nb * 8;
-    const float b0 = col < per ? __ldg(abias + col) : 0.0f;
-    const float b1 = col + 1 < per ? __ldg(abias + col + 1) : 0.0f;
+    const int col = col0 + nb * 8;  // columns past the piece's: no bias
+    const float b0 = col < ncol ? __ldg(pbias + col) : 0.0f;
+    const float b1 = col + 1 < ncol ? __ldg(pbias + col + 1) : 0.0f;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr)
       *reinterpret_cast<float2*>(tile + (row_a + hr * 8) * S + col) =
@@ -107,20 +127,57 @@ __device__ __forceinline__ void k4_decode_epilogue(
   }
   __syncthreads();
 
+  const float* row = tile + (tid / G) * S;
+  if (NP == K4_MAX_N && c_base == 0) {  // a later piece overwrites the tile
+    cell.tx = row[0];
+    cell.ty = row[1];
+    cell.tw = row[2];
+    cell.th = row[3];
+    cell.obj = row[4];
+  }
+  // class k lies in column k + 5 - c_base of the piece
+  k1_scan_classes<G>(SharedRow{row}, 5 - c_base, c_base > 5 ? c_base - 5 : 0,
+                     c_base + ncol - 5, tid % G, cell.best, cell.best_i);
+}
+
+// After the last piece: the group's class max, the record, and its store.
+// The box and objectness columns come from `cell` where the tile may have
+// held pieces (NP = K4_MAX_N), else from the one piece's tile, still in
+// the ring. Rows past M decode their zero-filled products (every lane takes
+// part in the shuffles) and store nothing.
+template <int BM, int N, int WN>
+__device__ __forceinline__ void k4_store_record(
+    K4Cell& cell, const unsigned char* ring_ptr, int m0, int a, int m_total,
+    int gy, int gx, const AnchorSet& anchors, float stride,
+    float prob_thresh, int head_offset, int n_total,
+    float* __restrict__ payload) {
+  constexpr int NP = N * WN;
+  constexpr int THREADS = BM * 2 * WN;
+  constexpr int G = THREADS / BM;
+  const int tid = threadIdx.x;
+  const int cells = gy * gx;
   const int r = tid / G, jg = tid % G;
   const int g = m0 + r;
-  int pb = 0, cell = 0;
+  int pb = 0, c = 0;
   if (g < m_total) {
     pb = g / cells;
-    cell = g - pb * cells;
+    c = g - pb * cells;
   }
-  const int y = cell / gx, xcol = cell - (cell / gx) * gx;
-  const K1Record rec = k1_decode_anchor_group<G>(
-      SharedRow{tile + r * S}, 0, n_classes, jg, xcol, y, stride,
-      anchors.wh[2 * a], anchors.wh[2 * a + 1], prob_thresh);
+  const int y = c / gx, xcol = c - (c / gx) * gx;
+  k1_group_best<G>(cell.best, cell.best_i);
+  K1Record rec;
+  if constexpr (NP == K4_MAX_N)
+    rec = k1_decode_finish<G>(cell, 0, cell.best, cell.best_i, jg, xcol, y,
+                              stride, anchors.wh[2 * a],
+                              anchors.wh[2 * a + 1], prob_thresh);
+  else
+    rec = k1_decode_finish<G>(
+        SharedRow{reinterpret_cast<const float*>(ring_ptr) + r * (NP + G)},
+        0, cell.best, cell.best_i, jg, xcol, y, stride, anchors.wh[2 * a],
+        anchors.wh[2 * a + 1], prob_thresh);
   if (g < m_total) {
     constexpr int P = 8 / G;  // floats of the record this lane stores
-    const int cand = head_offset + a * cells + cell;
+    const int cand = head_offset + a * cells + c;
     float v[P];
 #pragma unroll
     for (int q = 0; q < P; ++q) v[q] = k1_record_lane(rec, jg * P + q, cand);
@@ -220,86 +277,107 @@ decode_fused_head_mma_kernel(const bf16_bits* __restrict__ x, long long sb,
       a_ok |= 1u << i;
     }
   }
-  const bf16_bits* b_src = w + ((long long)a * per + r0) * cin + j * 8;
-
-  // load_next copies the next K step into stage `st` as one cp.async group;
-  // past the last step an empty group keeps the count of groups in step
-  // with the loop
   const int steps = cin / K4T_BK;
-  int ld_step = 0;
-  auto load_next = [&](int st) {
-    if (ld_step < steps) {
-      const uint32_t stage = ring + st * STAGE_BYTES;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int c0 = ld_step * K4T_BK + hf * WG_HALF;
-#pragma unroll
-        for (int i = 0; i < A_IT; ++i) {
-          const bool ok = (a_ok >> i) & 1u;
-          wg_cp_async16(stage + hf * A_BYTES + row_off + i * RPP * WG_ROW,
-                        ok ? a_src[i] + c0 : x, ok ? 16 : 0);
-        }
-#pragma unroll
-        for (int i = 0; i < B_IT; ++i) {
-          const bool ok = r0 + i * RPP < per;
-          wg_cp_async16(
-              stage + 2 * A_BYTES + hf * B_BYTES + row_off + i * RPP * WG_ROW,
-              ok ? b_src + (long long)i * RPP * cin + c0 : w, ok ? 16 : 0);
-        }
-      }
-      ++ld_step;
-    }
-    wg_cp_async_commit();
-  };
-
-  // `acc` restarts at every K step; the steps are added in `sum`
-  float acc[R];
-  float sum[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = sum[i] = 0.0f;
 
   const int wgi = tid >> 7;         // warpgroup
   const int wm = wgi % (BM / 64);   // its rows: wm * 64 .. + 63
   const int wn = wgi / (BM / 64);   // its columns: wn * N .. + N - 1
 
-#pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) load_next(p);
+  // the anchor's 5 + C columns in pieces of NP: the first holds the box
+  // and objectness columns, every piece a share of the classes, whose max
+  // and first argmax pass from piece to piece in `cell`
+  K4Cell cell;
+  cell.best = -INFINITY;
+  cell.best_i = n_classes;
+  // narrower tiles hold the anchor in one piece (the C entry's check): one
+  // trip the compiler sees
+  const int span = NP == K4_MAX_N ? per : 1;
+  for (int c_base = 0; c_base < span; c_base += NP) {
+    // the piece's weight rows: a * per + c_base .. + ncol - 1
+    const bf16_bits* b_src =
+        w + ((long long)a * per + c_base + r0) * cin + j * 8;
+    const int ncol = min(per - c_base, NP);
 
-  int st = 0;  // the stage of step s
-  for (int s = 0; s < steps; ++s) {
-    // step s has landed: this thread's copies, then everyone's; the barrier
-    // also says every warpgroup is done with step s - 1's products
-    wg_cp_async_wait<STAGES - 2>();
-    wg_fence_async_proxy();
-    __syncthreads();
-    const uint32_t stage = ring + st * STAGE_BYTES;
-    wg_fence_acc(acc);
-    wg_fence();
+    // load_next copies the next K step into stage `st` as one cp.async
+    // group; past the last step an empty group keeps the count of groups
+    // in step with the loop
+    int ld_step = 0;
+    auto load_next = [&](int st) {
+      if (ld_step < steps) {
+        const uint32_t stage = ring + st * STAGE_BYTES;
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const uint64_t da = wg_desc(stage + hf * A_BYTES + wm * 64 * WG_ROW);
-      const uint64_t db =
-          wg_desc(stage + 2 * A_BYTES + hf * B_BYTES + wn * N * WG_ROW);
+        for (int hf = 0; hf < 2; ++hf) {
+          const int c0 = ld_step * K4T_BK + hf * WG_HALF;
 #pragma unroll
-      for (int kk = 0; kk < WG_HALF / 16; ++kk)  // 32 bytes of K a product
-        wg_mma_m64k16<N>(acc, da + 2 * kk, db + 2 * kk, hf + kk > 0);
+          for (int i = 0; i < A_IT; ++i) {
+            const bool ok = (a_ok >> i) & 1u;
+            wg_cp_async16(stage + hf * A_BYTES + row_off + i * RPP * WG_ROW,
+                          ok ? a_src[i] + c0 : x, ok ? 16 : 0);
+          }
+#pragma unroll
+          for (int i = 0; i < B_IT; ++i) {
+            const bool ok = r0 + i * RPP < ncol;
+            wg_cp_async16(stage + 2 * A_BYTES + hf * B_BYTES + row_off +
+                              i * RPP * WG_ROW,
+                          ok ? b_src + (long long)i * RPP * cin + c0 : w,
+                          ok ? 16 : 0);
+          }
+        }
+        ++ld_step;
+      }
+      wg_cp_async_commit();
+    };
+
+    // `acc` restarts at every K step; the steps are added in `sum`
+    float acc[R];
+    float sum[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = sum[i] = 0.0f;
+
+#pragma unroll
+    for (int p = 0; p < STAGES - 1; ++p) load_next(p);
+
+    int st = 0;  // the stage of step s
+    for (int s = 0; s < steps; ++s) {
+      // step s has landed: this thread's copies, then everyone's; the
+      // barrier also says every warpgroup is done with step s - 1's
+      // products
+      wg_cp_async_wait<STAGES - 2>();
+      wg_fence_async_proxy();
+      __syncthreads();
+      const uint32_t stage = ring + st * STAGE_BYTES;
+      wg_fence_acc(acc);
+      wg_fence();
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const uint64_t da = wg_desc(stage + hf * A_BYTES + wm * 64 * WG_ROW);
+        const uint64_t db =
+            wg_desc(stage + 2 * A_BYTES + hf * B_BYTES + wn * N * WG_ROW);
+#pragma unroll
+        for (int kk = 0; kk < WG_HALF / 16; ++kk)  // 32 bytes of K a product
+          wg_mma_m64k16<N>(acc, da + 2 * kk, db + 2 * kk, hf + kk > 0);
+      }
+      wg_commit();
+      // while the products run: step s + STAGES - 1 into the stage step
+      // s - 1 has left
+      load_next(st == 0 ? STAGES - 1 : st - 1);
+      wg_wait<0>();
+      wg_fence_acc(acc);
+      wg_promote(sum, acc);
+      st = st + 1 == STAGES ? 0 : st + 1;
     }
-    wg_commit();
-    // while the products run: step s + STAGES - 1 into the stage step s - 1
-    // has left
-    load_next(st == 0 ? STAGES - 1 : st - 1);
-    wg_wait<0>();
-    wg_fence_acc(acc);
-    wg_promote(sum, acc);
-    st = st + 1 == STAGES ? 0 : st + 1;
-  }
 
-  // the copy groups still open are empty
-  wg_cp_async_wait<0>();
-  __syncthreads();
-  k4_decode_epilogue<BM, N, WN>(sum, ring_ptr, wm, wn, m0, a, bias, m_total,
-                                gy, gx, n_classes, anchors, stride,
-                                prob_thresh, head_offset, n_total, payload);
+    // the copy groups still open are empty
+    wg_cp_async_wait<0>();
+    __syncthreads();
+    k4_piece_epilogue<BM, N, WN>(sum, ring_ptr, wm, wn,
+                                 bias + a * per + c_base, c_base, ncol, cell);
+    // every lane has read the tile before the next piece fills the ring
+    __syncthreads();
+  }
+  k4_store_record<BM, N, WN>(cell, ring_ptr, m0, a, m_total, gy, gx, anchors,
+                             stride, prob_thresh, head_offset, n_total,
+                             payload);
 }
 
 // ---------------------------------------------------------------- float32
@@ -377,42 +455,55 @@ decode_fused_head_tf32x3_kernel(const float* __restrict__ x, long long sb,
       a_ok |= 1u << i;
     }
   }
-  const long long b_src = ((long long)a * per + r0) * cin + j * 4;
-
   const int steps = cin / WG_F32;
-  int ld_step = 0;
-  auto load_next = [&](int st) {
-    if (ld_step < steps) {
-      const uint32_t stage = ring + st * STAGE_BYTES;
-      const int c0 = ld_step * WG_F32;
-#pragma unroll
-      for (int i = 0; i < A_IT; ++i) {
-        const bool ok = (a_ok >> i) & 1u;
-        wg_cp_async16(stage + row_off + i * RPP * WG_ROW,
-                      ok ? a_src[i] + c0 : x, ok ? 16 : 0);
-      }
-#pragma unroll
-      for (int i = 0; i < B_IT; ++i) {
-        const bool ok = r0 + i * RPP < per;
-        const long long off = ok ? b_src + (long long)i * RPP * cin + c0 : 0;
-        const uint32_t dst = stage + A_BYTES + row_off + i * RPP * WG_ROW;
-        wg_cp_async16(dst, w + off, ok ? 16 : 0);
-        wg_cp_async16(dst + NP * WG_ROW, w_lo + off, ok ? 16 : 0);
-      }
-      ++ld_step;
-    }
-    wg_cp_async_commit();
-  };
 
   const int wgi = tid >> 7;         // warpgroup
   const int wm = wgi % (BM / 64);   // its rows: wm * 64 .. + 63
   const int wn = wgi / (BM / 64);   // its columns: wn * N .. + N - 1
-  float sum[N / 2];
-  wg_gemm_tf32x3<BM, NP, N, STAGES>(sum, steps, ring, ring_ptr, wm, wn,
-                                    load_next);
-  k4_decode_epilogue<BM, N, WN>(sum, ring_ptr, wm, wn, m0, a, bias, m_total,
-                                gy, gx, n_classes, anchors, stride,
-                                prob_thresh, head_offset, n_total, payload);
+  // the anchor's columns in pieces of NP, as in the bf16 kernel
+  K4Cell cell;
+  cell.best = -INFINITY;
+  cell.best_i = n_classes;
+  const int span = NP == K4_MAX_N ? per : 1;  // as in the bf16 kernel
+  for (int c_base = 0; c_base < span; c_base += NP) {
+    // the piece's weight rows: a * per + c_base .. + ncol - 1
+    const long long b_src = ((long long)a * per + c_base + r0) * cin + j * 4;
+    const int ncol = min(per - c_base, NP);
+    int ld_step = 0;
+    auto load_next = [&](int st) {
+      if (ld_step < steps) {
+        const uint32_t stage = ring + st * STAGE_BYTES;
+        const int c0 = ld_step * WG_F32;
+#pragma unroll
+        for (int i = 0; i < A_IT; ++i) {
+          const bool ok = (a_ok >> i) & 1u;
+          wg_cp_async16(stage + row_off + i * RPP * WG_ROW,
+                        ok ? a_src[i] + c0 : x, ok ? 16 : 0);
+        }
+#pragma unroll
+        for (int i = 0; i < B_IT; ++i) {
+          const bool ok = r0 + i * RPP < ncol;
+          const long long off = ok ? b_src + (long long)i * RPP * cin + c0 : 0;
+          const uint32_t dst = stage + A_BYTES + row_off + i * RPP * WG_ROW;
+          wg_cp_async16(dst, w + off, ok ? 16 : 0);
+          wg_cp_async16(dst + NP * WG_ROW, w_lo + off, ok ? 16 : 0);
+        }
+        ++ld_step;
+      }
+      wg_cp_async_commit();
+    };
+
+    float sum[N / 2];
+    wg_gemm_tf32x3<BM, NP, N, STAGES>(sum, steps, ring, ring_ptr, wm, wn,
+                                      load_next);
+    k4_piece_epilogue<BM, N, WN>(sum, ring_ptr, wm, wn,
+                                 bias + a * per + c_base, c_base, ncol, cell);
+    // every lane has read the tile before the next piece fills the ring
+    __syncthreads();
+  }
+  k4_store_record<BM, N, WN>(cell, ring_ptr, m0, a, m_total, gy, gx, anchors,
+                             stride, prob_thresh, head_offset, n_total,
+                             payload);
 }
 
 // ---------------------------------------------------------------- launch
@@ -478,7 +569,8 @@ static int launch_k4(const void* x, long long sb, long long sy, long long sx,
 // 8), contiguous, filled at [head_offset, head_offset + n_anchors * gy *
 // gx). cin a multiple of 128; the tile (block_m, n_tile, resident) of
 // ops/cuda_decode.py :: plan_fused_tiles: block_m 64 or 128, n_tile in {32,
-// 64, 96, 128} (64 only above 128: 192, 256) and at least 5 + n_classes,
+// 64, 96, 128} (64 only above 128: 192, 256) and at least 5 + n_classes
+// (256 above 256 columns: the pieces),
 // resident 2 (blocks a multiprocessor) only at bf16, for cin <= 256 and
 // block_m + n_tile <= 224, else 1. Launches on `stream`, allocates nothing,
 // returns the CUDA error code (0 = success).
@@ -493,7 +585,8 @@ extern "C" int yolo_decode_packed_fused_head(
   if (n_anchors < 1 || n_anchors > K1_MAX_ANCHORS || n_classes < 1 ||
       batch < 1 || gy < 1 || gx < 1 ||
       (long long)batch * gy * gx >= (1LL << 31) || cin < K4T_BK ||
-      cin % K4T_BK != 0 || n_tile < per || sb % row || sy % row ||
+      cin % K4T_BK != 0 || n_tile < (per < K4_MAX_N ? per : K4_MAX_N) ||
+      sb % row || sy % row ||
       sx % row || (uintptr_t)x % 16 || (uintptr_t)w % 16 ||
       (!is_bf16 && (w_lo == nullptr || (uintptr_t)w_lo % 16)) ||
       (resident == 2 &&

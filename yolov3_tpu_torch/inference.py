@@ -49,17 +49,18 @@ its own.
 Steps 1-5 run as one cached program per (batch, source shape, channel
 order, quantization state, weights), the counterpart of the JAX package's
 jitted pipelines (``Detector._pipeline`` / ``_finalize`` /
-``_cache_pipeline``, an LRU of 16). On the card a program is ONE CUDA graph,
-captured at its first call after one eager run that builds the kernels and
-fills every lazy cache; a later call copies its frames into the graph's
-static input, replays it, and copies the static packed output out. On the
-CPU a program is the eager closure of the same steps, so both devices key
-and evict alike. On the card the LRU is also bounded by bytes: a program
-holds its memory pool until it is evicted, so before a warm-up and again
-before a capture the least recently used programs go while the programs'
-bytes would pass ``PROGRAM_MEMORY_SHARE`` of the card, or the card's free
-memory is under the new program's need (``programs_to_evict``). A capture
-or a replay that fails raises. ``cv2`` is imported inside the entry points
+``_cache_pipeline``, an LRU of 16). On the card a program is ONE CUDA graph
+(over every card of a spatial mesh), captured at its first call after one
+eager run that builds the kernels and fills every lazy cache; a later call
+copies its frames into the graph's static input, replays it, and copies
+the static packed output out. On the CPU a program is the eager closure of
+the same steps, so both devices key and evict alike. On the card the LRU
+is also bounded by bytes: a program holds its memory pool until it is
+evicted, so before a warm-up and again before a capture the least
+recently used programs go while the programs' bytes would pass
+``PROGRAM_MEMORY_SHARE`` of the card, or the card's free memory is under
+the new program's need (``programs_to_evict``), card by card. A capture or
+a replay that fails raises. ``cv2`` is imported inside the entry points
 that need it, never with the package.
 """
 from __future__ import annotations
@@ -69,6 +70,7 @@ import logging
 import threading
 import time
 from collections import OrderedDict
+from contextlib import ExitStack, contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -286,33 +288,83 @@ class _CapturedProgram(_Program):
     static output, so a caller that holds a result past the next call
     copies it out first; ``release`` records where it did, and the next
     caller's stream waits for that point (``acquire``) before it touches
-    the buffers."""
+    the buffers.
+
+    ``others``: further devices the program runs on (a spatial mesh over
+    several cards). The input, the output and the graph's launch live on
+    ``device``; each other device gets a stream of the program that forks
+    from the capture stream (an event it waits for) and joins it again
+    before the capture ends, so that work on every card is captured into
+    the one graph, and a memory pool of the program (``torch.cuda.MemPool``)
+    that takes this thread's allocations on that device while the graph is
+    captured. The eager forward runs on the same streams, so the libraries'
+    per-stream workspaces exist before the capture. ``needs`` and
+    ``bytes_on`` count each device's bytes apart."""
 
     def __init__(self, key: Tuple, route: str, run, keep: Tuple,
-                 device: torch.device):
+                 device: torch.device, *others: torch.device):
         super().__init__(key, route, run, keep)
         self._t0 = time.perf_counter()
         batch, (h, w) = key[0], key[1]
-        base = torch.cuda.memory_allocated(device)
-        torch.cuda.reset_peak_memory_stats(device)
+        self.devices = tuple(dict.fromkeys((device, *others)))
+        base = {d: torch.cuda.memory_allocated(d) for d in self.devices}
+        for d in self.devices:
+            torch.cuda.reset_peak_memory_stats(d)
         self.input = torch.zeros((batch, h, w, 3), dtype=torch.uint8,
                                  device=device)
-        self._stream = torch.cuda.Stream(device)
+        self._streams = {d: torch.cuda.Stream(d) for d in self.devices}
+        self._stream = self._streams[device]
         self._stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.inference_mode(), torch.cuda.stream(self._stream):
+        with torch.inference_mode(), self._on_streams():
             run(self.input)
         self._stream.synchronize()
-        self.need = torch.cuda.max_memory_allocated(device) - base
+        self.needs = {d: torch.cuda.max_memory_allocated(d) - base[d]
+                      for d in self.devices}
+        self.need = self.needs[device]
         torch.cuda.empty_cache()
         self.replays = 0
         self._released = torch.cuda.Event()
         self._used = False
+        self._pools: Dict[torch.device, object] = {}
+        self._bytes: Dict[torch.device, int] = {}
+
+    @contextmanager
+    def _on_streams(self, pools: Optional[Dict] = None):
+        """Inside: the program's stream is the current stream of every device
+        it runs on, the other devices' streams forked from the first's
+        current point and joined back into it on leaving (inside a capture,
+        the fork and the join bring them into the capture). ``pools``: the
+        other devices' allocations of this thread go to them."""
+        first = self._stream
+        sides = [s for s in self._streams.values() if s is not first]
+        with ExitStack() as stack:
+            stack.enter_context(torch.cuda.stream(first))
+            if sides:
+                fork = torch.cuda.Event()
+                fork.record(first)
+            for s in sides:
+                s.wait_event(fork)
+                stack.enter_context(torch.cuda.stream(s))
+                if pools is not None:
+                    stack.enter_context(torch.cuda.use_mem_pool(
+                        pools[s.device], device=s.device))
+            # torch.cuda.stream made each side stream's device the current
+            # one: the first device is current inside
+            stack.enter_context(torch.cuda.device(first.device))
+            yield
+            for s in sides:
+                join = torch.cuda.Event()
+                join.record(s)
+                first.wait_event(join)
 
     def capture(self) -> None:
-        """Capture the graph; ``nbytes`` and ``capture_s`` (warm-up and
-        capture, seconds) follow."""
+        """Capture the graph; ``nbytes`` (every device's), ``bytes_on`` and
+        ``capture_s`` (warm-up and capture, seconds) follow."""
         device = self.input.device
-        reserved = torch.cuda.memory_reserved(device)
+        reserved = {d: torch.cuda.memory_reserved(d) for d in self.devices}
+        for d in self.devices[1:]:
+            with torch.cuda.device(d):  # a pool belongs to the current device
+                self._pools[d] = torch.cuda.MemPool()
         self.graph = torch.cuda.CUDAGraph()
         # no collection inside the capture: a graph it freed (another
         # program, dropped in a reference cycle) would be destroyed there,
@@ -321,13 +373,16 @@ class _CapturedProgram(_Program):
         gc.disable()
         try:
             with torch.inference_mode(), torch.cuda.graph(
-                    self.graph, stream=self._stream):
+                    self.graph, stream=self._stream), self._on_streams(
+                        self._pools):
                 self.output = self.run(self.input)
         finally:
             if collecting:
                 gc.enable()
-        self.nbytes = (torch.cuda.memory_reserved(device) - reserved
-                       + self.input.numel())
+        self._bytes = {d: torch.cuda.memory_reserved(d) - reserved[d]
+                       for d in self.devices}
+        self._bytes[device] += self.input.numel()
+        self.nbytes = sum(self._bytes.values())
         self.capture_s = time.perf_counter() - self._t0
 
     def acquire(self) -> None:
@@ -362,7 +417,7 @@ class _CapturedProgram(_Program):
         return res.clone()
 
     def bytes_on(self, device: torch.device) -> int:
-        return self.nbytes if device == self.input.device else 0
+        return self._bytes.get(device, 0)
 
     def release(self) -> None:
         self._released.record(torch.cuda.current_stream(self.input.device))
@@ -370,11 +425,13 @@ class _CapturedProgram(_Program):
 
     def close(self) -> None:
         # a replay still running on another stream must not have its memory
-        # handed out; the pool goes back to the allocator now, even while
-        # something still holds this object
+        # handed out; the pools go back to the allocator now, even while
+        # something still holds this object (the other devices' replays
+        # join the first device's stream before the graph ends)
         if self._used:
             self._released.synchronize()
         self.graph.reset()
+        self._pools.clear()
         self.input = self.output = None
 
 
@@ -461,9 +518,11 @@ class Detector:
     merge in submission order. ``mesh`` from ``parallel.make_spatial_mesh``
     with ``partition="spatial"`` shards each image's rows over the mesh
     (``parallel.spatial_pipeline``; the float tiers only, ``scan`` 1): one
-    program on the first shard's device, captured on the card when every
-    shard sits on one device and eager otherwise. A device may repeat in a
-    mesh (a virtual mesh on one card). ``partition="spatial"`` with no mesh
+    program whose input and output lie on the first shard's device; on the
+    card ONE graph over every card of the mesh (each card's work on a
+    stream of the program, forked from and joined into the capture stream;
+    :class:`_CapturedProgram`). A device may repeat in a mesh (a virtual
+    mesh on one card). ``partition="spatial"`` with no mesh
     runs on one device, as the reference's does.
 
     Programs are cached per (batch, source shape, channel order,
@@ -785,12 +844,16 @@ class Detector:
                 else None)
         if self.mesh is not None and self.partition == "data":
             prog = self._replica_programs(key, run, keep)
-        elif self.device.type == "cuda" and len(self._devices()) == 1:
-            (device,) = self._devices()
-            self._make_room(max(self._held(device, key[0]), default=0), device)
+        elif self.device.type == "cuda":
+            # one device, or a spatial mesh's: one graph over its cards
+            first, *others = self._devices()
+            for d in (first, *others):
+                self._make_room(max(self._held(d, key[0]), default=0), d)
             prog = _CapturedProgram(key, self.route, _packed(run), keep,
-                                    device)
-            self._make_room(prog.need, device)
+                                    first, *others)
+            self._make_room(prog.need, first)
+            for d in others:
+                self._make_room(prog.needs[d], d)
             prog.capture()
         else:
             prog = _Program(key, self.route, _packed(run), keep)

@@ -66,7 +66,9 @@ MAX_ANCHORS = 64  # K1_MAX_ANCHORS in csrc/decode_common.cuh: the kernels' param
 # does, so a graph takes the same route in both packages
 GATE_ANCHORS = 4
 FUSED_CIN_MULTIPLE = 128  # ``fused_head_supported``'s lane boundary
-K4_MMA_MAX_PER = 256  # 5 + C of a K4 block: the widest wgmma N
+# K4's widest tile (the widest wgmma N): an anchor's 5 + C columns above it
+# run in pieces of it, one after another in the same block
+K4_MAX_TILE = 256
 MAP_DTYPES = (torch.float32, torch.bfloat16)
 # K1 / K1c (csrc/decode_packed.cu): heads a launch's table holds, the cells
 # of a block's tile (the first that fits shared memory), the lanes that
@@ -552,7 +554,10 @@ def plan_fused_tiles(m: int, per: int, anchors: int, cin: int,
 
     ``n_tile``: ``per`` rounded up to a multiple of 32 (one warpgroup's
     ``wgmma`` N, at most 128), above 128 to a multiple of 64 (two
-    warpgroups, each half the columns, and then 64-row tiles).
+    warpgroups, each half the columns, and then 64-row tiles), above
+    ``K4_MAX_TILE`` (256) that width: the block runs the anchor's columns
+    in pieces of 256, one K loop each, the class max passing from piece to
+    piece.
     ``block_m``: 64 while every 64-row tile of the head gets a
     multiprocessor of its own, else 128, which re-reads the anchor's weights
     half as often. ``resident``: 2 for bf16 where the whole K fits a ring
@@ -563,11 +568,11 @@ def plan_fused_tiles(m: int, per: int, anchors: int, cin: int,
     ring (the activations beside the weights' hi and lo tiles, up to four
     32-channel steps) leaves room for one block: resident 1. ``chip_smoke.py``'s ``k4`` phase times every
     choice at yolov3@416's heads (``PERF.md``)."""
-    if not 5 < per <= K4_MMA_MAX_PER:
-        raise ValueError(f"K4's kernels take 5 < 5 + C <= "
-                         f"{K4_MMA_MAX_PER} channels an anchor, got {per}")
+    if per <= 5:
+        raise ValueError(f"K4's kernels take 5 + C > 5 channels an anchor, "
+                         f"got {per}")
     if per > 128:
-        block_m, n_tile = 64, -(-per // 64) * 64
+        block_m, n_tile = 64, min(-(-per // 64) * 64, K4_MAX_TILE)
     else:
         n_tile = -(-per // 32) * 32
         block_m = 64 if -(-m // 64) * anchors <= sm_count else 128
@@ -578,15 +583,12 @@ def plan_fused_tiles(m: int, per: int, anchors: int, cin: int,
 
 def check_fused_mma_input(x: torch.Tensor, num_classes: int,
                           n_anchors: int) -> None:
-    """Raise for a head that K4's kernels do not take: 5 + C above 256,
-    more than ``MAX_ANCHORS`` anchors, or channel rows that do not start on
-    16-byte boundaries (batch, row and pixel strides a multiple of 16 bytes
-    (8 bf16, 4 float32 elements) and a 16-byte aligned base). There is no
-    fallback: the wrapper calls this before any launch."""
-    per = 5 + num_classes
-    if per > K4_MMA_MAX_PER:
-        raise ValueError(f"K4's kernels take 5 + C <= {K4_MMA_MAX_PER} "
-                         f"channels an anchor (the widest wgmma N), got {per}")
+    """Raise for a head that K4's kernels do not take: more than
+    ``MAX_ANCHORS`` anchors, or channel rows that do not start on 16-byte
+    boundaries (batch, row and pixel strides a multiple of 16 bytes (8
+    bf16, 4 float32 elements) and a 16-byte aligned base). Any class count
+    passes, as the route gate's (:func:`fused_head_supported`) does. There
+    is no fallback: the wrapper calls this before any launch."""
     if n_anchors > MAX_ANCHORS:
         raise ValueError(f"K4 takes at most {MAX_ANCHORS} anchors per head, "
                          f"got {n_anchors}")

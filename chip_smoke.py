@@ -2805,10 +2805,11 @@ def _sum_ms(fn_of_args, cases, iters: int = 5) -> float:
                for case in cases)
 
 
-def phase_probes():
+def phase_probes(card: str):
     """T3a-e against their plain versions and against the exact host values
     of the tool, then the tool's own path (``tools.probe_block``) with the
-    launch counts zeroed before it: 0 differences everywhere."""
+    launch counts zeroed before it: 0 differences everywhere. T3b-e by graph
+    replay beside the launch floor (T3b on one element)."""
     import torch
     from yolov3_tpu_torch.ops import cuda_probe as cp
     from yolov3_tpu_torch.tools import probe_block as pb
@@ -2862,21 +2863,52 @@ def phase_probes():
     rec["T3b"] = dict(max_abs_err=err, ms=cuda_ms(lambda: cp.probe_round(x)),
                       plain_ms=cuda_ms(lambda: cp.probe_round_reference(x)),
                       nbytes=8 * x.numel(), ops=3 * x.numel())
+    # T3c bit for bit at the tool's shape, a plane above 227 KB as float32 (a
+    # block's most shared memory), lanes no multiple of 16 (the byte walk),
+    # several 512-byte lane chunks, one row, and an input off the 16-byte grid
     xr = torch.from_numpy(np.random.default_rng(1).integers(
         -127, 128, (10, 48, 128)).astype(np.int8)).to(dev)
-    err = same(cp.probe_roll(xr), cp.probe_roll_reference(xr), "T3c")
+    roll_cases = [xr] + [
+        torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).to(dev)
+        for shape in ((2, 512, 128), (3, 37, 100), (2, 9, 1040), (3, 1, 64))]
+    off_grid = torch.empty(4 * 6 * 32 + 1, dtype=torch.int8, device=dev)[1:]
+    off_grid.copy_(torch.from_numpy(rng.integers(-128, 128, 4 * 6 * 32)
+                                    .astype(np.int8)))
+    roll_cases.append(off_grid.view(4, 6, 32))
+    err = 0.0
+    for xc in roll_cases:
+        plan = cp.plan_roll(*xc.shape, vec=xc.data_ptr() % 16 == 0)
+        err = max(err, same(cp.probe_roll(xc), cp.probe_roll_reference(xc),
+                            f"T3c {tuple(xc.shape)} {plan}"))
+    plan = cp.plan_roll(*xr.shape)
+    if plan.grid[0] * plan.grid[1] <= 10 or not plan.vec:
+        raise AssertionError(f"T3c at the tool's shape: {plan}")
+    log(f"[probes] T3c exact at {[tuple(xc.shape) for xc in roll_cases]} "
+        f"(the last off the 16-byte grid); the tool's shape on "
+        f"{plan.grid[0] * plan.grid[1]} blocks of {plan.threads} threads, "
+        f"{plan.smem} bytes of int8 staged a block")
     rec["T3c"] = dict(max_abs_err=err, ms=cuda_ms(lambda: cp.probe_roll(xr)),
                       plain_ms=cuda_ms(lambda: cp.probe_roll_reference(xr)),
-                      nbytes=3 * xr.numel(), ops=0)
-    mask_args = (6, 48, 128, 40, 40)
-    err = max(same(cp.probe_mask(*mask_args, hi, device=dev),
-                   cp.probe_mask_reference(*mask_args, hi, device=dev),
-                   f"T3d hi={hi}") for hi in (0, 3, 6))
-    n_mask = (6 + 2) * 48 * 128
-    rec["T3d"] = dict(max_abs_err=err, ms=cuda_ms(lambda: cp.probe_mask(*mask_args, 3, device=dev)),
-                      plain_ms=cuda_ms(lambda: cp.probe_mask_reference(
-                          *mask_args, 3, device=dev)),
-                      nbytes=4 * n_mask, ops=5 * n_mask)
+                      nbytes=3 * xr.numel(), ops=0, blocks=plan.grid[0] * plan.grid[1])
+    # T3d: the tool's three tiles in ONE launch, each tile alone, and a cp no
+    # multiple of 4 (int stores) over tiles in another order
+    mask_args, his = (6, 48, 128, 40, 40), (0, 3, 6)
+    err = same(cp.probe_masks(*mask_args, his, device=dev),
+               cp.probe_masks_reference(*mask_args, his, device=dev),
+               "T3d, three tiles in one launch")
+    err = max([err, same(cp.probe_masks(5, 12, 6, 11, 9, (2, 0, 1), device=dev),
+                         cp.probe_masks_reference(5, 12, 6, 11, 9, (2, 0, 1),
+                                                  device=dev), "T3d cp=6")]
+              + [same(cp.probe_mask(*mask_args, hi, device=dev),
+                      cp.probe_mask_reference(*mask_args, hi, device=dev),
+                      f"T3d hi={hi}") for hi in his])
+    rows1 = (6 + 2) * 48
+    rec["T3d"] = dict(max_abs_err=err,
+                      ms=cuda_ms(lambda: cp.probe_masks(*mask_args, his, device=dev)),
+                      plain_ms=cuda_ms(lambda: cp.probe_masks_reference(
+                          *mask_args, his, device=dev)),
+                      nbytes=4 * len(his) * rows1 * 128, ops=5 * len(his) * rows1,
+                      tiles=len(his))
     acc, deq, b, inv = pb.epilogue_inputs()
     acc, deq, b = (torch.from_numpy(a).to(dev) for a in (acc, deq, b))
     err = same(cp.probe_epilogue(acc, deq, b, inv),
@@ -2896,23 +2928,31 @@ def phase_probes():
     rec["T3c"]["library_ms"] = graph_ms(
         lambda: (torch.roll(xr, 1, 1), torch.roll(xr, -1, 1)))
     rec["T3d"]["graph_ms"] = graph_ms(
+        lambda: cp.probe_masks(*mask_args, his, device=dev))
+    rec["T3d"]["graph_ms_one_tile"] = graph_ms(
         lambda: cp.probe_mask(*mask_args, 3, device=dev))
     rec["T3e"]["graph_ms"] = graph_ms(
         lambda: cp.probe_epilogue(acc, deq, b, inv))
-    log("[probes] T3b-e, one launch each: " + ", ".join(
-        f"{key} {rec[key]['graph_ms'] * 1e3:.2f} us by graph replay "
-        f"({rec[key]['ms'] * 1e3:.2f} us a wrapper call)"
-        for key in ("T3b", "T3c", "T3d", "T3e"))
-        + f"; T3c's two outputs as two torch.roll calls "
-        f"{rec['T3c']['library_ms'] * 1e3:.2f} us by graph replay (T3b, T3d "
-        f"and T3e have no single library call)")
+    # the launch floor: T3b on one element, a launch with next to no work
+    one = x.reshape(-1)[:1].clone()
+    floor_ms = graph_ms(lambda: cp.probe_round(one))
+    for key in ("T3b", "T3c", "T3d", "T3e"):
+        rec[key]["floor_ms"] = floor_ms
+    log("[probes] T3b-e by graph replay: " + ", ".join(
+        f"{key} {rec[key]['graph_ms'] * 1e3:.2f} us ({rec[key]['ms'] * 1e3:.2f} "
+        f"us a wrapper call)" for key in ("T3b", "T3c", "T3d", "T3e"))
+        + f"; T3d is the tool's three tiles in one launch (one tile "
+        f"{rec['T3d']['graph_ms_one_tile'] * 1e3:.2f} us); T3c's two outputs as "
+        f"two torch.roll calls {rec['T3c']['library_ms'] * 1e3:.2f} us (T3b, "
+        f"T3d and T3e have no single library call); the launch floor (T3b on "
+        f"one element) {floor_ms * 1e3:.2f} us; on {card}")
     log("[probes] T3a-e equal their plain versions on the card (T3a at "
         f"{len(dots)} shapes, wgmma, mma.sync and __dp4a)")
     # the tool's path: exact host values, the reference's wording
     wrappers = {"T3a": cp.probe_int8_dot, "T3b": cp.probe_round,
-                "T3c": cp.probe_roll, "T3d": cp.probe_mask,
+                "T3c": cp.probe_roll, "T3d": cp.probe_masks,
                 "T3e": cp.probe_epilogue}
-    for w in wrappers.values():
+    for w in (*wrappers.values(), cp.probe_mask):
         w.launches = 0
     bad = (pb.probe_int8_dot(dev) + pb.probe_round(dev) + pb.probe_roll(dev)
            + pb.probe_mask(dev) + pb.probe_epilogue(dev))
@@ -2920,6 +2960,10 @@ def phase_probes():
         rec[name]["launches"] = w.launches
         if w.launches == 0:
             raise AssertionError(f"tools.probe_block never launched {name}")
+    if cp.probe_masks.launches != 1 or cp.probe_mask.launches != 0:
+        raise AssertionError(f"tools.probe_block ran T3d in "
+                             f"{cp.probe_masks.launches} + "
+                             f"{cp.probe_mask.launches} launches, 1 expected")
     for case in pb.FULL_BLOCK_CASES:
         bad += pb.probe_full_tiny(*case, device=dev)
     bad += pb.probe_chain(dev)
@@ -4238,7 +4282,9 @@ def probe_records(dots, probes, bound):
                  "plain_ms": v["plain_ms"],
                  **bound(v["nbytes"], v["ops"], v.get("peak", FP32_FLOPS_PER_S)),
                  "library_ms": v.get("library_ms"),
-                 "graph_ms": v["graph_ms"]}
+                 "graph_ms": v["graph_ms"],
+                 **{k: v[k] for k in ("floor_ms", "graph_ms_one_tile", "blocks",
+                                      "tiles") if k in v}}
         if "ms_dp4a" in v:
             for key in ("ms_mma", "ms_dp4a", "graph_ms", "graph_ms_mma",
                         "library_graph_ms"):
@@ -4310,7 +4356,7 @@ def main() -> int:
         if name in phases:
             res[name] = phase(card)
     if "probes" in phases:
-        res["probes"] = phase_probes()
+        res["probes"] = phase_probes(card)
     if "dots" in phases:
         res["dots"] = phase_dots(card)
     if "native" in phases:

@@ -145,6 +145,112 @@ def test_t3d_mask_exact(calls):
     assert 0 < int(got.sum()) < got.numel()
 
 
+# T3c at the tool's shape, a plane above 227 KB as float32 (a block's most
+# shared memory),
+# lanes no multiple of 16 (the byte walk), several 512-byte lane chunks with a
+# short last row chunk, one row
+ROLL_SHAPES = ((10, 48, 128), (2, 512, 128), (3, 37, 100), (2, 9, 1040),
+               (3, 1, 64))
+
+
+@pytest.mark.parametrize("shape", ROLL_SHAPES)
+def test_t3c_roll_reference_at_any_plane(shape):
+    """The plain version (what the card is held to) equals ``np.roll`` at
+    every shape the kernel takes, the plane size unbounded."""
+    x = np.random.default_rng(11).integers(-128, 128, shape).astype(np.int8)
+    want = np.stack([np.roll(x, 1, axis=1), np.roll(x, -1, axis=1)])
+    np.testing.assert_array_equal(cp.probe_roll_reference(_t(x)).numpy(), want)
+    np.testing.assert_array_equal(cp.probe_roll(_t(x)).numpy(), want)
+
+
+def _roll_by_blocks(x: np.ndarray, plan) -> np.ndarray:
+    """T3c's kernel walked block by block as ``probe_roll_kernel`` walks it:
+    a block stages its rows and the wrap-around rows beside them, then
+    writes its rows of both outputs, each element exactly once."""
+    planes, rows, lanes = x.shape
+    nrows, chunk = 1 << plan.rows_lg, cp.ROLL_PIECE << plan.pieces_lg
+    row_chunks = -(-rows // nrows)
+    assert plan.grid == (planes * row_chunks, -(-lanes // chunk))
+    out = np.zeros((2,) + x.shape, np.int8)
+    written = np.zeros(out.shape, np.int64)
+    for bx in range(plan.grid[0]):
+        plane, rc = divmod(bx, row_chunks)
+        r0 = rc * nrows
+        here = min(nrows, rows - r0)
+        staged = []
+        for s in range(here + 2):
+            r = r0 - 1 + s
+            staged.append(r + rows if r < 0 else (r - rows if r >= rows else r))
+        assert len(staged) * chunk <= plan.smem <= cp.ROLL_SMEM
+        for by in range(plan.grid[1]):
+            lo, hi = by * chunk, min(lanes, (by + 1) * chunk)
+            tile = x[plane, staged, lo:hi]
+            for j in range(here):
+                out[0, plane, r0 + j, lo:hi] = tile[j]
+                out[1, plane, r0 + j, lo:hi] = tile[j + 2]
+                written[:, plane, r0 + j, lo:hi] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("shape", ROLL_SHAPES + ((1, 3, 16), (2, 5, 8200)))
+def test_t3c_block_plan_covers_the_planes(shape):
+    """T3c's blocks (:func:`plan_roll`): 64 to 256 threads, shared memory
+    bounded by the block whatever the plane, and the block walk equal to the
+    plain version; at the tool's shape 60 blocks (one a plane would be 10),
+    8 rows of 8 pieces each, 16-byte pieces."""
+    plan = cp.plan_roll(*shape)
+    assert 64 <= plan.threads <= 256 and plan.smem <= cp.ROLL_SMEM
+    assert plan.vec == (shape[2] % 16 == 0)
+    x = np.random.default_rng(12).integers(-128, 128, shape).astype(np.int8)
+    np.testing.assert_array_equal(_roll_by_blocks(x, plan),
+                                  cp.probe_roll_reference(_t(x)).numpy())
+    if shape == (10, 48, 128):
+        assert plan.grid == (60, 1) and plan.threads == 64 and plan.vec
+        assert (plan.rows_lg, plan.pieces_lg) == (3, 3)
+    assert not cp.plan_roll(*shape, vec=False).vec
+    with pytest.raises(ValueError, match="non-empty"):
+        cp.plan_roll(0, 4, 16)
+
+
+def test_t3d_masks_one_launch_against_the_jax_probe(calls):
+    """``probe_masks`` (every tile in one launch on the card) equals the JAX
+    probe's three outputs stacked in ``hi`` order, and three
+    ``probe_mask`` calls."""
+    jprobe.probe_mask()
+    assert len(calls) == 3
+    want = np.stack([out for _, out in calls])
+    got = cp.probe_masks(6, 48, 128, 40, 40, (0, 3, 6), device="cpu")
+    assert got.dtype == torch.int32 and tuple(got.shape) == (3, 384, 128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    one_by_one = torch.stack([cp.probe_mask(6, 48, 128, 40, 40, hi, "cpu")
+                              for hi in (0, 3, 6)])
+    assert torch.equal(got, one_by_one)
+    assert torch.equal(got, cp.probe_masks_reference(6, 48, 128, 40, 40,
+                                                     [0, 3, 6]))
+    # any list of tiles, in its own order; a cp no multiple of 4
+    odd = cp.probe_masks(5, 12, 6, 11, 9, (2, 0, 1), device="cpu")
+    for k, hi in enumerate((2, 0, 1)):
+        np.testing.assert_array_equal(
+            odd[k].numpy(), probe_block.mask_reference(5, 12, 6, 11, 9, hi))
+    for his in ((), tuple(range(cp.MASK_MAX_TILES + 1))):
+        with pytest.raises(ValueError, match="row tiles"):
+            cp.probe_masks(6, 48, 128, 40, 40, his, device="cpu")
+
+
+def test_t3d_signatures_keep_their_positional_order():
+    import inspect
+
+    names = lambda fn: list(inspect.signature(fn).parameters)  # noqa: E731
+    assert names(cp.probe_mask) == ["th", "ws", "cp", "h", "w", "hi", "device"]
+    assert names(cp.probe_masks) == ["th", "ws", "cp", "h", "w", "his",
+                                     "device"]
+    for fn in (cp.probe_mask, cp.probe_masks):
+        assert inspect.signature(fn).parameters["device"].default is None
+    assert names(cp.probe_roll) == ["x"]
+    assert names(cp.probe_roll_reference) == ["x"]
+
+
 def test_t3e_epilogue_exact(calls):
     jprobe.probe_epilogue()
     (acc, deq, b), want = calls[0]
@@ -169,6 +275,8 @@ def test_port_tool_probes_read_zero_on_cpu(capsys):
     out = capsys.readouterr().out
     assert bad == 0
     assert "round/clip: ndiff 0/1152" in out and "roll +1: ndiff 0" in out
+    for hi in (0, 3, 6):
+        assert f"mask hi={hi}: ndiff 0/49152" in out
     assert "epilogue chain: ndiff 0/32768 max 0.0" in out
     assert "full block B=2 H=19 W=19: ndiff 0/" in out
 
@@ -198,6 +306,10 @@ def test_cuda_requests_raise_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         cp.probe_mask(6, 48, 128, 40, 40, 0)             # default: the card
     with pytest.raises(RuntimeError, match="cuda"):
+        cp.probe_masks(6, 48, 128, 40, 40, (0, 3, 6))
+    with pytest.raises(RuntimeError, match="cuda"):
+        cp.probe_masks(6, 48, 128, 40, 40, (0, 3, 6), device=None)
+    with pytest.raises(RuntimeError, match="cuda"):
         cp.dot_operands(64, 64, 64, torch.int8, np.random.default_rng(0))
     for tool in (probe_block, bench_int8_dot, bench_dot, ablate_block):
         with pytest.raises(RuntimeError, match="cuda"):
@@ -213,6 +325,8 @@ def test_cuda_requests_raise_without_a_card():
                  lambda: cp.probe_round(torch.empty(4, device="meta")),
                  lambda: cp.probe_roll(torch.empty((1, 2, 2), dtype=torch.int8,
                                                    device="meta")),
+                 lambda: cp.probe_mask(6, 48, 128, 40, 40, 0, "meta"),
+                 lambda: cp.probe_masks(6, 48, 128, 40, 40, (0, 3), "meta"),
                  lambda: cp.probe_epilogue(
                      torch.empty((2, 2), dtype=torch.int32, device="meta"),
                      torch.empty(2, device="meta"), torch.empty(2, device="meta"),

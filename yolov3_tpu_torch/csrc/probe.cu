@@ -7,7 +7,7 @@
 //                                                     store mode
 //   T3b probe_round  -> probe_round_clip_kernel
 //   T3c probe_roll   -> probe_roll_kernel
-//   T3d probe_mask   -> probe_mask_kernel
+//   T3d probe_mask   -> probe_mask_kernel (every tile in one launch)
 //   T3e probe_epilogue -> probe_epilogue_kernel
 // The wrappers, plain versions and launch counts are in ops/cuda_probe.py.
 //
@@ -930,34 +930,119 @@ __global__ void probe_round_clip_kernel(const float* x, float* out, int n) {
 }
 
 // T3c: both circular shifts of an int8 (rows, lanes) plane along its rows,
-// int8 -> float32 -> int8 as the TPU probe. K6 takes its column taps from a
-// halo slab in shared memory, so the plane is staged there as well; block =
-// plane. out: (2, planes, rows, lanes): shift by +1, then by -1.
-__global__ void probe_roll_kernel(const int8_t* x, int8_t* out, int planes,
-                                  int rows, int lanes) {
-  extern __shared__ float plane[];
-  const long long size = (long long)rows * lanes;
-  const int8_t* src = x + blockIdx.x * size;
-  for (int i = threadIdx.x; i < size; i += blockDim.x)
-    plane[i] = (float)src[i];
+// int8 -> float32 -> int8 as the TPU probe. out: (2, planes, rows, lanes),
+// the shift by +1, then by -1. Bound by bytes (each input byte read once,
+// two written), and at the tool's (10, 48, 128) by the launch.
+//
+// A block takes 2^rows_lg rows of one plane and a chunk of 2^pieces_lg
+// 16-byte pieces of lanes (at most 512 bytes); ops/cuda_probe.plan_roll picks
+// both (8 rows and 8 pieces at the tool's shape: 60 blocks of 64 threads).
+// It stages its rows and the wrap-around row above and below them AS INT8 in
+// shared memory, 16 bytes a cp.async (wg_cp_async16, as K6 stages its halo
+// slab, whose row taps it then reads back from shared memory), so shared
+// memory is bounded by the chunk, never by the plane. Thread (row j, piece
+// q) then reads its piece of staged rows j and j + 2, takes each byte through
+// float32 and back in registers with K6's carries (k6_small_float,
+// k6_level_int), and writes one 16-byte piece of each output. No division
+// but one per block. Lanes that are no multiple of 16, or operands off the
+// 16-byte grid, take the same walk a byte at a time (VEC false).
+#define PR_PIECE 16
+#define PR_SMEM 5120  // (rows + 2) x pieces x 16 at rows x pieces <= 256
+
+__device__ __forceinline__ uint32_t probe_roundtrip4(uint32_t word) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int v = (int8_t)(word >> (8 * e));
+    out |= (uint32_t)(k6_level_int(k6_small_float(v)) & 0xff) << (8 * e);
+  }
+  return out;
+}
+
+template <bool VEC>
+__global__ void probe_roll_kernel(const int8_t* __restrict__ x,
+                                  int8_t* __restrict__ out, int planes,
+                                  int rows, int lanes, int row_chunks,
+                                  int pieces_lg, int rows_lg) {
+  __shared__ __align__(16) int8_t tile[PR_SMEM];
+  const int nrows = 1 << rows_lg, stride = PR_PIECE << pieces_lg;
+  const int plane = blockIdx.x / row_chunks;
+  const int r0 = (blockIdx.x - plane * row_chunks) << rows_lg;
+  const int here = min(nrows, rows - r0);
+  const int q = threadIdx.x & ((1 << pieces_lg) - 1);
+  const int j = threadIdx.x >> pieces_lg;
+  const int lane = blockIdx.y * stride + q * PR_PIECE;
+  const int width = min(PR_PIECE, lanes - lane);  // <= 0: past the lanes
+  const long long base = (long long)plane * rows * lanes + lane;
+  // rows r0 - 1 .. r0 + here, wrapped, as staged rows 0 .. here + 1
+  for (int s = j; s < here + 2; s += nrows) {
+    int r = r0 - 1 + s;
+    r = r < 0 ? r + rows : (r >= rows ? r - rows : r);
+    const int8_t* src = x + base + (long long)r * lanes;
+    int8_t* dst = tile + s * stride + q * PR_PIECE;
+    if (VEC) {
+      if (width > 0) wg_cp_async16(wg_smem_u32(dst), src, 16);
+    } else {
+      for (int e = 0; e < width; ++e) dst[e] = src[e];
+    }
+  }
+  if (VEC) {
+    wg_cp_async_commit();
+    wg_cp_async_wait<0>();
+  }
   __syncthreads();
-  for (int i = threadIdx.x; i < size; i += blockDim.x) {
-    const int r = i / lanes, l = i - r * lanes;
-    const int up = r == 0 ? rows - 1 : r - 1, down = r == rows - 1 ? 0 : r + 1;
-    out[blockIdx.x * size + i] = (int8_t)plane[up * lanes + l];
-    out[(planes + (long long)blockIdx.x) * size + i] =
-        (int8_t)plane[down * lanes + l];
+  if (j >= here || width <= 0) return;
+  const int8_t* up = tile + j * stride + q * PR_PIECE;  // row r - 1
+  const int8_t* down = up + 2 * stride;                  // row r + 1
+  int8_t* o_up = out + base + (long long)(r0 + j) * lanes;
+  int8_t* o_down = o_up + (long long)planes * rows * lanes;
+  if (VEC) {
+    const uint4 a = *reinterpret_cast<const uint4*>(up);
+    const uint4 b = *reinterpret_cast<const uint4*>(down);
+    *reinterpret_cast<uint4*>(o_up) =
+        make_uint4(probe_roundtrip4(a.x), probe_roundtrip4(a.y),
+                   probe_roundtrip4(a.z), probe_roundtrip4(a.w));
+    *reinterpret_cast<uint4*>(o_down) =
+        make_uint4(probe_roundtrip4(b.x), probe_roundtrip4(b.y),
+                   probe_roundtrip4(b.z), probe_roundtrip4(b.w));
+  } else {
+    for (int e = 0; e < width; ++e) {
+      o_up[e] = (int8_t)k6_level_int(k6_small_float(up[e]));
+      o_down[e] = (int8_t)k6_level_int(k6_small_float(down[e]));
+    }
   }
 }
 
-// T3d: K6's image-edge mask over a (rows, ws) slab whose first row sits at
-// image row row0, written across cp lanes as int32.
-__global__ void probe_mask_kernel(int* out, int rows, int cp, int ws, int row0,
-                                  int h, int w) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)rows * cp) return;
-  const int flat = (int)(i / cp);
-  out[i] = k6_slab_valid(flat, ws, row0, 0, h, w) ? 1 : 0;
+// T3d: K6's image-edge mask of one or more row tiles of a slab `ws` pixels
+// wide, tile t's first slab row at image row row0[t], each slab pixel's
+// validity written across cp lanes as int32: out (tiles, rows, cp). Bound by
+// the bytes it writes, and at the tool's three tiles by the launch. ONE
+// launch for every tile (the grid's y); a warp takes a slab pixel, evaluates
+// K6's own k6_slab_valid for it once (a value uniform over the warp, no
+// division by cp), and writes its cp lanes as 16-byte int4 stores, a 512-byte
+// row a store at the tool's cp = 128 (cp no multiple of 4: int stores).
+#define PM_WARPS 8
+#define PM_MAX_TILES 64
+
+struct ProbeMaskTiles {
+  int row0[PM_MAX_TILES];
+};
+
+__global__ void probe_mask_kernel(int* __restrict__ out, int rows, int cp,
+                                  int ws, int h, int w,
+                                  const ProbeMaskTiles tiles) {
+  const int lane = threadIdx.x & 31;
+  const int flat = blockIdx.x * PM_WARPS + (threadIdx.x >> 5);
+  if (flat >= rows) return;
+  const int v = k6_slab_valid(flat, ws, tiles.row0[blockIdx.y], 0, h, w);
+  int* dst = out + ((long long)blockIdx.y * rows + flat) * cp;
+  if (cp % 4 == 0) {
+    const int4 v4 = make_int4(v, v, v, v);
+    for (int c = lane; c < cp / 4; c += 32)
+      reinterpret_cast<int4*>(dst)[c] = v4;
+  } else {
+    for (int c = lane; c < cp; c += 32) dst[c] = v;
+  }
 }
 
 // T3e: K6's conv epilogue: int32 sum -> * deq + b -> leaky -> requantize.
@@ -1101,30 +1186,55 @@ extern "C" int yolo_probe_round_clip(const float* x, float* out, int n,
   return (int)cudaGetLastError();
 }
 
+// T3c. x (planes, rows, lanes) int8 contiguous, out (2, planes, rows, lanes);
+// blocks of 2^rows_lg rows x 2^pieces_lg 16-byte pieces (ops/cuda_probe.py
+// plan_roll); vec: 16-byte pieces, lanes a multiple of 16 and both operands
+// 16-byte aligned, else byte by byte.
 extern "C" int yolo_probe_roll(const void* x, void* out, int planes, int rows,
-                               int lanes, void* stream) {
-  const size_t smem = (size_t)rows * lanes * sizeof(float);
-  if (planes < 1 || rows < 1 || lanes < 1 || smem > 227 * 1024)
+                               int lanes, int pieces_lg, int rows_lg, int vec,
+                               void* stream) {
+  if (planes < 1 || rows < 1 || lanes < 1 || pieces_lg < 0 || pieces_lg > 5 ||
+      rows_lg < 0 || rows_lg > 8 ||
+      ((1 << rows_lg) + 2) * (PR_PIECE << pieces_lg) > PR_SMEM ||
+      (1 << (rows_lg + pieces_lg)) > 256 ||
+      (vec && (lanes % PR_PIECE ||
+               reinterpret_cast<uintptr_t>(x) % 16 ||
+               reinterpret_cast<uintptr_t>(out) % 16)))
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        probe_roll_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  probe_roll_kernel<<<planes, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), planes, rows,
-      lanes);
+  const int row_chunks = (rows + (1 << rows_lg) - 1) >> rows_lg;
+  const long long lane_chunks =
+      ((long long)lanes + (PR_PIECE << pieces_lg) - 1) / (PR_PIECE << pieces_lg);
+  if ((long long)planes * row_chunks > 0x7fffffff || lane_chunks > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(planes * row_chunks), (unsigned)lane_chunks);
+  const int threads = 1 << (rows_lg + pieces_lg);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* src = static_cast<const int8_t*>(x);
+  int8_t* dst = static_cast<int8_t*>(out);
+  if (vec)
+    probe_roll_kernel<true><<<grid, threads, 0, s>>>(
+        src, dst, planes, rows, lanes, row_chunks, pieces_lg, rows_lg);
+  else
+    probe_roll_kernel<false><<<grid, threads, 0, s>>>(
+        src, dst, planes, rows, lanes, row_chunks, pieces_lg, rows_lg);
   return (int)cudaGetLastError();
 }
 
-extern "C" int yolo_probe_mask(int* out, int rows, int cp, int ws, int row0,
-                               int h, int w, void* stream) {
-  if (rows < 1 || cp < 1 || ws < 1) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)rows * cp;
-  probe_mask_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+// T3d. out (tiles, rows, cp) int32, 16-byte aligned; row0s: `tiles` (1 to
+// PM_MAX_TILES) first image rows, a host array passed in the launch's
+// parameters.
+extern "C" int yolo_probe_masks(int* out, int rows, int cp, int ws,
+                                const int* row0s, int tiles, int h, int w,
+                                void* stream) {
+  if (rows < 1 || cp < 1 || ws < 1 || tiles < 1 || tiles > PM_MAX_TILES ||
+      !row0s || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  ProbeMaskTiles t = {};
+  for (int i = 0; i < tiles; ++i) t.row0[i] = row0s[i];
+  const dim3 grid((unsigned)((rows + PM_WARPS - 1) / PM_WARPS), tiles);
+  probe_mask_kernel<<<grid, 32 * PM_WARPS, 0,
                       static_cast<cudaStream_t>(stream)>>>(out, rows, cp, ws,
-                                                           row0, h, w);
+                                                           h, w, t);
   return (int)cudaGetLastError();
 }
 

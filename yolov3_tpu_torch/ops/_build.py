@@ -133,12 +133,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.yolo_probe_dot_grid.argtypes = [p, p, p, p, i32, i32, i32, i32, i32,
                                         i32, p, p]
     lib.yolo_probe_round_clip.argtypes = [p, p, i32, p]
-    lib.yolo_probe_roll.argtypes = [p, p, i32, i32, i32, p]
-    lib.yolo_probe_mask.argtypes = [p, i32, i32, i32, i32, i32, i32, p]
+    lib.yolo_probe_roll.argtypes = [p, p, i32, i32, i32, i32, i32, i32, p]
+    lib.yolo_probe_masks.argtypes = [p, i32, i32, i32,
+                                     ctypes.POINTER(ctypes.c_int), i32, i32,
+                                     i32, p]
     lib.yolo_probe_epilogue.argtypes = [p, p, p, f32, p, i32, i32, p]
     for fn in (lib.yolo_probe_dot, lib.yolo_probe_dot_grid,
                lib.yolo_probe_round_clip, lib.yolo_probe_roll,
-               lib.yolo_probe_mask, lib.yolo_probe_epilogue,
+               lib.yolo_probe_masks, lib.yolo_probe_epilogue,
                lib.yolo_decode_heads,
                lib.yolo_decode_packed_fused_head, lib.yolo_conv3x3_fused,
                lib.yolo_nms_suppress, lib.yolo_decode_full,

@@ -12,7 +12,8 @@ T2        ``tools/bench_pallas_dot.py :: timed_grid`` :func:`dot_grid`
 T3a       ``tools/probe_block.py :: probe_int8_dot``  :func:`probe_int8_dot`
 T3b       ``probe_block.py :: probe_round``           :func:`probe_round`
 T3c       ``probe_block.py :: probe_roll``            :func:`probe_roll`
-T3d       ``probe_block.py :: probe_mask``            :func:`probe_mask`
+T3d       ``probe_block.py :: probe_mask``            :func:`probe_mask`,
+                                                      :func:`probe_masks`
 T3e       ``probe_block.py :: probe_epilogue``        :func:`probe_epilogue`
 ========  ==========================================  =====================
 
@@ -25,9 +26,10 @@ tensor cores by ``wgmma``; T2 is a bf16 product with both projections on
 :func:`dot_product` is T1's kernel in T3a's store mode for any core: the
 bare product, the function a library call computes. They are bound by
 operations at the large shapes and by the launch and the serial finish at
-the small ones; the operands stay in L2. T3b, T3d and T3e run K6's own
-``__device__`` functions (``csrc/block_int8_common.cuh``) and are bound by
-the launch at their sizes.
+the small ones; the operands stay in L2. T3b–e run K6's own
+``__device__`` functions (``csrc/block_int8_common.cuh``; T3c stages its
+rows with K6's ``cp.async`` helper) and are bound by the launch at their
+sizes; T3d runs any number of row tiles in one launch.
 
 Every wrapper launches its kernel on the current stream for a CUDA tensor
 (counted in ``<wrapper>.launches``) or raises; for a CPU tensor, and only
@@ -35,6 +37,7 @@ then, it runs the plain version beside it.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -379,10 +382,50 @@ def probe_roll_reference(x: torch.Tensor) -> torch.Tensor:
                         torch.roll(x32, -1, 1).to(torch.int8)])
 
 
+ROLL_PIECE = 16        # PR_PIECE in csrc/probe.cu: bytes a thread moves
+ROLL_SMEM = 5120       # PR_SMEM: a block's staged rows, bytes
+
+
+class RollPlan(NamedTuple):
+    """The blocks of a T3c launch (``probe_roll_kernel`` in ``csrc/probe.cu``)."""
+    pieces_lg: int        # log2 of a block's 16-byte pieces of lanes (<= 5)
+    rows_lg: int          # log2 of a block's rows
+    vec: bool             # 16-byte pieces; else the same walk byte by byte
+    grid: Tuple[int, int]  # (planes x row chunks, lane chunks)
+    threads: int          # one a (row, piece)
+    smem: int             # staged bytes: the rows and one above and below
+
+
+def plan_roll(planes: int, rows: int, lanes: int, vec: bool = True
+              ) -> RollPlan:
+    """T3c's blocks for an int8 (planes, rows, lanes) input: the lanes'
+    16-byte pieces rounded up to a power of two, at most 32 (512 bytes) a
+    block; 8 rows a block, more where the pieces are fewer than 8, so that a
+    block has at least 64 threads and at most 256. Shared memory is bounded
+    by the block, whatever the plane: (rows + 2) x pieces x 16 bytes. At the
+    tool's (10, 48, 128): 8 rows x 8 pieces, 60 blocks of 64 threads. ``vec``
+    False (lanes no multiple of 16, or an operand off the 16-byte grid)
+    walks the same blocks a byte at a time."""
+    if min(planes, rows, lanes) < 1:
+        raise ValueError(f"T3c needs a non-empty (P, R, L), got "
+                         f"{(planes, rows, lanes)}")
+    pieces = -(-lanes // ROLL_PIECE)
+    pieces_lg = min(5, (pieces - 1).bit_length())
+    rows_lg = max(3, 6 - pieces_lg)
+    chunk = ROLL_PIECE << pieces_lg
+    grid = (planes * -(-rows // (1 << rows_lg)), -(-lanes // chunk))
+    if grid[0] > 2 ** 31 - 1 or grid[1] > 65535:
+        raise ValueError(f"T3c's grid {grid} exceeds the card's limits")
+    return RollPlan(pieces_lg, rows_lg, vec and lanes % ROLL_PIECE == 0, grid,
+                    1 << (rows_lg + pieces_lg), ((1 << rows_lg) + 2) * chunk)
+
+
 def probe_roll(x: torch.Tensor) -> torch.Tensor:
     """T3c: int8 (P, R, L) → float32 → circular shift by +1 and by −1 along
-    axis 1 → int8 (2, P, R, L). The card stages each (R, L) plane in shared
-    memory, where K6 keeps the halo slab its column taps come from."""
+    axis 1 → int8 (2, P, R, L). On the card each block stages a chunk of
+    rows of one plane and the wrap-around rows beside it as int8 in shared
+    memory, where K6 keeps the halo slab its row taps come from
+    (:func:`plan_roll`); any plane size."""
     if x.dim() != 3 or x.dtype != torch.int8 or not x.is_contiguous():
         raise ValueError(f"x must be contiguous int8 (P, R, L), got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -391,19 +434,21 @@ def probe_roll(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"CUDA or CPU tensors, got {x.device}")
     p, r, lanes = x.shape
-    if 4 * r * lanes > 227 * 1024:
-        raise ValueError(f"a ({r}, {lanes}) float32 plane exceeds a block's "
-                         f"shared memory")
+    plan = plan_roll(p, r, lanes, vec=x.data_ptr() % 16 == 0)
     out = torch.empty((2, p, r, lanes), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
-        rc = load_kernels().yolo_probe_roll(x.data_ptr(), out.data_ptr(), p,
-                                            r, lanes, _stream(x))
+        rc = load_kernels().yolo_probe_roll(
+            x.data_ptr(), out.data_ptr(), p, r, lanes, plan.pieces_lg,
+            plan.rows_lg, int(plan.vec), _stream(x))
     check_launch(rc, "probe_roll")
     probe_roll.launches += 1
     return out
 
 
 probe_roll.launches = 0
+
+
+MASK_MAX_TILES = 64    # PM_MAX_TILES in csrc/probe.cu
 
 
 def probe_mask_reference(th: int, ws: int, cp: int, h: int, w: int, hi: int,
@@ -416,22 +461,62 @@ def probe_mask_reference(th: int, ws: int, cp: int, h: int, w: int, hi: int,
     return valid.to(torch.int32).expand(rows1, cp).contiguous()
 
 
+def probe_masks_reference(th: int, ws: int, cp: int, h: int, w: int, his,
+                          device="cpu") -> torch.Tensor:
+    return torch.stack([probe_mask_reference(th, ws, cp, h, w, hi, device)
+                        for hi in his])
+
+
+def _masks(th: int, ws: int, cp: int, h: int, w: int, his, device
+           ) -> torch.Tensor:
+    """T3d's one launch for the row tiles ``his`` on a CUDA device."""
+    if device.type != "cuda":
+        raise ValueError(f"CUDA or CPU tensors, got {device}")
+    rows1 = (th + 2) * ws
+    out = torch.empty((len(his), rows1, cp), dtype=torch.int32, device=device)
+    row0s = (ctypes.c_int * len(his))(*(hi * th - 1 for hi in his))
+    with torch.cuda.device(device):
+        rc = load_kernels().yolo_probe_masks(
+            out.data_ptr(), rows1, cp, ws, row0s, len(his), h, w,
+            torch.cuda.current_stream(device).cuda_stream)
+    check_launch(rc, "probe_masks")
+    return out
+
+
+def probe_masks(th: int, ws: int, cp: int, h: int, w: int, his,
+                device=None) -> torch.Tensor:
+    """T3d for several row tiles in ONE launch: the masks of
+    :func:`probe_mask` for each ``hi`` in ``his`` (1 to
+    :data:`MASK_MAX_TILES` of them), stacked → int32 (len(his), (th+2)·ws,
+    cp). On the card a warp takes a slab pixel, evaluates K6's
+    ``k6_slab_valid`` once for it and writes its ``cp`` lanes in 16-byte
+    stores. ``device=None`` is the card."""
+    his = [int(hi) for hi in his]
+    if not 1 <= len(his) <= MASK_MAX_TILES:
+        raise ValueError(f"T3d takes 1 to {MASK_MAX_TILES} row tiles a "
+                         f"launch, got {len(his)}")
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return probe_masks_reference(th, ws, cp, h, w, his)
+    out = _masks(th, ws, cp, h, w, his, device)
+    probe_masks.launches += 1
+    return out
+
+
+probe_masks.launches = 0
+
+
 def probe_mask(th: int, ws: int, cp: int, h: int, w: int, hi: int,
                device=None) -> torch.Tensor:
     """T3d: the validity mask of row tile ``hi`` (``th`` rows and a one-row
     halo either side, slab width ``ws``) of an (h, w) image, from the flat
     row index: ``//``, ``%`` and three compares → int32 ((th+2)·ws, cp).
-    K6's edge mask (``k6_slab_valid``). ``device=None`` is the card."""
+    K6's edge mask (``k6_slab_valid``); on the card the one-tile launch of
+    :func:`probe_masks`. ``device=None`` is the card."""
     device = resolve_device(device)
     if device.type == "cpu":
         return probe_mask_reference(th, ws, cp, h, w, hi)
-    rows1 = (th + 2) * ws
-    out = torch.empty((rows1, cp), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        rc = load_kernels().yolo_probe_mask(
-            out.data_ptr(), rows1, cp, ws, hi * th - 1, h, w,
-            torch.cuda.current_stream(device).cuda_stream)
-    check_launch(rc, "probe_mask")
+    out = _masks(th, ws, cp, h, w, [int(hi)], device)[0]
     probe_mask.launches += 1
     return out
 

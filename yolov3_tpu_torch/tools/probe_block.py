@@ -110,13 +110,15 @@ def mask_reference(th: int, ws: int, cp: int, h: int, w: int, hi: int
 
 
 def probe_mask(device=None) -> int:
+    """The edge mask of row tiles 0, 3 and 6, all three in one launch."""
     device = resolve_device(device)
     th, ws, cp, h, w = 6, 48, 128, 40, 40
+    his = (0, 3, 6)
+    out = cuda_probe.probe_masks(th, ws, cp, h, w, his, device=device)
     bad = 0
-    for hi in (0, 3, 6):
-        out = cuda_probe.probe_mask(th, ws, cp, h, w, hi, device=device)
+    for hi, got in zip(his, out.cpu().numpy()):
         ref = mask_reference(th, ws, cp, h, w, hi)
-        nd = int((out.cpu().numpy() != ref).sum())
+        nd = int((got != ref).sum())
         bad += nd
         _say(f"mask hi={hi}: ndiff {nd}/{ref.size}")
     return bad

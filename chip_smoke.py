@@ -123,9 +123,13 @@ each raises on failure (the build always runs):
     ``mma.sync`` and on ``__dp4a``, round / clip, the row shifts, the edge
     mask, the float epilogue) against their plain versions and the tool's
     exact host values, then ``tools.probe_block``'s full blocks and chain
-    prefixes: 0 differences everywhere; T3a-e by graph replay beside their
-    wrapper times, and T3c's two outputs as two ``torch.roll`` calls (its
-    library call; T3b, T3d and T3e have none);
+    prefixes: 0 differences everywhere; T3b and T3e also at ragged sizes,
+    off the 16-byte grid and at K6's epilogue size (11,075,584 elements);
+    T3a-e by graph replay beside their wrapper times, and T3c's two outputs
+    as two ``torch.roll`` calls (its library call; T3b, T3d and T3e have
+    none); T3b and T3e at K6's size beside ``copy_`` of the same bytes
+    (``tools.bench_requant``), T3b-e beside the launch floor (one float's
+    ``zero_()``);
 17. dots: T1 (int8 ``wgmma``, int8 ``mma.sync``, int8 ``__dp4a``, bf16
     ``wgmma``) and T2 over the tools' shape lists, checked against their
     plain versions, then timed by the tools' own clocks: time per step,
@@ -2809,9 +2813,13 @@ def phase_probes(card: str):
     """T3a-e against their plain versions and against the exact host values
     of the tool, then the tool's own path (``tools.probe_block``) with the
     launch counts zeroed before it: 0 differences everywhere. T3b-e by graph
-    replay beside the launch floor (T3b on one element)."""
+    replay beside the launch floor (one float's ``zero_()``); T3b and T3e
+    also at K6's epilogue size beside ``copy_`` of the same bytes. Every T3
+    time by graph replay is ``tools.bench_requant.replay_ms``: the least of
+    five replays of 20 calls."""
     import torch
     from yolov3_tpu_torch.ops import cuda_probe as cp
+    from yolov3_tpu_torch.tools import bench_requant as br
     from yolov3_tpu_torch.tools import probe_block as pb
 
     dev = torch.device(DEVICE)
@@ -2846,23 +2854,79 @@ def phase_probes(card: str):
         library_ms=_sum_ms(torch._int_mm, dots), ops=ops, nbytes=nbytes,
         peak=INT8_OPS_PER_S,
         # device time alone (CUDA graph replay), beside the eager sums
-        graph_ms=sum(graph_ms(lambda: cp.probe_int8_dot(a, b, "wgmma_s8"))
+        graph_ms=sum(br.replay_ms(lambda: cp.probe_int8_dot(a, b, "wgmma_s8"))
                      for a, b in dots),
-        graph_ms_mma=sum(graph_ms(lambda: cp.probe_int8_dot(a, b, "mma_s8"))
+        graph_ms_mma=sum(br.replay_ms(lambda: cp.probe_int8_dot(a, b, "mma_s8"))
                          for a, b in dots),
-        library_graph_ms=sum(graph_ms(lambda: torch._int_mm(a, b))
+        library_graph_ms=sum(br.replay_ms(lambda: torch._int_mm(a, b))
                              for a, b in dots))
     log(f"[probes] T3a over {len(dots)} shapes: wgmma "
         f"{rec['T3a']['ms']:.4f} ms eager, {rec['T3a']['graph_ms']:.4f} ms "
         f"graph replay; mma.sync {rec['T3a']['ms_mma']:.4f} / "
         f"{rec['T3a']['graph_ms_mma']:.4f} ms; torch._int_mm "
         f"{rec['T3a']['library_ms']:.4f} / {rec['T3a']['library_graph_ms']:.4f} ms")
-    # T3b-e at the tool's inputs
-    x = torch.from_numpy(pb.round_inputs()).to(dev)
-    err = same(cp.probe_round(x), cp.probe_round_reference(x), "T3b")
+    def on_card(a: np.ndarray, off_grid: bool = False):
+        """``a`` on the card, its data 4 bytes past the 16-byte grid if
+        ``off_grid`` (the kernels' one-at-a-time walk)."""
+        t = torch.from_numpy(a).to(dev)
+        if not off_grid:
+            return t
+        moved = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+        return moved.copy_(t.reshape(-1)).view(t.shape)
+
+    def round_case(a: np.ndarray, what: str, off_grid: bool = False):
+        """T3b against its plain version and the tool's host values
+        (numpy's half to even, clipped); returns (max |err|, plan, the input
+        on the card, the plain version's output)."""
+        t = on_card(a, off_grid)
+        plan = cp.plan_elementwise(t.numel(), t.data_ptr() % 16 == 0)
+        if plan.vec == off_grid:
+            raise AssertionError(f"T3b {what}: {plan}")
+        got, want = cp.probe_round(t), cp.probe_round_reference(t)
+        e = same(got, want, f"T3b {what}")
+        host = np.clip(np.round(a), -127, 127)
+        if not np.array_equal(got.cpu().numpy(), host):
+            raise AssertionError(f"T3b {what}: differs from the host values")
+        return e, plan, t, want
+
+    def epilogue_case(acc, deq, b, inv, what: str, off_grid: bool = False):
+        """T3e against its plain version and the tool's numpy float32 chain;
+        returns (max |err|, plan, a dict of the inputs on the card and the
+        plain version's output, as ``tools.bench_requant.k6_cases``)."""
+        ta = on_card(acc, off_grid)
+        td, tb = on_card(deq), on_card(b)
+        plan = cp.plan_epilogue(*ta.shape, ta.data_ptr() % 16 == 0)
+        if plan.vec != (not off_grid and acc.shape[1] % 4 == 0):
+            raise AssertionError(f"T3e {what}: {plan}")
+        got = cp.probe_epilogue(ta, td, tb, inv)
+        want = cp.probe_epilogue_reference(ta, td, tb, inv)
+        e = same(got, want, f"T3e {what}")
+        if not np.array_equal(got.cpu().numpy(),
+                              pb.epilogue_reference(acc, deq, b, inv)):
+            raise AssertionError(f"T3e {what}: differs from the host values")
+        return e, plan, dict(acc=ta, deq=td, b=tb, inv=inv, want_epilogue=want)
+
+    # T3b at the tool's inputs (one block), ragged counts (the tail alone,
+    # pieces and a tail), off the 16-byte grid, and at K6's epilogue size
+    xn = pb.round_inputs()
+    x = torch.from_numpy(xn).to(dev)
+    err, plan_b, _, _ = round_case(xn, "the tool's (8, 144)")
+    if plan_b.blocks != 1:
+        raise AssertionError(f"T3b at the tool's inputs: {plan_b}")
+    flat = np.resize(xn.reshape(-1), 1153)
+    for n in (1, 3, 1153):
+        err = max(err, round_case(flat[:n].copy(), f"n={n}")[0])
+    err = max(err, round_case(xn, "off the 16-byte grid", off_grid=True)[0])
+    xk = br.k6_round_input()
+    e, plan_bk, xk_card, want_bk = round_case(xk, f"K6's {xk.size:,} floats")
+    err = max(err, e)
+    log(f"[probes] T3b exact at the tool's (8, 144) ({plan_b.blocks} block), "
+        f"n = 1, 3, 1,153, off the 16-byte grid and K6's {xk.size:,} floats "
+        f"({plan_bk.blocks} blocks of {plan_bk.threads}, a piece a thread)")
     rec["T3b"] = dict(max_abs_err=err, ms=cuda_ms(lambda: cp.probe_round(x)),
                       plain_ms=cuda_ms(lambda: cp.probe_round_reference(x)),
-                      nbytes=8 * x.numel(), ops=3 * x.numel())
+                      nbytes=8 * x.numel(), ops=3 * x.numel(),
+                      blocks=plan_b.blocks, blocks_k6=plan_bk.blocks)
     # T3c bit for bit at the tool's shape, a plane above 227 KB as float32 (a
     # block's most shared memory), lanes no multiple of 16 (the byte walk),
     # several 512-byte lane chunks, one row, and an input off the 16-byte grid
@@ -2909,33 +2973,66 @@ def phase_probes(card: str):
                           *mask_args, his, device=dev)),
                       nbytes=4 * len(his) * rows1 * 128, ops=5 * len(his) * rows1,
                       tiles=len(his))
-    acc, deq, b, inv = pb.epilogue_inputs()
-    acc, deq, b = (torch.from_numpy(a).to(dev) for a in (acc, deq, b))
-    err = same(cp.probe_epilogue(acc, deq, b, inv),
-               cp.probe_epilogue_reference(acc, deq, b, inv), "T3e")
+    # T3e at the tool's inputs, cols 100 and 6 (6: the scalar walk), off the
+    # 16-byte grid, and at K6's epilogue size
+    acc_n, deq_n, b_n, inv = pb.epilogue_inputs()
+    err, plan_e, _ = epilogue_case(acc_n, deq_n, b_n, inv,
+                                   "the tool's (256, 128)")
+    for rows, cols in ((1000, 100), (37, 6)):
+        args = (rng.integers(-2_000_000, 2_000_000, (rows, cols)).astype(np.int32),
+                rng.uniform(1e-6, 1e-4, cols).astype(np.float32),
+                rng.normal(0, 0.05, cols).astype(np.float32))
+        err = max(err, epilogue_case(*args, inv, f"({rows}, {cols})")[0])
+    err = max(err, epilogue_case(acc_n, deq_n, b_n, inv,
+                                 "off the 16-byte grid", off_grid=True)[0])
+    k6_args = br.k6_epilogue_inputs()
+    e, plan_ek, k6 = epilogue_case(*k6_args, f"K6's {k6_args[0].shape}")
+    err = max(err, e)
+    log(f"[probes] T3e exact at the tool's (256, 128) (grid {plan_e.grid}), "
+        f"cols 100 and 6, off the 16-byte grid and K6's {k6_args[0].shape} "
+        f"(grid {plan_ek.grid} of {plan_ek.threads}, a row a thread)")
+    acc, deq, b = (torch.from_numpy(a).to(dev) for a in (acc_n, deq_n, b_n))
     rec["T3e"] = dict(max_abs_err=err, ms=cuda_ms(lambda: cp.probe_epilogue(acc, deq, b, inv)),
                       plain_ms=cuda_ms(lambda: cp.probe_epilogue_reference(
                           acc, deq, b, inv)),
-                      nbytes=8 * acc.numel() + 8 * deq.numel(), ops=6 * acc.numel())
-    # T3b-e as device time alone (CUDA graph replay), beside the wrapper
-    # times above (about 25 us of host work a call)
-    rec["T3b"]["graph_ms"] = graph_ms(lambda: cp.probe_round(x))
-    rec["T3c"]["graph_ms"] = graph_ms(lambda: cp.probe_roll(xr))
+                      nbytes=8 * acc.numel() + 8 * deq.numel(), ops=6 * acc.numel(),
+                      blocks=plan_e.grid[0] * plan_e.grid[1],
+                      blocks_k6=plan_ek.grid[0] * plan_ek.grid[1])
+    del k6_args, xk
+    # T3b and T3e by graph replay at the tool's inputs and at K6's size (the
+    # inputs checked above), beside the launch floor (one float's zero_())
+    # and copy_ of K6's bytes
+    t = br.measure(dev, dict(k6, x=xk_card, want_round=want_bk))
+    del k6, xk_card, want_bk
+    for key, short in (("T3b", "t3b"), ("T3e", "t3e")):
+        us, k6_us = t[f"{short}_tool_us"], t[f"{short}_k6_us"]
+        rec[key].update(graph_ms=us / 1e3, graph_ms_k6=k6_us / 1e3,
+                        copy_ms_k6=t["copy_k6_us"] / 1e3,
+                        gbps_k6=t["k6_bytes"] / k6_us / 1e3,
+                        bound_ms_k6=t["k6_bytes"] / HBM_BYTES_PER_S * 1e3,
+                        share_of_copy_k6=t["copy_k6_us"] / k6_us)
+    log(f"[probes] K6's size ({br.K6_ELEMENTS:,} elements, "
+        f"{t['k6_bytes'] / 1e6:.1f} MB moved, bound "
+        f"{rec['T3b']['bound_ms_k6'] * 1e3:.2f} us) by graph replay: " + ", ".join(
+            f"{key} {rec[key]['graph_ms_k6'] * 1e3:.2f} us "
+            f"({rec[key]['gbps_k6']:.0f} GB/s, "
+            f"{rec[key]['bound_ms_k6'] / rec[key]['graph_ms_k6']:.1%} of the "
+            f"bound, {rec[key]['share_of_copy_k6']:.1%} of copy_'s rate)"
+            for key in ("T3b", "T3e"))
+        + f"; copy_ of the same bytes {t['copy_k6_us']:.2f} us "
+        f"({t['k6_bytes'] / t['copy_k6_us'] / 1e3:.0f} GB/s); on {card}")
+    rec["T3c"]["graph_ms"] = br.replay_ms(lambda: cp.probe_roll(xr))
     # the library's counterpart of T3c: one torch.roll call per output
     rolls = (torch.roll(xr, 1, 1), torch.roll(xr, -1, 1))
     if not torch.equal(torch.stack(rolls), cp.probe_roll(xr)):
         raise AssertionError("T3c: torch.roll differs from the kernel")
-    rec["T3c"]["library_ms"] = graph_ms(
+    rec["T3c"]["library_ms"] = br.replay_ms(
         lambda: (torch.roll(xr, 1, 1), torch.roll(xr, -1, 1)))
-    rec["T3d"]["graph_ms"] = graph_ms(
+    rec["T3d"]["graph_ms"] = br.replay_ms(
         lambda: cp.probe_masks(*mask_args, his, device=dev))
-    rec["T3d"]["graph_ms_one_tile"] = graph_ms(
+    rec["T3d"]["graph_ms_one_tile"] = br.replay_ms(
         lambda: cp.probe_mask(*mask_args, 3, device=dev))
-    rec["T3e"]["graph_ms"] = graph_ms(
-        lambda: cp.probe_epilogue(acc, deq, b, inv))
-    # the launch floor: T3b on one element, a launch with next to no work
-    one = x.reshape(-1)[:1].clone()
-    floor_ms = graph_ms(lambda: cp.probe_round(one))
+    floor_ms = t["floor_us"] / 1e3
     for key in ("T3b", "T3c", "T3d", "T3e"):
         rec[key]["floor_ms"] = floor_ms
     log("[probes] T3b-e by graph replay: " + ", ".join(
@@ -2944,8 +3041,8 @@ def phase_probes(card: str):
         + f"; T3d is the tool's three tiles in one launch (one tile "
         f"{rec['T3d']['graph_ms_one_tile'] * 1e3:.2f} us); T3c's two outputs as "
         f"two torch.roll calls {rec['T3c']['library_ms'] * 1e3:.2f} us (T3b, "
-        f"T3d and T3e have no single library call); the launch floor (T3b on "
-        f"one element) {floor_ms * 1e3:.2f} us; on {card}")
+        f"T3d and T3e have no single library call); the launch floor (one "
+        f"float's zero_()) {floor_ms * 1e3:.2f} us; on {card}")
     log("[probes] T3a-e equal their plain versions on the card (T3a at "
         f"{len(dots)} shapes, wgmma, mma.sync and __dp4a)")
     # the tool's path: exact host values, the reference's wording
@@ -4284,7 +4381,9 @@ def probe_records(dots, probes, bound):
                  "library_ms": v.get("library_ms"),
                  "graph_ms": v["graph_ms"],
                  **{k: v[k] for k in ("floor_ms", "graph_ms_one_tile", "blocks",
-                                      "tiles") if k in v}}
+                                      "tiles", "blocks_k6", "graph_ms_k6",
+                                      "bound_ms_k6", "gbps_k6", "copy_ms_k6",
+                                      "share_of_copy_k6") if k in v}}
         if "ms_dp4a" in v:
             for key in ("ms_mma", "ms_dp4a", "graph_ms", "graph_ms_mma",
                         "library_graph_ms"):

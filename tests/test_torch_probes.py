@@ -265,6 +265,186 @@ def test_t3e_epilogue_exact(calls):
     assert len(np.unique(got)) > 100   # the quantized range is exercised
 
 
+# T3b at the tool's 1,152 floats, ragged counts (the tail alone, pieces plus
+# one), and K6's epilogue at yolov3@416 B=8 (8 x 104 x 104 x 128)
+K6_EPILOGUE = (8 * 104 * 104, 128)
+ROUND_COUNTS = (1152, 1, 3, 1153, K6_EPILOGUE[0] * K6_EPILOGUE[1])
+# T3e at the tool's (256, 128), cols 100 and 6 (6: the scalar walk), K6's
+EPILOGUE_SHAPES = ((256, 128), (1000, 100), (37, 6), K6_EPILOGUE)
+
+
+def _round_writes(n: int, plan) -> np.ndarray:
+    """Writes per element of ``probe_round_clip_kernel``'s grid-stride walk
+    from ``plan``: thread t takes pieces t, t + stride, ... (four floats
+    each), then the floats after the pieces one at a time."""
+    counts = np.zeros(n, np.int64)
+    stride = plan.blocks * plan.threads
+    t = np.arange(stride)
+    for k in range(-(-plan.pieces // stride)):
+        p = t + k * stride
+        p = p[p < plan.pieces]
+        for e in range(4):
+            counts[4 * p + e] += 1
+    for k in range(-(-plan.tail // stride)):
+        i = 4 * plan.pieces + t + k * stride
+        counts[i[i < n]] += 1
+    return counts
+
+
+@pytest.mark.parametrize("grid_limit", [None, 1])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", ROUND_COUNTS)
+def test_t3b_plan_covers_every_element_once(n, aligned, grid_limit,
+                                            monkeypatch):
+    """T3b's grid (:func:`plan_elementwise`): 16-byte pieces plus a tail of
+    n % 4 floats (every float one by one off the 16-byte grid) cover the
+    tensor, each element written once: one piece a thread up to the grid's
+    limit, a stride walking the rest (``grid_limit`` 1 stands in for the
+    card's 2^31 - 1 blocks); the tool's 1,152 floats take one block."""
+    if grid_limit:
+        monkeypatch.setattr(cp, "GRID_X_MAX", grid_limit)
+    plan = cp.plan_elementwise(n, aligned)
+    assert plan.vec == aligned and plan.threads == cp.EW_THREADS
+    assert 4 * plan.pieces + plan.tail == n
+    assert plan.tail == (n % 4 if aligned else n)
+    units = max(plan.pieces, plan.tail)
+    assert plan.blocks == min(-(-units // plan.threads), cp.GRID_X_MAX)
+    assert (_round_writes(n, plan) == 1).all()
+    if n == 1152 and aligned:
+        assert plan.blocks == 1 and plan.pieces == 288
+    if n == ROUND_COUNTS[-1] and aligned:   # K6's size
+        assert plan.blocks == (grid_limit or 5408)
+    with pytest.raises(ValueError, match="at least one"):
+        cp.plan_elementwise(0)
+
+
+def _epilogue_writes(rows: int, cols: int, plan):
+    """Writes per row and per column of ``probe_epilogue_kernel``'s walk
+    from ``plan``: lane (bx, tx) owns columns 4 (32 bx + tx) .. + 3 (fewer
+    at the edge), row thread (by, ty) rows by * 8 + ty stepping by grid y
+    x 8. An element is written once a (lane, row thread) pair, so once in
+    all where every row and every column is taken once."""
+    (gx, gy), (lanes, nrows) = plan.grid, plan.threads
+    col_hits = np.zeros(cols, np.int64)
+    for bx in range(gx):
+        for tx in range(lanes):
+            c0 = (bx * lanes + tx) * 4
+            if c0 < cols:
+                col_hits[c0:min(c0 + 4, cols)] += 1
+    row_hits = np.zeros(rows, np.int64)
+    step = gy * nrows
+    for by in range(gy):
+        for ty in range(nrows):
+            row_hits[by * nrows + ty::step] += 1
+    return row_hits, col_hits
+
+
+@pytest.mark.parametrize("grid_limit", [None, 1])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_t3e_plan_covers_every_element_once(shape, aligned, grid_limit,
+                                            monkeypatch):
+    """T3e's grid (:func:`plan_epilogue`): x covers the columns in chunks of
+    128, y runs of 8 rows, one row a thread up to the grid's y limit, a
+    stride walking the rest (``grid_limit`` 1 stands in for the card's
+    65,535); 16-byte pieces only where cols % 4 == 0 and the operands are
+    aligned."""
+    if grid_limit:
+        monkeypatch.setattr(cp, "GRID_Y_MAX", grid_limit)
+    rows, cols = shape
+    plan = cp.plan_epilogue(rows, cols, aligned)
+    assert plan.threads == (cp.EPI_LANES, cp.EPI_ROWS)
+    assert plan.vec == (aligned and cols % 4 == 0)
+    assert plan.grid[0] == -(-cols // 128)
+    assert plan.grid[1] == min(-(-rows // 8), cp.GRID_Y_MAX)
+    row_hits, col_hits = _epilogue_writes(rows, cols, plan)
+    assert (row_hits == 1).all() and (col_hits == 1).all()
+    if shape == (256, 128):
+        assert plan.grid == (1, grid_limit or 32) and plan.vec == aligned
+    if shape == K6_EPILOGUE:
+        assert plan.grid == (1, grid_limit or 10816)
+    with pytest.raises(ValueError, match="non-empty"):
+        cp.plan_epilogue(0, 128)
+
+
+def test_t3b_t3e_refuse_shapes_their_indexes_cannot_reach():
+    """Past 2^60 elements (a 64-bit byte offset) or 2^31 - 1 column chunks
+    (the grid's x) both wrappers raise before any launch, whatever the
+    device; tried with meta tensors, which hold no memory."""
+    big = cp.EW_MAX_ELEMENTS
+    with pytest.raises(ValueError, match="2\\^60"):
+        cp.probe_round(torch.empty(big + 4, device="meta"))
+    with pytest.raises(ValueError, match="2\\^60"):
+        cp.plan_elementwise(big + 1)
+    assert cp.plan_elementwise(big).blocks == cp.GRID_X_MAX   # a grid stride
+
+    def epilogue(rows, cols):
+        return cp.probe_epilogue(
+            torch.empty((rows, cols), dtype=torch.int32, device="meta"),
+            torch.empty(cols, device="meta"), torch.empty(cols, device="meta"),
+            1.0)
+
+    with pytest.raises(ValueError, match="2\\^60"):
+        epilogue(2 ** 30, 2 ** 30 + 4)
+    with pytest.raises(ValueError, match="column chunks"):
+        epilogue(1, 2 ** 38)
+    with pytest.raises(ValueError, match="2\\^60"):
+        cp.plan_epilogue(2 ** 31, 2 ** 29 + 1)
+    # at the limits the meta tensors reach the device check
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        epilogue(1, 128 * (2 ** 31 - 1))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cp.probe_round(torch.empty(big, device="meta"))
+
+
+@pytest.mark.parametrize("n", [1, 3, 1153])
+def test_t3b_reference_at_ragged_counts(n):
+    """The plain version (the card's kernel is held to it) at counts that
+    leave a tail: numpy's half-to-even rounding, clipped."""
+    x = probe_block.round_inputs().reshape(-1)
+    x = np.resize(x, n).astype(np.float32)
+    want = np.clip(np.round(x), -127, 127)
+    np.testing.assert_array_equal(cp.probe_round(_t(x)).numpy(), want)
+
+
+def test_t3e_reference_against_the_numpy_chain_at_100_columns():
+    """``probe_epilogue_reference`` at a seeded (1,000, 100) equals the JAX
+    tool's numpy float32 chain (``epilogue_reference``) bit for bit."""
+    rng = np.random.default_rng(18)
+    acc = rng.integers(-2_000_000, 2_000_000, (1000, 100)).astype(np.int32)
+    deq = rng.uniform(1e-6, 1e-4, 100).astype(np.float32)
+    b = rng.normal(0, 0.05, 100).astype(np.float32)
+    inv = 1.0 / 0.017
+    want = probe_block.epilogue_reference(acc, deq, b, inv)
+    got = cp.probe_epilogue_reference(_t(acc), _t(deq), _t(b), inv)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        cp.probe_epilogue(_t(acc), _t(deq), _t(b), inv).numpy(), want)
+    assert len(np.unique(want)) > 100
+
+
+def test_bench_requant_inputs_at_k6s_size():
+    """``tools/bench_requant``'s inputs: K6's epilogue at yolov3@416 B=8,
+    seeded, with ties and values past +-127 for T3b and the tool's ranges
+    for T3e; 88.6 MB moved by each kernel; it refuses to run without a
+    card."""
+    from yolov3_tpu_torch.tools import bench_requant as br
+
+    assert (br.K6_ROWS, br.K6_COLS) == K6_EPILOGUE
+    assert br.K6_ELEMENTS == ROUND_COUNTS[-1] == 11_075_584
+    x = br.k6_round_input()
+    assert x.dtype == np.float32 and x.shape == (br.K6_ELEMENTS,)
+    np.testing.assert_array_equal(x, br.k6_round_input())
+    assert (np.abs(x) > 127).mean() > 0.1
+    assert ((x - np.floor(x)) == 0.5).sum() > br.K6_ELEMENTS // 6
+    acc, deq, b, inv = br.k6_epilogue_inputs()
+    assert acc.dtype == np.int32 and acc.shape == K6_EPILOGUE
+    assert deq.shape == b.shape == (128,) and inv == 1.0 / 0.017
+    assert 8 * br.K6_ELEMENTS == 88_604_672
+    with pytest.raises(RuntimeError, match="cuda"):
+        br.main()
+
+
 def test_port_tool_probes_read_zero_on_cpu(capsys):
     """The port's tool functions on the CPU (plain versions against the
     tool's exact host values): 0 differences, the reference's wording."""

@@ -5,10 +5,11 @@
 //   T2  tools/bench_pallas_dot.py :: timed_grid    -> probe_dot_grid_kernel
 //   T3a tools/probe_block.py :: probe_int8_dot     -> probe_dot_step_kernel,
 //                                                     store mode
-//   T3b probe_round  -> probe_round_clip_kernel
+//   T3b probe_round  -> probe_round_clip_kernel (16-byte pieces)
 //   T3c probe_roll   -> probe_roll_kernel
 //   T3d probe_mask   -> probe_mask_kernel (every tile in one launch)
-//   T3e probe_epilogue -> probe_epilogue_kernel
+//   T3e probe_epilogue -> probe_epilogue_kernel (no division, 16-byte
+//                                               pieces)
 // The wrappers, plain versions and launch counts are in ops/cuda_probe.py.
 //
 // The dots. The TPU kernels hold whole operands in VMEM and run one MXU
@@ -923,10 +924,41 @@ probe_dot_grid_kernel(const unsigned short* lhs, const unsigned short* rhs,
 #endif
 }
 
-// T3b: clip(round-half-even(x), -127, 127), K6's requantizer at scale 1.
-__global__ void probe_round_clip_kernel(const float* x, float* out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = k6_round_clip(x[i]);
+// T3b: clip(round-half-even(x), -127, 127), K6's requantizer at scale 1
+// (K6's own k6_round_clip). Bound by bytes: each float read once and written
+// once. A thread takes a 16-byte piece: a float4 load, four k6_round_clip and
+// a float4 store; ops/cuda_probe.plan_elementwise gives one piece a thread
+// (one block at the tool's 1,152 floats), and a grid-stride walk takes the
+// pieces past the grid it is given. One piece a thread, not a grid of one
+// wave walking ten pieces a thread: blocks that retire and start at their
+// own times overlap one block's math with another's loads, where a wave
+// walking in step waits for its loads, then computes, all at once (slower
+// at K6's size on the H100, the more so for T3e's longer math; PERF.md
+// keeps the times). The n % 4 tail, or every element when an operand is
+// off the 16-byte grid (VEC false), takes the same walk a float at a time.
+// Counts and indexes are 64-bit.
+#define PE_THREADS 512
+#define PE_MAX_ELEMENTS (1LL << 60)  // 4-byte elements: byte offsets in int64
+
+template <bool VEC>
+__global__ void __launch_bounds__(PE_THREADS)
+    probe_round_clip_kernel(const float* __restrict__ x,
+                            float* __restrict__ out, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long tail = 0;
+  if (VEC) {
+    const long long pieces = n >> 2;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long long p = t; p < pieces; p += stride) {
+      const float4 v = x4[p];
+      o4[p] = make_float4(k6_round_clip(v.x), k6_round_clip(v.y),
+                          k6_round_clip(v.z), k6_round_clip(v.w));
+    }
+    tail = pieces << 2;
+  }
+  for (long long i = tail + t; i < n; i += stride) out[i] = k6_round_clip(x[i]);
 }
 
 // T3c: both circular shifts of an int8 (rows, lanes) plane along its rows,
@@ -1045,14 +1077,55 @@ __global__ void probe_mask_kernel(int* __restrict__ out, int rows, int cp,
   }
 }
 
-// T3e: K6's conv epilogue: int32 sum -> * deq + b -> leaky -> requantize.
-__global__ void probe_epilogue_kernel(const int* acc, const float* deq,
-                                      const float* bias, float inv, float* out,
-                                      int rows, int cols) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * cols) return;
-  const int c = i % cols;
-  out[i] = k6_requant(k6_dequant_leaky(acc[i], deq[c], bias[c]), inv);
+// T3e: K6's conv epilogue on an int32 (rows, cols) sum: * deq + b -> leaky
+// -> requantize, K6's own k6_dequant_leaky and k6_requant (built with
+// -fmad=false: numpy float32's chain bit for bit). Bound by bytes: each sum
+// read once, each float written once. No division: a block is PQ_LANES lanes
+// x PQ_ROWS rows; lane l of block column bx owns the four columns from
+// 4 (PQ_LANES bx + l) (grid x: chunks of 128 columns) and loads their deq
+// and b into registers; row thread ty of block row by takes row
+// by * PQ_ROWS + ty and, past the grid's y, the rows a stride of
+// gridDim.y * PQ_ROWS on (ops/cuda_probe.plan_epilogue gives one row a
+// thread up to the grid's limit, as T3b gives one piece). A row is one int4
+// load and one float4 store a lane (VEC), or four scalar ones when cols % 4
+// != 0 or an operand is off the 16-byte grid. Indexes are 64-bit.
+#define PQ_LANES 32
+#define PQ_ROWS 8
+
+template <bool VEC>
+__global__ void __launch_bounds__(PQ_LANES* PQ_ROWS)
+    probe_epilogue_kernel(const int* __restrict__ acc,
+                          const float* __restrict__ deq,
+                          const float* __restrict__ bias, float inv,
+                          float* __restrict__ out, long long rows,
+                          long long cols) {
+  const long long c0 = ((long long)blockIdx.x * PQ_LANES + threadIdx.x) * 4;
+  if (c0 >= cols) return;
+  const int w = (int)min(4LL, cols - c0);
+  float d[4], b[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    d[e] = e < w ? deq[c0 + e] : 0.0f;
+    b[e] = e < w ? bias[c0 + e] : 0.0f;
+  }
+  const long long step = (long long)gridDim.y * PQ_ROWS;
+  for (long long r = (long long)blockIdx.y * PQ_ROWS + threadIdx.y; r < rows;
+       r += step) {
+    const long long i = r * cols + c0;
+    if (VEC) {
+      const int4 a = *reinterpret_cast<const int4*>(acc + i);
+      *reinterpret_cast<float4*>(out + i) =
+          make_float4(k6_requant(k6_dequant_leaky(a.x, d[0], b[0]), inv),
+                      k6_requant(k6_dequant_leaky(a.y, d[1], b[1]), inv),
+                      k6_requant(k6_dequant_leaky(a.z, d[2], b[2]), inv),
+                      k6_requant(k6_dequant_leaky(a.w, d[3], b[3]), inv));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < w)
+          out[i + e] = k6_requant(k6_dequant_leaky(acc[i + e], d[e], b[e]), inv);
+    }
+  }
 }
 
 template <int CORE, int MODE, typename AccT>
@@ -1178,11 +1251,23 @@ extern "C" int yolo_probe_dot_grid(const void* lhs, const void* rhs,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int yolo_probe_round_clip(const float* x, float* out, int n,
-                                     void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  probe_round_clip_kernel<<<(n + 255) / 256, 256, 0,
-                            static_cast<cudaStream_t>(stream)>>>(x, out, n);
+static bool off_grid(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+// T3b. x, out: n float32 (1 to PE_MAX_ELEMENTS); `blocks` of PE_THREADS
+// (ops/cuda_probe.py plan_elementwise); vec: 16-byte pieces, both operands
+// 16-byte aligned, else float by float.
+extern "C" int yolo_probe_round_clip(const float* x, float* out, long long n,
+                                     int blocks, int vec, void* stream) {
+  if (n < 1 || n > PE_MAX_ELEMENTS || blocks < 1 ||
+      (vec && (off_grid(x) || off_grid(out))))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    probe_round_clip_kernel<true><<<blocks, PE_THREADS, 0, s>>>(x, out, n);
+  else
+    probe_round_clip_kernel<false><<<blocks, PE_THREADS, 0, s>>>(x, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -1238,12 +1323,27 @@ extern "C" int yolo_probe_masks(int* out, int rows, int cp, int ws,
   return (int)cudaGetLastError();
 }
 
+// T3e. acc int32 and out float32 (rows, cols), at most PE_MAX_ELEMENTS;
+// deq, bias (cols,) float32; a (grid_x, grid_y) grid of PQ_LANES x PQ_ROWS
+// blocks (ops/cuda_probe.py plan_epilogue), grid_x covering the columns;
+// vec: cols % 4 == 0 and acc, out 16-byte aligned, else scalar.
 extern "C" int yolo_probe_epilogue(const int* acc, const float* deq,
                                    const float* bias, float inv, float* out,
-                                   int rows, int cols, void* stream) {
-  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
-  probe_epilogue_kernel<<<(rows * cols + 255) / 256, 256, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      acc, deq, bias, inv, out, rows, cols);
+                                   long long rows, long long cols, int grid_x,
+                                   int grid_y, int vec, void* stream) {
+  if (rows < 1 || cols < 1 || cols > PE_MAX_ELEMENTS / rows || grid_x < 1 ||
+      (long long)grid_x * PQ_LANES * 4 < cols || grid_y < 1 ||
+      grid_y > 65535 ||
+      (vec && (cols % 4 || off_grid(acc) || off_grid(out))))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  const dim3 block(PQ_LANES, PQ_ROWS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    probe_epilogue_kernel<true><<<grid, block, 0, s>>>(acc, deq, bias, inv,
+                                                       out, rows, cols);
+  else
+    probe_epilogue_kernel<false><<<grid, block, 0, s>>>(acc, deq, bias, inv,
+                                                        out, rows, cols);
   return (int)cudaGetLastError();
 }

@@ -132,12 +132,13 @@ def load_kernels() -> ctypes.CDLL:
                                    p, p, p, i32, p]
     lib.yolo_probe_dot_grid.argtypes = [p, p, p, p, i32, i32, i32, i32, i32,
                                         i32, p, p]
-    lib.yolo_probe_round_clip.argtypes = [p, p, i32, p]
+    lib.yolo_probe_round_clip.argtypes = [p, p, i64, i32, i32, p]
     lib.yolo_probe_roll.argtypes = [p, p, i32, i32, i32, i32, i32, i32, p]
     lib.yolo_probe_masks.argtypes = [p, i32, i32, i32,
                                      ctypes.POINTER(ctypes.c_int), i32, i32,
                                      i32, p]
-    lib.yolo_probe_epilogue.argtypes = [p, p, p, f32, p, i32, i32, p]
+    lib.yolo_probe_epilogue.argtypes = [p, p, p, f32, p, i64, i64, i32,
+                                        i32, i32, p]
     for fn in (lib.yolo_probe_dot, lib.yolo_probe_dot_grid,
                lib.yolo_probe_round_clip, lib.yolo_probe_roll,
                lib.yolo_probe_masks, lib.yolo_probe_epilogue,

@@ -29,7 +29,10 @@ operations at the large shapes and by the launch and the serial finish at
 the small ones; the operands stay in L2. T3b–e run K6's own
 ``__device__`` functions (``csrc/block_int8_common.cuh``; T3c stages its
 rows with K6's ``cp.async`` helper) and are bound by the launch at their
-sizes; T3d runs any number of row tiles in one launch.
+sizes; T3d runs any number of row tiles in one launch. T3b and T3e are
+bound by bytes at K6's epilogue size: 16-byte loads and stores, one piece
+a thread (:func:`plan_elementwise`, :func:`plan_epilogue`), 64-bit
+indexes.
 
 Every wrapper launches its kernel on the current stream for a CUDA tensor
 (counted in ``<wrapper>.launches``) or raises; for a CPU tensor, and only
@@ -354,20 +357,67 @@ def _check_f32(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"CUDA or CPU tensors, got {x.device}")
 
 
+EW_THREADS = 512         # PE_THREADS in csrc/probe.cu: a T3b block
+EW_MAX_ELEMENTS = 2 ** 60  # PE_MAX_ELEMENTS: 4-byte elements, byte offsets in int64
+EPI_LANES, EPI_ROWS = 32, 8  # PQ_LANES x PQ_ROWS: a T3e block, 4 columns a lane
+GRID_X_MAX, GRID_Y_MAX = 2 ** 31 - 1, 65535
+
+
+def check_elements(n: int, what: str) -> None:
+    """Refuse a tensor the T3b / T3e kernels cannot index: past
+    :data:`EW_MAX_ELEMENTS`, a 4-byte element's byte offset (and a grid
+    stride past it) would leave a signed 64-bit integer."""
+    if n > EW_MAX_ELEMENTS:
+        raise ValueError(f"{what}: {n} elements, past the {EW_MAX_ELEMENTS} "
+                         f"(2^60) the kernel's 64-bit indexes take")
+
+
+class ElementwisePlan(NamedTuple):
+    """The grid of a T3b launch (``probe_round_clip_kernel``)."""
+    blocks: int    # of ``threads``, a piece a thread; a grid stride past them
+    threads: int
+    vec: bool      # 16-byte pieces; else the same walk a float at a time
+    pieces: int    # 16-byte pieces (0 when not ``vec``)
+    tail: int      # floats after the pieces, walked one at a time
+
+
+def plan_elementwise(n: int, aligned: bool = True) -> ElementwisePlan:
+    """T3b's grid for ``n`` float32 elements: ``n // 4`` 16-byte pieces and
+    a tail of ``n % 4`` floats when both operands lie on the 16-byte grid
+    (``aligned``), else ``n`` floats one by one. One piece (or float) a
+    thread, :data:`EW_THREADS` a block, up to the grid's limit; a grid
+    stride walks the rest. At the tool's 1,152 floats: one block."""
+    if n < 1:
+        raise ValueError(f"T3b needs at least one element, got {n}")
+    check_elements(n, "T3b")
+    pieces = n // 4 if aligned else 0
+    tail = n - 4 * pieces
+    blocks = max(1, min(-(-max(pieces, tail) // EW_THREADS), GRID_X_MAX))
+    return ElementwisePlan(blocks, EW_THREADS, aligned, pieces, tail)
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
 def probe_round_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x), -127, 127)
 
 
 def probe_round(x: torch.Tensor) -> torch.Tensor:
     """T3b: clip(round-half-even(x), −127, 127) of a float32 tensor: K6's
-    requantizer (``k6_round_clip``)."""
+    requantizer (``k6_round_clip``). On the card a thread a 16-byte piece
+    (:func:`plan_elementwise`)."""
+    check_elements(x.numel(), "T3b")
     _check_f32(x, "x")
     if x.device.type == "cpu":
         return probe_round_reference(x)
     out = torch.empty_like(x)
+    plan = plan_elementwise(x.numel(), _aligned(x, out))
     with torch.cuda.device(x.device):
         rc = load_kernels().yolo_probe_round_clip(
-            x.data_ptr(), out.data_ptr(), x.numel(), _stream(x))
+            x.data_ptr(), out.data_ptr(), x.numel(), plan.blocks,
+            int(plan.vec), _stream(x))
     check_launch(rc, "probe_round_clip")
     probe_round.launches += 1
     return out
@@ -524,6 +574,40 @@ def probe_mask(th: int, ws: int, cp: int, h: int, w: int, hi: int,
 probe_mask.launches = 0
 
 
+class EpiloguePlan(NamedTuple):
+    """The grid of a T3e launch (``probe_epilogue_kernel``)."""
+    grid: Tuple[int, int]     # (128-column chunks, runs of EPI_ROWS rows)
+    threads: Tuple[int, int]  # (lanes of 4 columns, rows)
+    vec: bool                 # int4 loads / float4 stores; else scalar
+
+
+def _check_epilogue_extent(rows: int, cols: int) -> int:
+    """The 128-column chunks of an int32 (rows, cols) sum; raises where the
+    kernel's 64-bit indexes or the grid's x cannot reach."""
+    check_elements(rows * cols, "T3e")
+    chunks = -(-cols // (4 * EPI_LANES))
+    if chunks > GRID_X_MAX:
+        raise ValueError(f"T3e: {cols} columns need {chunks} column chunks, "
+                         f"past the grid's {GRID_X_MAX}")
+    return chunks
+
+
+def plan_epilogue(rows: int, cols: int, aligned: bool = True
+                  ) -> EpiloguePlan:
+    """T3e's grid for an int32 (rows, cols) sum: x the chunks of 128 columns
+    (32 lanes of 4), y runs of :data:`EPI_ROWS` rows, one row a thread up to
+    the grid's y limit, a stride walking the rest. ``vec``
+    where cols % 4 == 0 and both operands lie on the 16-byte grid
+    (``aligned``). At the tool's (256, 128): 32 blocks; at K6's (86,528,
+    128) 10,816."""
+    if rows < 1 or cols < 1:
+        raise ValueError(f"T3e needs a non-empty (R, C), got {(rows, cols)}")
+    chunks = _check_epilogue_extent(rows, cols)
+    runs = max(1, min(-(-rows // EPI_ROWS), GRID_Y_MAX))
+    return EpiloguePlan((chunks, runs), (EPI_LANES, EPI_ROWS),
+                        aligned and cols % 4 == 0)
+
+
 def probe_epilogue_reference(acc: torch.Tensor, deq: torch.Tensor,
                              b: torch.Tensor, inv: float) -> torch.Tensor:
     y = F.leaky_relu(acc.float() * deq + b, 0.1)
@@ -534,10 +618,13 @@ def probe_epilogue(acc: torch.Tensor, deq: torch.Tensor, b: torch.Tensor,
                    inv: float) -> torch.Tensor:
     """T3e: int32 (R, C) · deq (C,) + b (C,) → leaky 0.1 → round(y·inv) →
     clip, float32: K6's conv epilogue (``k6_dequant_leaky`` +
-    ``k6_requant``), which must equal numpy float32 exactly (no FMA)."""
+    ``k6_requant``), which must equal numpy float32 exactly (no FMA). On the
+    card a lane keeps four columns' deq and b in registers, a thread a row
+    of them (:func:`plan_epilogue`): no division."""
     if acc.dim() != 2 or acc.dtype != torch.int32 or not acc.is_contiguous():
         raise ValueError(f"acc must be contiguous int32 (R, C), got "
                          f"{tuple(acc.shape)} {acc.dtype}")
+    _check_epilogue_extent(*acc.shape)
     for t, what in ((deq, "deq"), (b, "b")):
         _check_f32(t, what)
         if t.shape != (acc.shape[1],) or t.device != acc.device:
@@ -547,10 +634,12 @@ def probe_epilogue(acc: torch.Tensor, deq: torch.Tensor, b: torch.Tensor,
     if acc.device.type != "cuda":
         raise ValueError(f"CUDA or CPU tensors, got {acc.device}")
     out = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+    plan = plan_epilogue(*acc.shape, _aligned(acc, out))
     with torch.cuda.device(acc.device):
         rc = load_kernels().yolo_probe_epilogue(
             acc.data_ptr(), deq.data_ptr(), b.data_ptr(), float(inv),
-            out.data_ptr(), acc.shape[0], acc.shape[1], _stream(acc))
+            out.data_ptr(), acc.shape[0], acc.shape[1], *plan.grid,
+            int(plan.vec), _stream(acc))
     check_launch(rc, "probe_epilogue")
     probe_epilogue.launches += 1
     return out

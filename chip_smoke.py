@@ -157,10 +157,15 @@ each raises on failure (the build always runs):
     a lone canvas captured at B=1 against padded to B=8;
 21. mesh, ``parallel/`` at full width on every visible card, or on
     ``cuda:0`` twice where there is one card (a virtual mesh): batch-DP
-    yolov3@416 B=8 on bf16 + K1, bf16 + K4 + K5 and int8 K6 + K1, each
-    replica's captured program equal bit for bit to one device's at the
-    same B/n sub-batch and captured == eager, both call times beside one
-    device's at B=8; ``scan=2`` on the mesh; spatial yolov3@416 B=1
+    yolov3@416 B=8 on bf16 + K1, bf16 + K4 + K5, int8 K6 + K1 and bf16 +
+    K1 with ``scan=2``, each replica's captured program equal bit for bit
+    to one device's at the same B/n sub-batch over ten calls on distinct
+    frames from one caller array overwritten after each call, and captured
+    == eager; the call and its ``h2d_s`` / ``dispatch_s`` /
+    ``device_fetch_s`` medians beside one device's at B=8;
+    ``PipelinedDetector(depth=2)`` on the mesh equal to the synchronous
+    calls, with the time a ``submit`` holds the host; no page-locked host
+    allocation in steady calls; spatial yolov3@416 B=1
     "highest" and bf16 at n = 2 and 4 (head maps within the reference's
     bars at "highest", crossover and FLOP fractions, the collectives of a
     call and the bytes they move between shards and between cards, those
@@ -2246,10 +2251,10 @@ def stage_split(det, frames: np.ndarray, calls: int):
 
 
 def same_detections(a, b) -> bool:
-    return len(a) == len(b) and all(
-        np.array_equal(x.bbox_tlbr, y.bbox_tlbr)
-        and np.array_equal(x.class_prob, y.class_prob)
-        and np.array_equal(x.class_idx, y.class_idx) for x, y in zip(a, b))
+    """Two lists of detections equal bit for bit (the port's own check)."""
+    from yolov3_tpu_torch.tools.bench_mesh import same_detections as same
+
+    return same(a, b)
 
 
 def int8_against_bf16(params, qnet, card: str, batches=(8, 128)) -> None:
@@ -3734,71 +3739,160 @@ def same_detection_sets(got, want, what: str) -> float:
     return err
 
 
+def pinned_host_counts():
+    """The page-locked host allocator's counts of blocks handed out and
+    blocks created (``torch.cuda.host_memory_stats``), or None where this
+    torch keeps neither."""
+    import torch
+
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return None
+    s = stats()
+    return {k: s[k] for k in ("active_requests.allocated", "num_host_alloc")
+            if k in s} or None
+
+
 def mesh_batch_dp(net, name: str, devices, frames, kw, counts, card: str,
                   calls: int = 10) -> dict:
-    """One batch-DP route at B=8 on ``devices``: each replica's results
-    equal to the single-device Detector's on the same B/n sub-batch, bit for
-    bit; the warm-up and capture launch each wrapper twice a forward's count
-    per replica; a steady call is one replay per replica and no eager
-    launch; captured == eager; both call times beside the single device's
-    at B=8. The mesh Detector's launches are added to ``counts``."""
+    """One batch-DP route at B=8 on ``devices`` (``kw`` may hold ``scan``):
+    each replica's results equal to the single-device Detector's on the
+    same B/n sub-batch (B/(2n) sub-batches under ``scan=2``), bit for bit;
+    the warm-up and capture launch each wrapper twice a forward's count per
+    replica and sub-batch. Then ``calls`` distinct inputs, each through ONE
+    caller array overwritten as soon as the call returns, in turns with
+    one device at B=8 (same ``kw``): every call bit-equal to one device at
+    the replicas' batches, the host-clock call and ``last_stage_s``'s
+    ``h2d_s`` / ``dispatch_s`` / ``device_fetch_s`` medians beside one
+    device's; then the same inputs through ``PipelinedDetector(depth=2)``
+    on the mesh, equal to the synchronous calls in order, with the time a
+    ``submit`` holds the host and the time it spends queueing
+    (``Detector._enqueue``). Steady calls: one replay per replica each, no
+    eager launch, no page-locked host allocation
+    (``torch.cuda.host_memory_stats``); captured == eager. The mesh
+    Detector's launches are added to ``counts``."""
     import torch
     from yolov3_tpu_torch import Detector
+    from yolov3_tpu_torch.inference import PipelinedDetector
     from yolov3_tpu_torch.parallel import make_mesh
+    from yolov3_tpu_torch.tools.bench_mesh import in_chunks, turns
 
     n = len(devices)
-    b = BATCH // n
+    scan = kw.get("scan", 1)
+    b = BATCH // (n * scan)
+    sub = Detector(net, **{k: v for k, v in kw.items() if k != "scan"})
+    want = in_chunks(sub, frames, b)
     one = Detector(net, **kw)
-    want = []
-    for r in range(n):
-        want += one.detect_batch(frames[r * b:(r + 1) * b])
-    _, one_host, one_dev = timed_calls(lambda: one.detect_batch(frames), calls)
+    one.detect_batch(frames)
     wrappers = path_wrappers()
     before = {k: w.launches for k, w in wrappers.items()}
     det = Detector(net, mesh=make_mesh(n, devices=devices), **kw)
     got = det.detect_batch(frames)
     warm = {k: w.launches - before[k] for k, w in wrappers.items()}
     fwd = forward_launches(det)
-    if warm != {k: 2 * n * v for k, v in fwd.items()}:
+    if warm != {k: 2 * n * scan * v for k, v in fwd.items()}:
         raise AssertionError(f"[mesh] {name}: warm-up and capture launched "
-                             f"{warm}, expected 2 x {n} replicas x {fwd}")
+                             f"{warm}, expected 2 x {n} replicas x {scan} "
+                             f"sub-batches x {fwd}")
     same_detections_exact(got, want, f"[mesh] {name} replicas against the "
                                      f"single device at B={b}")
     prog = det._pipeline(BATCH, SRC_HW)
     replays = [r.replays for r in prog.replicas]
+    rng = np.random.default_rng(10)
+    inputs = [rng.integers(0, 256, frames.shape, dtype=np.uint8)
+              for _ in range(calls)]
+    wants = [in_chunks(sub, x, b) for x in inputs]
+    pinned = pinned_host_counts()
     mid = {k: w.launches for k, w in wrappers.items()}
-    out, host, dev = timed_calls(lambda: det.detect_batch(frames), calls)
+
+    def check(i, out):
+        same_detections_exact(out, wants[i], f"[mesh] {name} call {i} on "
+                                             "distinct frames")
+
+    row = {"route": det.route, "scan": scan,
+           **turns(det, one, inputs, check)}
+    buf = np.empty_like(frames)
+    pipe = PipelinedDetector(det, depth=2)
+    enqueue = det._enqueue
+    enqueue_ms, submit_ms, done = [], [], []
+
+    def timed_enqueue(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return enqueue(*a, **k)
+        finally:
+            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+
+    det._enqueue = timed_enqueue
+    try:
+        torch.cuda.synchronize()
+        t_pipe = time.perf_counter()
+        for x in inputs:
+            buf[...] = x
+            t0 = time.perf_counter()
+            done += pipe.submit(buf)
+            submit_ms.append((time.perf_counter() - t0) * 1e3)
+            buf[...] = 0
+            if len(pipe._inflight) > 2:
+                raise AssertionError(f"[mesh] {name}: more than depth "
+                                     "batches in flight")
+        done += pipe.flush()
+        t_pipe = (time.perf_counter() - t_pipe) * 1e3 / calls
+    finally:
+        del det._enqueue
+    if len(done) != calls or not all(same_detections(g, w)
+                                     for g, w in zip(done, wants)):
+        raise AssertionError(f"[mesh] {name}: PipelinedDetector's results "
+                             "differ from the synchronous calls or come out "
+                             "of order")
     steady = {k: w.launches - mid[k] for k, w in wrappers.items()}
     if any(steady.values()) or any(
-            r.replays - r0 != calls for r, r0 in zip(prog.replicas, replays)):
+            r.replays - r0 != 2 * calls
+            for r, r0 in zip(prog.replicas, replays)):
         raise AssertionError(f"[mesh] {name}: steady calls launched {steady}, "
                              "or a replica did not replay once a call")
+    after = pinned_host_counts()
+    if after != pinned:
+        raise AssertionError(f"[mesh] {name}: steady calls allocated "
+                             f"page-locked host memory: {pinned} -> {after}")
     for k, v in warm.items():
         counts[k] += v
-    same_detections_exact(out, want, f"[mesh] {name} steady call")
     eager = det._run(det._stage(frames)).cpu()
     packed, _, _ = det._detect(frames, SRC_HW, None)
     if not torch.equal(eager, packed):
         raise AssertionError(f"[mesh] {name}: captured != eager")
-    row = {"route": det.route, "mesh_host_ms": float(np.median(host)),
-           "mesh_event_ms": float(np.median(dev)),
-           "one_host_ms": float(np.median(one_host)),
-           "one_event_ms": float(np.median(one_dev)),
-           "replica_mib": [r.nbytes / 2 ** 20 for r in prog.replicas]}
+    row.update(submit_ms=float(np.median(submit_ms)),
+               enqueue_ms=float(np.median(enqueue_ms)), pipelined_ms=t_pipe,
+               pinned_host_counts=pinned,
+               replica_mib=[r.nbytes / 2 ** 20 for r in prog.replicas])
+    pinned_how = ("torch.cuda.host_memory_stats " + str(pinned) if pinned
+                  else "this torch's host_memory_stats keeps no counts: "
+                       "not checked")
     log(f"[mesh] batch-DP {name}@416 B={BATCH} of {SRC_HW[0]}x{SRC_HW[1]} on "
-        f"{n} shards (B={b} a replica): replicas == single device at B={b} "
-        f"bit for bit, captured == eager; per call median over {calls}: mesh "
-        f"{row['mesh_host_ms']:.3f} ms host clock / {row['mesh_event_ms']:.3f} "
-        f"ms CUDA events against one device at B={BATCH} "
-        f"{row['one_host_ms']:.3f} / {row['one_event_ms']:.3f} ms (on {card}); "
-        f"replica programs {[round(m, 1) for m in row['replica_mib']]} MiB; "
-        f"wrapper launches a forward {fwd} per replica")
+        f"{n} shards (B={b} a replica{' a sub-batch' if scan > 1 else ''}): "
+        f"replicas == single device at B={b} bit for bit over {calls} "
+        f"distinct inputs from one reused caller array, captured == eager; "
+        f"medians over {calls} in turns (host clock), mesh / one device at "
+        f"B={BATCH}: call {row['call_ms_mesh']:.3f} / {row['call_ms_one']:.3f}"
+        f" ms, h2d_s {row['h2d_ms_mesh']:.3f} / {row['h2d_ms_one']:.3f}, "
+        f"dispatch_s {row['dispatch_ms_mesh']:.3f} / "
+        f"{row['dispatch_ms_one']:.3f}, device_fetch_s "
+        f"{row['device_fetch_ms_mesh']:.3f} / {row['device_fetch_ms_one']:.3f}"
+        f" ms (on {card}); PipelinedDetector(depth=2) on the mesh == the "
+        f"synchronous calls in order, {t_pipe:.3f} ms a batch, a submit holds "
+        f"the host {row['submit_ms']:.3f} ms (median; queueing "
+        f"{row['enqueue_ms']:.3f}); steady calls: one replay a replica each, "
+        f"no eager launch, no page-locked allocation ({pinned_how}); "
+        f"replica programs "
+        f"{[round(m, 1) for m in row['replica_mib']]} MiB; wrapper launches "
+        f"a forward {fwd} per replica")
     return row
 
 
 def phase_mesh(card: str) -> dict:
     """``parallel/`` at full width on the card: batch-DP yolov3@416 B=8
-    (bf16 + K1, bf16 + K4 + K5, int8 K6 + K1, and ``scan=2``), spatial
+    (bf16 + K1, bf16 + K4 + K5, int8 K6 + K1, and ``scan=2``; each
+    :func:`mesh_batch_dp`), spatial
     yolov3@416 B=1 at "highest" and bf16 at n = 2 and 4
     (:func:`mesh_spatial`: one graph over the cards), tiny@416 spatial
     detection sets against one device, and the dry run. Returns the
@@ -3832,24 +3926,10 @@ def phase_mesh(card: str) -> dict:
         counts, card)
     # scan=2: each replica's two sub-batches of B/(2n) in one program
     net = entry_net()
-    sub = BATCH // (2 * n)
-    want = []
-    one = Detector(net)
-    for i in range(0, BATCH, sub):
-        want += one.detect_batch(frames[i:i + sub])
-    before = {k: w.launches for k, w in path_wrappers().items()}
-    det = Detector(net, mesh=make_mesh(n, devices=devices), scan=2)
-    got = det.detect_batch(frames)
-    for k, w in path_wrappers().items():
-        counts[k] += w.launches - before[k]
-    same_detections_exact(got, want, "[mesh] scan=2")
-    eager = det._run(det._stage(frames)).cpu()
-    if not torch.equal(eager, det._detect(frames, SRC_HW, None)[0]):
-        raise AssertionError("[mesh] scan=2: captured != eager")
-    log(f"[mesh] batch-DP scan=2 bf16 + K1 B={BATCH}: each replica's 2 "
-        f"sub-batches of {sub} in one captured program == one device on "
-        f"sub-batches of {sub}, bit for bit; captured == eager")
-    del det, one, net, q
+    rows["scan=2 bf16 + K1"] = mesh_batch_dp(
+        net, "yolov3 scan=2 bf16 + K1", devices, frames, {"scan": 2}, counts,
+        card)
+    del net, q
     torch.cuda.empty_cache()
 
     # spatial, yolov3@416 B=1 at "highest" and bf16: head maps, then the

@@ -132,10 +132,18 @@ def split_batch(frames, n: int, scan: int = 1) -> list:
     """Replica r's frames of a batch (an array or a tensor) of ``scan``
     sub-batches back to back: rows ``[r·b, (r+1)·b)`` of each sub-batch, b
     = B / (scan·n), in sub-batch order (the reference stages a
-    ``(scan, B/scan, ...)`` stack sharded on its second axis)."""
+    ``(scan, B/scan, ...)`` stack sharded on its second axis). Each part
+    is contiguous: at b = 1 under ``scan > 1`` the reshape alone is a
+    strided view, which torch would gather on its intra-op threads before
+    a host→device copy (33–40 ms of staging a yolov3@416 B=8 call over
+    four cards on a busy host, PERF.md §5)."""
     b = frames.shape[0] // (scan * n)
     stack = frames.reshape(scan, n, b, *frames.shape[1:])
-    return [stack[:, r].reshape(scan * b, *frames.shape[1:]) for r in range(n)]
+    parts = [stack[:, r].reshape(scan * b, *frames.shape[1:])
+             for r in range(n)]
+    if isinstance(frames, np.ndarray):
+        return [np.ascontiguousarray(p) for p in parts]
+    return [p.contiguous() for p in parts]
 
 
 def merge_batch(parts: Sequence[torch.Tensor], scan: int = 1) -> torch.Tensor:

@@ -180,7 +180,7 @@ each raises on failure (the build always runs):
     the reloaded tree equal to the original's; ``tools.gen_golden``'s three
     fixtures against the frozen ones; ``tools.bench_serve`` (yolov3@416
     bf16, one request at a time and 16 clients under a 5 ms window, 0
-    errors, the device-busy share under load); ``tools.bench_scan``
+    errors); ``tools.bench_scan``
     (scanned == unscanned, bf16 + K1 and int8 K6 + K1); ``tools.bench_tiny_k``
     (the truncation audit, then each K's time); ``tools.bench_stem``;
     ``tools.traffic_model``'s floors beside the profilers' marks; the
@@ -4134,7 +4134,7 @@ def phase_tools(card: str) -> dict:
     three fixtures against the frozen ones within ``test_golden``'s bars;
     (c) ``tools.bench_serve`` bf16, 20 requests one at a time, then 16
     clients x 8 requests at a 5 ms window and ``max_batch`` 8, 0 errors in
-    both, with the device-busy share under load; (d) ``tools.bench_scan``
+    both; (d) ``tools.bench_scan``
     B=8 ``scan=4`` at bf16 + K1 and int8 K6 + K1, scanned == unscanned bit
     for bit; (e) ``tools.bench_tiny_k`` on tiny@416 B=8 ``scan=8``: the
     truncation audit exact on the untruncated images, then each K's time;
@@ -4235,8 +4235,7 @@ def phase_tools(card: str) -> dict:
                                                "sequential" else 128):
             raise AssertionError(f"[tools] bench_serve {row['mode']}: {row}")
     say("bench_serve: 0 errors in both modes (the two JSON lines above), "
-        f"device-busy share {rows[0]['device_busy_share']:.3f} sequential, "
-        f"{rows[1]['device_busy_share']:.3f} under load, on {card}")
+        f"on {card}")
     released()
 
     # (d) scan

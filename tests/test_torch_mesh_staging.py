@@ -178,7 +178,7 @@ def test_replica_slices_are_contiguous_reference_shards(n, scan, b):
 
 def test_stage_split_on_a_mesh():
     """A mesh call gives the stage keys a single-device call gives, each
-    non-negative, and its marks run in order; the program stages one
+    non-negative, and times each of its stages; the program stages one
     input a replica and returns one result a replica."""
     det = Detector(_net(_params()), mesh=_mesh(2), **KW)
     frames = _frames(50, (4, *SRC, 3))
@@ -188,8 +188,9 @@ def test_stage_split_on_a_mesh():
     assert all(v >= 0 for v in stages.values())
     det.detect_preletterboxed(_frames(51, (4, 160, 160, 3)), [SRC] * 4)
     assert set(det.last_stage_s) == set(stages)
-    _, _, marks = det._detect(frames, SRC, None)
-    assert marks == sorted(marks) and len(marks) == 4
+    _, _, st = det._detect(frames, SRC, None)
+    assert list(st) == ["pad", "lookup", "stage", "launch", "fetch"]
+    assert all(v >= 0 for v in st.values())
     prog = det._pipeline(4, SRC)
     staged = prog.stage(frames, det.device)
     assert [tuple(x.shape) for x in staged] == [(2, *SRC, 3)] * 2

@@ -182,6 +182,22 @@ def test_stats_stage_timings(server):
     assert 'yolov3_stage_seconds_count{stage="device_fetch_s"}' in text
 
 
+def test_program_cache_counters(server):
+    """/stats and /metrics publish the Detector's program-cache counters:
+    the warm-up built the program, and every request found it."""
+    assert _post(server + "/detect", _png(6))[0] == 200
+    cache = _get(server + "/stats")["program_cache"]
+    assert set(cache) == {"hit", "miss", "evict", "capture_s"}
+    assert cache["miss"] == 1 and cache["hit"] >= 1 and cache["evict"] == 0
+    assert cache["capture_s"] > 0
+    lines = _metric_lines(_get(server + "/metrics", raw=True)[1])
+    assert int(lines['yolov3_program_cache_total{event="miss"}']) == 1
+    assert int(lines['yolov3_program_cache_total{event="hit"}']) >= cache["hit"]
+    assert lines['yolov3_program_cache_total{event="evict"}'] == "0"
+    assert float(lines["yolov3_program_capture_seconds_total"]) == \
+        pytest.approx(cache["capture_s"], abs=1e-6)
+
+
 def test_bad_payload_is_400(server):
     before = _get(server + "/stats")["errors"]
     status, body = _post(server + "/detect", b"this is not an image")

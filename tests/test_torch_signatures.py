@@ -31,14 +31,13 @@ MODULES = ("inference", "model", "ops.nms", "utils.boxes", "ops.preprocess",
 
 # (module, qualified name) -> (parameters the port drops, parameters it
 # appends after the original's). Each appended parameter is the port's own:
-# the device a net or Detector lives on, pinned staging, the cached resize
+# the device a net or Detector lives on, the cached resize
 # matrices, the int8 operands cached on the card, the float walk's ``upto``
 # (the per-layer profile's prefixes, as the int8 carrier walk has). The
 # port's _conv and _conv_bf16 take no precision: the weights' type says it;
 # nor do the spatial walk's convs, under the walk's one precision scope.
 DEVIATIONS = {
     ("inference", "Detector.__init__"): ((), ("device",)),
-    ("inference", "Detector._stage_batch"): ((), ("pinned",)),
     ("model", "Darknet.__init__"): ((), ("device",)),
     ("model", "_conv"): (("precision",), ()),
     ("model", "forward_features"): ((), ("upto",)),

@@ -62,6 +62,13 @@ recently used programs go while the programs' bytes would pass
 the new program's need (``programs_to_evict``), card by card. A capture or
 a replay that fails raises. ``cv2`` is imported inside the entry points
 that need it, never with the package.
+
+Each host stage of a call is a span (``utils.profiling.span``): timed on
+the host clock always (``Detector.last_stage_s`` adds them up), and while
+a ``torch.profiler`` profile runs also the profiler range
+``yolov3.<stage>`` and an entry of ``utils.profiling.RECORD``, under the
+call's id. ``Detector.cache_counts`` counts the program cache's hits,
+misses (programs built), evictions and the seconds the builds took.
 """
 from __future__ import annotations
 
@@ -87,6 +94,7 @@ from .ops.nms import (NMSResult, batched_nms_compact, batched_nms_packed,
                       pack_results)
 from .ops.preprocess import Interp, interp_matrices, preprocess, resize_target
 from .utils.boxes import unletterbox_tlbr, unstretch_tlbr
+from .utils.profiling import new_call, span
 
 log = logging.getLogger("yolov3_tpu_torch")
 
@@ -467,8 +475,11 @@ class _MeshProgram:
         from .parallel.sharding import split_batch
 
         parts = split_batch(frames, len(self.replicas), self.scan)
-        return [r.stage(p, d)
-                for r, p, d in zip(self.replicas, parts, self.devices)]
+        staged = []
+        for i, (r, p, d) in enumerate(zip(self.replicas, parts, self.devices)):
+            with span("stage", tag=i):  # one span a replica, its index the tag
+                staged.append(r.stage(p, d))
+        return staged
 
     def __call__(self, staged: List[torch.Tensor]) -> _Shards:
         return _Shards([r(s) for r, s in zip(self.replicas, staged)],
@@ -617,13 +628,19 @@ class Detector:
         self._lock = threading.Lock()
         # per-call stage split (seconds) of the last synchronous detect
         # call, written as ONE dict assignment (serve.py publishes it under
-        # /stats and /metrics): preprocess_s (host letterbox, detect_mixed
-        # only), h2d_s (host→device copy of the frames), dispatch_s (the
-        # program looked up, captured on its first call, and its replay
-        # queued, NOT finished), device_fetch_s (wait for the device + the
-        # one D2H copy + the host unpack). Read it from the thread that ran
-        # the call.
+        # /stats and /metrics), from the call's spans
+        # (``utils.profiling.span``): preprocess_s (``letterbox``: host
+        # letterbox, detect_mixed only), h2d_s (``stage``: host→device copy
+        # of the frames), dispatch_s (``lookup`` + ``launch``: the program
+        # looked up, captured on its first call, and its replay queued, NOT
+        # finished), device_fetch_s (``fetch`` + ``unpack``: wait for the
+        # device + the one D2H copy + the host unpack). Read it from the
+        # thread that ran the call.
         self.last_stage_s: Optional[Dict[str, float]] = None
+        # the program cache's events, always counted (serve.py publishes
+        # them): lookups that found their program, programs built (on the
+        # card: captured), programs evicted, and the seconds the builds took
+        self.cache_counts = {"hit": 0, "miss": 0, "evict": 0, "capture_s": 0.0}
 
     def _check_mesh(self) -> None:
         """The reference's construction checks of ``mesh`` / ``partition``."""
@@ -808,19 +825,24 @@ class Detector:
         prog = self._pipelines.get(key)
         if prog is not None:
             self._pipelines.move_to_end(key)
+            self.cache_counts["hit"] += 1
         else:
             log.info("capturing pipeline: batch=%d src=%s net=%s mode=%s "
                      "precision=%s", batch, src_hw, self.net_hw,
                      self.resize_mode, net.precision or "default")
             self.route = self._gates(warn=True)
-            if self.mesh is None:
-                prog = self._finalize(key, self._body(bgr, self.route))
-            elif self.partition == "spatial":
-                prog = self._finalize(key, self._spatial_body(bgr, self.route))
-            else:
-                # the scan runs inside each replica (the reference's
-                # sharded program); _unpack merges the replicas
-                prog = self._cache_pipeline(key, self._replica_steps(bgr))
+            with span("capture") as built:
+                if self.mesh is None:
+                    prog = self._finalize(key, self._body(bgr, self.route))
+                elif self.partition == "spatial":
+                    prog = self._finalize(key,
+                                          self._spatial_body(bgr, self.route))
+                else:
+                    # the scan runs inside each replica (the reference's
+                    # sharded program); _unpack merges the replicas
+                    prog = self._cache_pipeline(key, self._replica_steps(bgr))
+            self.cache_counts["miss"] += 1
+            self.cache_counts["capture_s"] += built.seconds
         self.route = prog.route
         return prog
 
@@ -859,8 +881,15 @@ class Detector:
             prog = _Program(key, self.route, _packed(run), keep)
         self._pipelines[key] = prog
         while len(self._pipelines) > self._pipeline_capacity:
-            self._pipelines.popitem(last=False)[1].close()
+            self._evict_oldest()
         return prog
+
+    def _evict_oldest(self) -> None:
+        """Close the least recently used program (an ``evict`` span, and
+        counted)."""
+        with span("evict"):
+            self._pipelines.popitem(last=False)[1].close()
+        self.cache_counts["evict"] += 1
 
     def _devices(self) -> Tuple[torch.device, ...]:
         """The distinct devices the programs run on."""
@@ -900,7 +929,7 @@ class Detector:
         n = programs_to_evict(self._held(device), need, self._pipeline_budget,
                               torch.cuda.mem_get_info(device)[0])
         for _ in range(n):
-            self._pipelines.popitem(last=False)[1].close()
+            self._evict_oldest()
         if n:
             torch.cuda.empty_cache()
 
@@ -941,53 +970,55 @@ class Detector:
                 [frames, np.zeros((pad, *frames.shape[1:]), frames.dtype)])
         return frames, n_real
 
-    def _stage_batch(self, frames: np.ndarray, pinned: bool = False
-                     ) -> Tuple[torch.Tensor, int]:
-        """Host batch → (frames on the device, real batch), padded as
-        :meth:`_pad_batch` pads. ``pinned`` stops before the copy: the batch
-        in pinned host memory, for an asynchronous host→device copy."""
-        frames, n_real = self._pad_batch(frames)
-        if pinned:
-            return torch.from_numpy(frames).pin_memory(), n_real
-        return torch.from_numpy(frames).to(self.device), n_real
-
     def _detect(self, frames: np.ndarray, src_hw: Tuple[int, int],
-                bgr: Optional[bool]) -> Tuple[torch.Tensor, int, List[float]]:
+                bgr: Optional[bool], call: Optional[int] = None
+                ) -> Tuple[torch.Tensor, int, Dict[str, float]]:
         """One synchronous call through the cached program: (packed results
-        in host memory, real batch, host clock marks [start, program ready,
-        staged, replay queued])."""
-        frames, n_real = self._pad_batch(frames)
-        marks = [time.perf_counter()]
+        in host memory, real batch, seconds by stage), each stage a span of
+        ``call`` (a new call by default): ``pad``, ``lookup``, ``stage``,
+        ``launch``, ``fetch``."""
+        call = new_call() if call is None else call
+        st: Dict[str, float] = {}
+        with span("pad", st, call):
+            frames, n_real = self._pad_batch(frames)
         with self._lock:
-            prog = self._pipeline(frames.shape[0], src_hw, bgr)
-            marks.append(time.perf_counter())
-            staged = prog.stage(frames, self.device)
-            marks.append(time.perf_counter())
-            res = prog(staged)
-            marks.append(time.perf_counter())
-            res = res.cpu()  # ONE device→host copy; the output is free again
-            prog.release()
-        return res, n_real, marks
+            with span("lookup", st, call):
+                prog = self._pipeline(frames.shape[0], src_hw, bgr)
+            with span("stage", st, call):
+                staged = prog.stage(frames, self.device)
+            with span("launch", st, call):
+                res = prog(staged)
+            with span("fetch", st, call):
+                res = res.cpu()  # ONE device→host copy; the output is free again
+                prog.release()
+        return res, n_real, st
 
-    def _stages(self, marks: List[float]) -> Dict[str, float]:
-        t0, t_prog, t_staged, t_queued = marks
-        return {"h2d_s": t_staged - t_prog,
-                "dispatch_s": (t_prog - t0) + (t_queued - t_staged),
-                "device_fetch_s": time.perf_counter() - t_queued}
+    @staticmethod
+    def _stages(st: Dict[str, float]) -> Dict[str, float]:
+        """``last_stage_s`` from a call's seconds by stage."""
+        return {"h2d_s": st["stage"], "dispatch_s": st["lookup"] + st["launch"],
+                "device_fetch_s": st["fetch"] + st["unpack"]}
 
-    def _enqueue(self, frames: np.ndarray, bgr: Optional[bool] = None
-                 ) -> Tuple[torch.Tensor, int]:
+    def _enqueue(self, frames: np.ndarray, bgr: Optional[bool] = None,
+                 call: Optional[int] = None) -> Tuple[torch.Tensor, int]:
         """Stage a same-shape uint8 batch and queue its program; returns
         (packed results on the device, real batch). On the card this returns
         before the device has finished (``_unpack`` waits), and the results
         are a copy, queued after the replay, so the next call's replay
-        cannot overwrite them."""
-        frames, n_real = self._pad_batch(np.ascontiguousarray(frames))
+        cannot overwrite them. Spans of ``call`` (a new call by default):
+        ``pad``, ``lookup``, ``stage``, ``launch``."""
+        call = new_call() if call is None else call
+        with span("pad", call=call):
+            frames, n_real = self._pad_batch(np.ascontiguousarray(frames))
         with self._lock:
-            prog = self._pipeline(frames.shape[0], tuple(frames.shape[1:3]),
-                                  bgr)
-            res = prog.hold(prog(prog.stage(frames, self.device)))
-            prog.release()
+            with span("lookup", call=call):
+                prog = self._pipeline(frames.shape[0],
+                                      tuple(frames.shape[1:3]), bgr)
+            with span("stage", call=call):
+                staged = prog.stage(frames, self.device)
+            with span("launch", call=call):
+                res = prog.hold(prog(staged))
+                prog.release()
         return res, n_real
 
     def _unpack(self, res, src_hw: Optional[Tuple[int, int]]
@@ -1041,9 +1072,11 @@ class Detector:
         if frames.shape[0] == 0:
             return []
         src_hw = tuple(frames.shape[1:3])
-        res, n_real, marks = self._detect(frames, src_hw, None)
-        out = self._unpack(res, src_hw)[:n_real]
-        self.last_stage_s = self._stages(marks)
+        call = new_call()
+        res, n_real, st = self._detect(frames, src_hw, None, call)
+        with span("unpack", st, call):
+            out = self._unpack(res, src_hw)[:n_real]
+        self.last_stage_s = self._stages(st)
         return out
 
     def detect_mixed(self, frames: Sequence[np.ndarray]) -> List[Detection]:
@@ -1084,13 +1117,13 @@ class Detector:
                 for i, d in zip(idxs, dets):
                     out[i] = d
             return out
-        t0 = time.perf_counter()
-        canvases = self._build_canvases(frames)
-        pre_s = time.perf_counter() - t0
+        call = new_call()
+        with span("letterbox", call=call) as letterbox:
+            canvases = self._build_canvases(frames)
         src_hws = [f.shape[:2] for f in frames]
-        out = self.detect_preletterboxed(canvases, src_hws)
-        self.last_stage_s = {"preprocess_s": pre_s,
-                             **(self.last_stage_s or {})}
+        out = self._preletterboxed(canvases, src_hws, call)
+        self.last_stage_s = {"preprocess_s": letterbox.seconds,
+                             **self.last_stage_s}
         return out
 
     def detect_preletterboxed(self, canvases: np.ndarray,
@@ -1098,11 +1131,18 @@ class Detector:
                               ) -> List[Detection]:
         """Run the device pipeline on host-preprocessed RGB uint8 canvases
         already at net resolution; rescale each result to its own source."""
+        return self._preletterboxed(canvases, src_hws, new_call())
+
+    def _preletterboxed(self, canvases: np.ndarray,
+                        src_hws: Sequence[Tuple[int, int]], call: int
+                        ) -> List[Detection]:
+        """``detect_preletterboxed`` as a part of ``call``."""
         canvases = np.ascontiguousarray(canvases)
-        res, n_real, marks = self._detect(canvases, self.net_hw, False)
-        dets = self._unpack(res, None)[:n_real]  # net coords
-        out = [self._unmap_one(d, hw) for d, hw in zip(dets, src_hws)]
-        self.last_stage_s = self._stages(marks)
+        res, n_real, st = self._detect(canvases, self.net_hw, False, call)
+        with span("unpack", st, call):
+            dets = self._unpack(res, None)[:n_real]  # net coords
+            out = [self._unmap_one(d, hw) for d, hw in zip(dets, src_hws)]
+        self.last_stage_s = self._stages(st)
         return out
 
     def warmup(self, batch: int, src_hw: Tuple[int, int],
@@ -1138,7 +1178,11 @@ class PipelinedDetector:
     same ordering with no stream of its own: each batch is queued at
     ``submit()`` (``Detector._enqueue``: on the card the replays of every
     replica and the copies of their results, not waited for) and handed
-    back ``depth`` submissions later.
+    back ``depth`` submissions later. A batch's spans
+    (``utils.profiling.span``) share one call id: at ``submit()`` ``pad``,
+    ``pin`` (the card's stream only), ``lookup``, ``stage``, ``launch``,
+    ``d2h`` (the card's stream only: the pinned result buffer and the copy
+    into it queued), then, where it is handed back, ``wait`` and ``unpack``.
     """
 
     def __init__(self, detector: Detector, depth: int = 2):
@@ -1159,34 +1203,46 @@ class PipelinedDetector:
             return []
         det = self.detector
         src_hw = tuple(frames.shape[1:3])
+        call = new_call()  # the batch's spans at submit and at materialize
         if self._stream is None:
-            res, n_real = det._enqueue(frames)
-            self._inflight.append((src_hw, n_real, res, None, None))
+            res, n_real = det._enqueue(frames, call=call)
+            self._inflight.append((src_hw, n_real, res, None, None, call))
         else:
-            staged, n_real = det._stage_batch(frames, pinned=True)
+            with span("pad", call=call):
+                frames, n_real = det._pad_batch(frames)
+            with span("pin", call=call):
+                staged = torch.from_numpy(frames).pin_memory()
             with det._lock:
-                prog = det._pipeline(staged.shape[0], src_hw)
+                with span("lookup", call=call):
+                    prog = det._pipeline(staged.shape[0], src_hw)
                 self._stream.wait_stream(torch.cuda.current_stream(det.device))
                 with torch.cuda.stream(self._stream):
-                    res = prog(prog.stage_pinned(staged))
-                    host = torch.empty(res.shape, dtype=res.dtype,
-                                       pin_memory=True)
-                    host.copy_(res, non_blocking=True)
-                    prog.release()
-                    done = torch.cuda.Event()
-                    done.record(self._stream)
+                    with span("stage", call=call):
+                        staged_dev = prog.stage_pinned(staged)
+                    with span("launch", call=call):
+                        res = prog(staged_dev)
+                    with span("d2h", call=call):
+                        host = torch.empty(res.shape, dtype=res.dtype,
+                                           pin_memory=True)
+                        host.copy_(res, non_blocking=True)
+                        prog.release()
+                        done = torch.cuda.Event()
+                        done.record(self._stream)
             # `staged` stays referenced until its copy has run
-            self._inflight.append((src_hw, n_real, host, done, staged))
+            self._inflight.append((src_hw, n_real, host, done, staged, call))
         out: List[List[Detection]] = []
         while len(self._inflight) > self.depth:
             out.append(self._materialize(self._inflight.pop(0)))
         return out
 
     def _materialize(self, item) -> List[Detection]:
-        src_hw, n_real, res, done, _ = item
-        if done is not None:
-            done.synchronize()
-        return self.detector._unpack(res, src_hw)[:n_real]
+        src_hw, n_real, res, done, _, call = item
+        with span("wait", call=call):
+            if done is not None:
+                done.synchronize()
+            res = res.cpu()  # a mesh's replicas: each waited for, fetched
+        with span("unpack", call=call):
+            return self.detector._unpack(res, src_hw)[:n_real]
 
     def flush(self) -> List[List[Detection]]:
         """Materialize everything still in flight (submission order)."""

@@ -18,6 +18,15 @@ preprocess/h2d/dispatch/device-fetch split per device batch),
 ``GET /metrics`` (Prometheus text: latency histogram, per-stage summaries,
 error counters, coalesced-batch-size distribution, queue depth, uptime).
 
+Both also publish the Detector's program-cache counters
+(``Detector.cache_counts``): ``/stats`` as ``program_cache`` (``hit``,
+``miss``, ``evict``, ``capture_s``), ``/metrics`` as
+``yolov3_program_cache_total{event="hit|miss|evict"}`` (a call that found
+its program; a program built, on the card captured as a CUDA graph; a
+program evicted from the LRU) and ``yolov3_program_capture_seconds_total``
+(the seconds the misses took). Misses after the warm-up mean traffic of a
+shape the warm-up did not cover, each paying a capture in its latency.
+
 Two modes:
 
 * default — single-threaded handler: one card, one pipeline;
@@ -297,6 +306,31 @@ class MicroBatcher:
         self.stop()  # idempotent: fails stragglers only on timeout
 
 
+def _program_cache(detector) -> Optional[dict]:
+    """A copy of the Detector's program-cache counters; None without a
+    Detector."""
+    counts = getattr(detector, "cache_counts", None)
+    return dict(counts) if counts is not None else None
+
+
+def _program_cache_text(counts: Optional[dict]) -> str:
+    """The program-cache counters (``_program_cache``) as Prometheus
+    text; empty without them."""
+    if counts is None:
+        return ""
+    out = ["# HELP yolov3_program_cache_total Program-cache events: hit (a "
+           "call found its program), miss (a program built: on the card "
+           "captured), evict.",
+           "# TYPE yolov3_program_cache_total counter"]
+    out += [f'yolov3_program_cache_total{{event="{e}"}} {counts[e]}'
+            for e in ("hit", "miss", "evict")]
+    out += ["# HELP yolov3_program_capture_seconds_total Seconds the "
+            "program-cache misses took to build their programs.",
+            "# TYPE yolov3_program_capture_seconds_total counter",
+            f"yolov3_program_capture_seconds_total {counts['capture_s']:.6f}"]
+    return "\n".join(out) + "\n"
+
+
 def make_handler(detector, class_names, stats: _Stats,
                  batcher: Optional[MicroBatcher] = None):
     class Handler(BaseHTTPRequestHandler):
@@ -324,7 +358,9 @@ def make_handler(detector, class_names, stats: _Stats,
                 self._json(200, {"status": "ok"})
             elif self.path == "/metrics":
                 depth = (batcher._q.qsize() if batcher is not None else None)
-                body = stats.prometheus(queue_depth=depth).encode()
+                body = (stats.prometheus(queue_depth=depth)
+                        + _program_cache_text(
+                            _program_cache(detector))).encode()
                 self.send_response(200)
                 self.send_header("Content-Type",
                                  "text/plain; version=0.0.4; charset=utf-8")
@@ -340,6 +376,7 @@ def make_handler(detector, class_names, stats: _Stats,
                     # per-stage attribution (decode/queue_wait per request;
                     # preprocess/h2d/dispatch/device_fetch per device batch)
                     "stages": stats.stage_summary(),
+                    "program_cache": _program_cache(detector),
                     "uptime_s": round(time.time() - stats.started, 1)})
             else:
                 self._json(404, {"error": "unknown path"})

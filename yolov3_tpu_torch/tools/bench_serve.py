@@ -12,14 +12,12 @@ HTTP clients posting one JPEG:
   scraped from the server's own ``/metrics``
   (``yolov3_device_batches_total``) and their mean fill.
 
-Both modes carry the server's per-stage split from ``/stats`` and, on the
-card, the device-busy share of the timed window: the replays the window
-made times one replay's device time (CUDA events), over the window's wall
-time. Every device batch the micro-batcher runs is padded to
-``--max-batch``, so one program per source shape serves it; the server's
-warm-up captures that program and a warm burst replays it before the timed
-run. A program captured inside the timed run (a capture charged to a
-client's latency) raises.
+Both modes carry the server's per-stage split from ``/stats``. Every device
+batch the micro-batcher runs is padded to ``--max-batch``, so one program
+per source shape serves it; the server's warm-up captures that program and
+a warm burst replays it before the timed run. A program captured inside the
+timed run (a capture charged to a client's latency: a miss of the
+Detector's program cache) raises.
 
     python -m yolov3_tpu_torch.tools.bench_serve --config models/yolov3.cfg \\
         --size 416 [--clients 16 --requests 8 --window-ms 5 --max-batch 8] \\
@@ -38,7 +36,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import List
 
 import numpy as np
 
@@ -112,31 +110,6 @@ def run_load(base, jpeg, clients, per_client):
         t.join()
     wall = time.perf_counter() - t0
     return lat, errs[0], wall
-
-
-def replays(det) -> Dict[tuple, int]:
-    """Replays made so far by each of ``det``'s captured programs."""
-    return {k: p.replays for k, p in det._pipelines.items()
-            if hasattr(p, "replays")}
-
-
-def busy_share(det, before: Dict[tuple, int], wall_s: float
-               ) -> Optional[float]:
-    """Device-busy share of a window of ``wall_s`` seconds that started at
-    the replay counts ``before``: each program's replays in the window
-    times one replay's device time (CUDA events, 10 back-to-back replays),
-    over the window. None off the card (the CPU's programs are eager)."""
-    if det.device.type != "cuda":
-        return None
-    from .clock import event_ms
-
-    busy_ms = 0.0
-    for key, n in replays(det).items():
-        made = n - before.get(key, 0)
-        if made:
-            prog = det._pipelines[key]
-            busy_ms += made * event_ms(prog.graph.replay, iters=10, warmup=1)
-    return busy_ms / (wall_s * 1e3)
 
 
 def pct(lat):
@@ -214,14 +187,14 @@ def main(argv=None) -> List[dict]:
         return det, srv, thread, f"http://127.0.0.1:{srv.server_address[1]}"
 
     def measure(det, base, clients, per_client):
-        """The timed run: latencies, errors, wall seconds and the busy
-        share; raises if a program was captured inside it."""
-        programs, before = set(det._pipelines), replays(det)
+        """The timed run: latencies, errors and wall seconds; raises if a
+        program was captured inside it."""
+        misses = det.cache_counts["miss"]
         lat, errs, wall = run_load(base, jpeg, clients, per_client)
-        if set(det._pipelines) != programs:
+        if det.cache_counts["miss"] != misses:
             raise RuntimeError(f"{name}: a program was captured inside the "
                                "timed run; the warm-up missed its key")
-        return lat, errs, wall, busy_share(det, before, wall)
+        return lat, errs, wall
 
     def stop(srv, thread):
         shutdown_gracefully(srv)
@@ -232,13 +205,13 @@ def main(argv=None) -> List[dict]:
         det, srv, thread, base = start(0.0, 1)
         try:
             _post(base + "/detect", jpeg)  # warm
-            lat, errs, wall, busy = measure(det, base, 1, args.seq_requests)
+            lat, errs, wall = measure(det, base, 1, args.seq_requests)
             row = {"mode": "sequential", "server": name, "device": kind,
                    "max_results": args.max_results,
                    "src_hw": args.src_hw, "requests": len(lat),
                    "errors": errs, **pct(lat),
                    "req_s": round(len(lat) / wall, 3),
-                   "device_busy_share": busy, "stages": _stages(base)}
+                   "stages": _stages(base)}
         finally:
             stop(srv, thread)
         print(json.dumps(row), flush=True)
@@ -252,8 +225,7 @@ def main(argv=None) -> List[dict]:
             # program captured before it (the batcher pads to max_batch)
             run_load(base, jpeg, args.clients, 2)
             hist0 = _batch_hist(_metrics(base))
-            lat, errs, wall, busy = measure(det, base, args.clients,
-                                            args.requests)
+            lat, errs, wall = measure(det, base, args.clients, args.requests)
             hist = {s: n - hist0.get(s, 0)
                     for s, n in _batch_hist(_metrics(base)).items()
                     if n - hist0.get(s, 0)}
@@ -267,7 +239,7 @@ def main(argv=None) -> List[dict]:
                    "batch_size_hist_le": hist,
                    "mean_fill": (sum(int(s) * n for s, n in hist.items())
                                  / batches if batches else None),
-                   "device_busy_share": busy, "stages": _stages(base)}
+                   "stages": _stages(base)}
         finally:
             stop(srv, thread)
         print(json.dumps(row), flush=True)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases k1,k1c,k2,k3,k4,k5,int8conv,k6,golden,main,int8,
                                     eval,cache,profile,probes,dots,native,entry,
-                                    serve,mesh,tools,bench]
+                                    serve,mesh,tools,bench,epilogue]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. With no arguments every phase runs, in this order, and
@@ -194,7 +194,17 @@ each raises on failure (the build always runs):
     default matrix (yolov3@608 and @416 B=128 bf16 and int8, K6, tiny@416,
     yolov3@320, spp@608, K4 at bf16 and int8, latency at B=1 and 8) with
     its own ``--deadline``, as subprocesses: every row measured, none with
-    ``error``; both last lines are printed before the kernels' record.
+    ``error``; both last lines are printed before the kernels' record;
+24. epilogue, the float walk's conv epilogue (bias, activation and the
+    shortcut's add in one pass over a cuDNN conv's output): bit for bit
+    against the PyTorch chain it replaces and its plain version at every
+    yolov3@608 conv output shape at B=32 and B=8 in bf16 (the 255-channel
+    heads, -0, +-inf and a subnormal among the values) and at three shapes
+    in float32, with and without a residual; one forward's 75 epilogues by
+    graph replay beside their bound, the library chain and the plain
+    version; ``forward_packed`` launching it 75 times a forward, 23 with a
+    residual; the head maps equal bit for bit to the walk node by node
+    with biased cuDNN convs.
 
 Every kernel's launch count is zeroed just before phases 11 to 15, 20, 22
 and 23 (in 20 after the server's own warm-up), in 21 read before and after each
@@ -239,7 +249,8 @@ BATCH = 8
 SRC_HW = (480, 640)
 PHASES = ("build", "k1", "k1c", "k2", "k3", "k4", "k5", "int8conv", "k6",
           "golden", "main", "int8", "eval", "cache", "profile", "probes",
-          "dots", "native", "entry", "serve", "mesh", "tools", "bench")
+          "dots", "native", "entry", "serve", "mesh", "tools", "bench",
+          "epilogue")
 YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights file
 # float lanes of K1 / K1c against their plain versions: both run the same
 # float operations in the same order (no FMA contraction, full-precision
@@ -1667,21 +1678,66 @@ def phase_golden():
                 f"(= eager bit for bit) on {torch.cuda.get_device_name(0)}")
 
 
+class ResidualLaunches:
+    """``conv_epilogue.residual_launches`` read and zeroed as ``launches``,
+    like a kernel wrapper's count."""
+
+    @property
+    def launches(self) -> int:
+        from yolov3_tpu_torch.ops.cuda_epilogue import conv_epilogue
+
+        return conv_epilogue.residual_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from yolov3_tpu_torch.ops.cuda_epilogue import conv_epilogue
+
+        conv_epilogue.residual_launches = n
+
+
 def path_wrappers():
     """The kernel wrappers a Detector program can run, by name."""
-    from yolov3_tpu_torch.ops import cuda_block, cuda_conv, cuda_decode, cuda_nms
+    from yolov3_tpu_torch.ops import (cuda_block, cuda_conv, cuda_decode,
+                                      cuda_epilogue, cuda_nms)
 
     return {"decode_packed": cuda_decode.decode_packed,
             "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
             "conv3x3_fused": cuda_conv.conv3x3_fused,
             "residual_block_int8": cuda_block.residual_block_int8,
-            "nms_suppress": cuda_nms.suppress}
+            "nms_suppress": cuda_nms.suppress,
+            "conv_epilogue": cuda_epilogue.conv_epilogue,
+            "conv_epilogue_residual": ResidualLaunches()}
+
+
+def epilogue_launches(graph, route: str, conv_impl: str = "xla",
+                      qparams=None):
+    """The epilogue kernel's launches in ONE forward (all of them, those
+    with a residual): once a conv the walk runs through ``model._conv`` —
+    a float walk's every conv but K5's, an int8 walk's float convs (no
+    "wq" in ``qparams``) — less the head convs K4 takes over; with a
+    residual where ``model.residual_convs`` hands the conv its shortcut
+    (float walks; an int8 walk adds its shortcuts itself)."""
+    from yolov3_tpu_torch.model import residual_convs
+    from yolov3_tpu_torch.ops import cuda_conv
+
+    heads = ({yn.inputs[0] for yn in graph.yolo_nodes}
+             if route == "pallas-fused" else set())
+    convs = [n for n in graph.conv_nodes if n.index not in heads]
+    if qparams is not None:
+        return sum("wq" not in qparams[n.index] for n in convs), 0
+    convs = [n for n in convs if not (
+        conv_impl == "pallas" and n.pad and cuda_conv.supported(
+            n.size, n.stride, graph.nodes[n.inputs[0]].out_channels
+            if n.inputs[0] >= 0 else graph.in_channels, n.activation))]
+    fused = residual_convs(graph)
+    return len(convs), sum(n.index in fused for n in convs)
 
 
 def forward_launches(det):
     """Kernel-wrapper launches of ONE forward of ``det``'s route: K1 once
     for all the heads, K4 once a head, K5 once an eligible 3x3 conv, K6
-    once a fused block, K2 once."""
+    once a fused block, K2 once, the conv epilogue as
+    :func:`epilogue_launches` counts."""
     from yolov3_tpu_torch.ops import cuda_block
 
     net = det.net
@@ -1696,7 +1752,11 @@ def forward_launches(det):
             "conv3x3_fused": (sum(k5_shapes(net.graph).values())
                               if not net.quantized and net.conv_impl == "pallas"
                               else 0),
-            "residual_block_int8": k6, "nms_suppress": 1}
+            "residual_block_int8": k6, "nms_suppress": 1,
+            **dict(zip(("conv_epilogue", "conv_epilogue_residual"),
+                       epilogue_launches(net.graph, det.route, net.conv_impl,
+                                         net.qparams if net.quantized
+                                         else None)))}
 
 
 def replay_ms(prog, iters: int = 10) -> float:
@@ -1960,7 +2020,7 @@ def phase_main(card: str):
     import torch
     from yolov3_tpu_torch import (Darknet, Detector, forward_compact,
                                   forward_features)
-    from yolov3_tpu_torch.ops import cuda_conv, cuda_decode, cuda_nms
+    from yolov3_tpu_torch.ops import cuda_conv, cuda_decode, cuda_epilogue, cuda_nms
     from yolov3_tpu_torch.ops.nms import batched_nms_compact
     from yolov3_tpu_torch.ops.preprocess import preprocess
     from yolov3_tpu_torch.weights import fold_raw, random_raw, write_weights
@@ -1990,7 +2050,9 @@ def phase_main(card: str):
                "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
                "conv3x3_fused": cuda_conv.conv3x3_fused,
                "decode_all": cuda_decode.decode_all,
-               "nms_suppress": cuda_nms.suppress}
+               "nms_suppress": cuda_nms.suppress,
+               "conv_epilogue": cuda_epilogue.conv_epilogue,
+               "conv_epilogue_residual": ResidualLaunches()}
     k5_det = Detector(nets["bf16-k5"], decode_impl="pallas-fused")
     routes = (("bf16 + K1", Detector(nets["bf16"])),
               ("bf16 + K4", Detector(nets["bf16"], decode_impl="pallas-fused")),
@@ -2004,6 +2066,14 @@ def phase_main(card: str):
     run_main_path(Detector(nets["none"]), "yolov3", frames, card)
     for _, det in routes:
         run_main_path(det, "yolov3", frames, card)
+    # the epilogue's count a forward on the captured path, held by
+    # run_main_path to epilogue_launches; here to yolov3's own numbers
+    epi = epilogue_row()["per_forward"]
+    if (epi["conv_epilogue"], epi["conv_epilogue_residual"]) != (75, 23):
+        raise AssertionError(f"yolov3 bf16 + K1: the conv epilogue launched "
+                             f"{epi['conv_epilogue']} times a forward, "
+                             f"{epi['conv_epilogue_residual']} with a "
+                             f"residual; 75 / 23 expected")
     run_main_path(Detector(nets["none"], decode_impl="xla"), "yolov3", frames, card)
     run_main_path(Detector(tiny), "yolov3-tiny", frames, card)
     # the float32 forms of K5 and K4 (split TF32) on the captured path,
@@ -2099,6 +2169,14 @@ def phase_main(card: str):
     check_parity(runs["highest"], runs["none"], "yolov3@416 None (TF32) "
                  "against \"highest\"", strict=False)
     return launches
+
+
+def epilogue_row() -> dict:
+    """The main phase's yolov3 bf16 + K1 row (cuDNN convs, each with the
+    epilogue kernel after it)."""
+    return next(r for r in MAIN_ROWS
+                if (r["name"], r["route"], r["precision"], r["conv_impl"])
+                == ("yolov3", "pallas", "bf16", "xla"))
 
 
 def k1_main_path(det, heads, name: str) -> None:
@@ -2328,7 +2406,8 @@ def phase_int8(card: str):
     kernels = {"decode_packed": cuda_decode.decode_packed,
                "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
                "residual_block_int8": cuda_block.residual_block_int8,
-               "nms_suppress": cuda_nms.suppress}
+               "nms_suppress": cuda_nms.suppress,
+               "conv_epilogue": path_wrappers()["conv_epilogue"]}
     for k in kernels.values():
         k.launches = 0
     routes = (("int8 carrier, K6 blocks, K1", "sym", dict(block_impl="pallas")),
@@ -2345,12 +2424,13 @@ def phase_int8(card: str):
         # routes
         outs[name] = run_main_path(det, f"yolov3 [{name}]", frames, card,
                                    calls=calls)
-        per_forward = forward_launches(det)["residual_block_int8"]
+        fwd = forward_launches(det)
+        per_forward = fwd["residual_block_int8"]
         want = len(plan) if kw.get("block_impl") == "pallas" else 0
         if per_forward != want:
             raise AssertionError(f"{name}: K6 launches {per_forward} times per "
                                  f"forward, expected {want}")
-        per_forwards[name] = per_forward
+        per_forwards[name] = per_forward, fwd["conv_epilogue"]
     # the counts of the detect_batch calls alone: the stage split below
     # rebuilds a call out of its stages and would add its own launches
     launches = {name: k.launches for name, k in kernels.items()}
@@ -2361,10 +2441,11 @@ def phase_int8(card: str):
         if n == 0:
             raise AssertionError(f"the int8 main path never launched {kernel}")
     for name, det in dets.items():
-        per_forward = per_forwards[name]
+        per_forward, epilogues = per_forwards[name]
         split = stage_split(det, frames, calls=5)
         busy = device_busy_ms(lambda: det.detect_batch(frames))
-        log(f"[int8] {name}: K6 launches per forward {per_forward:.0f}; stage "
+        log(f"[int8] {name}: K6 launches per forward {per_forward:.0f}, conv "
+            f"epilogue launches (its float convs) {epilogues}; stage "
             f"ms (CUDA events, median of 5) "
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
             + f", sum {sum(split.values()):.3f}; kernel time of one profiled "
@@ -3970,7 +4051,8 @@ def phase_mesh(card: str) -> dict:
     dryrun_multichip(2)
     for k in ("decode_packed", "decode_compact", "nms_suppress",
               "decode_packed_fused_head", "conv3x3_fused",
-              "residual_block_int8"):
+              "residual_block_int8", "conv_epilogue",
+              "conv_epilogue_residual"):
         if not counts[k]:
             raise AssertionError(f"[mesh] the mesh path launched {k} no time")
     log(f"[mesh] kernel launches of the phase's mesh Detectors: {dict(counts)}")
@@ -4360,7 +4442,10 @@ def phase_bench(card: str) -> dict:
     prog = bench.capture_step(step, shape, device)
     captured = {n: w.launches for n, w in wrappers.items()}
     want = {n: 0 for n in wrappers}
-    want.update(decode_packed=2 * BENCH_SCAN, nms_suppress=2 * BENCH_SCAN)
+    want.update(decode_packed=2 * BENCH_SCAN, nms_suppress=2 * BENCH_SCAN,
+                **{n: 2 * BENCH_SCAN * v for n, v in zip(
+                    ("conv_epilogue", "conv_epilogue_residual"),
+                    epilogue_launches(yolo, "pallas"))})
     if captured != want:
         raise AssertionError(f"[bench] warm-up + capture launched {captured}, "
                              f"expected {want}")
@@ -4473,6 +4558,217 @@ def probe_records(dots, probes, bound):
     return out
 
 
+# the float walk's conv epilogue: yolov3@608's conv outputs at these
+# batches in bf16 (the benchmark's stream and camera cells), and three
+# shapes in float32 at B=8: the stem, a residual block's 3x3 at 76x76, a
+# head (H, C, activation)
+EPI_BATCHES = (32, 8)
+EPI_F32_SHAPES = ((608, 32, "leaky"), (76, 256, "leaky"), (19, 255, "linear"))
+EPI_SIZE = 608
+
+
+def epilogue_convs(graph, size: int = EPI_SIZE):
+    """yolov3's conv outputs in walk order: (H, C, activation, the
+    activation of the shortcut the epilogue takes over, or None)."""
+    from yolov3_tpu_torch.model import residual_convs
+
+    plan = residual_convs(graph)
+    return [(size // n.downsample, n.filters, n.activation,
+             plan[n.index].activation if n.index in plan else None)
+            for n in graph.conv_nodes]
+
+
+def epilogue_operands(gen, bsz: int, h: int, c: int, residual: bool, dtype):
+    """NHWC y (with -0, +-inf, a bf16 maximum, a subnormal in its first
+    pixel), its bias, and a residual when asked, drawn on the card from
+    the generator ``gen``."""
+    import torch
+
+    def t(shape, scale):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale
+                ).to(dtype)
+
+    y = t((bsz, h, h, c), 2.0)
+    special = torch.tensor([-0.0, float("inf"), float("-inf"), 3.0e38,
+                            -3.0e38, 1.0e-39, 1.0, -1.0])[:c]
+    y[0, 0, 0, :len(special)] = special.to(DEVICE, dtype)
+    return y, t((c,), 1.0), t((bsz, h, h, c), 2.0) if residual else None
+
+
+def library_chain(y, b, activation, r, res_act):
+    """What the walk ran on the card before the epilogue: cuDNN's route
+    adds a biased conv's bias with ``add_`` of a (1, C, 1, 1) view of it
+    over the NCHW output, then the activation, then (a node later) the
+    shortcut's add and activation. In place on ``y``'s bias add."""
+    from yolov3_tpu_torch.ops.cuda_epilogue import activate
+
+    out = activate(y.permute(0, 3, 1, 2).add_(b.view(1, -1, 1, 1)), activation)
+    if r is not None:
+        out = activate(out + r.permute(0, 3, 1, 2), res_act)
+    return out.permute(0, 2, 3, 1)
+
+
+def epilogue_exact(y, b, activation, r, res_act, what: str) -> float:
+    """The kernel against the library chain and the plain version, bit for
+    bit (each on its own copy of ``y``); returns the largest difference
+    measured (0.0 when every element's bits agree; an infinity where one
+    side is infinite or NaN and the other not)."""
+    import torch
+    from yolov3_tpu_torch.ops.cuda_epilogue import (conv_epilogue,
+                                                    conv_epilogue_reference)
+
+    ints = torch.int16 if y.element_size() == 2 else torch.int32
+    got = conv_epilogue(y.clone(), b, activation, r, res_act)
+    want = library_chain(y.clone(), b, activation, r, res_act)
+    plain = conv_epilogue_reference(y, b, activation, r, res_act)
+    torch.cuda.synchronize()
+    err, bad = 0.0, 0
+    for name, ref in (("the library chain", want), ("the plain version", plain)):
+        differ = got.contiguous().view(ints) != ref.contiguous().view(ints)
+        diff = int(differ.sum())
+        if diff:
+            gap = (got.float() - ref.float()).abs()[differ]
+            err = max(err, float(gap.nan_to_num(nan=float("inf")).max()))
+            bad += diff
+            log(f"[epilogue] {what}: {diff} elements differ from {name} in "
+                f"their bits, the largest by {err}")
+    if bad:
+        raise AssertionError(f"epilogue {what}: the kernel's bits differ "
+                             f"from the library chain's or the plain "
+                             f"version's (largest difference {err})")
+    return err
+
+
+def phase_epilogue(card: str) -> dict:
+    """The float walk's conv epilogue (``ops/cuda_epilogue.py``) on the card.
+
+    Bit for bit against the PyTorch chain it replaces and its plain version
+    at every yolov3@608 conv output shape at B=32 and B=8 in bf16 (with the
+    residual the walk gives it, and a residual conv's shape also without),
+    and at three shapes in float32, with and without a residual; one
+    forward's 75 epilogues timed by graph replay at each batch beside their
+    bound (bytes at HBM's rate), the library chain and the plain version;
+    and the walk's head maps at 608 equal bit for bit to the walk node by
+    node with biased cuDNN convs (the code before the epilogue), in bf16 at
+    B=8 and 32 and in float32 at B=8. Its launches a forward are counted on
+    the Detector's captured path, in the main phase. Returns the times and
+    the largest difference measured against the chain and the plain
+    version."""
+    import torch
+    import torch.nn.functional as F
+    from yolov3_tpu_torch import model as tmodel
+    from yolov3_tpu_torch.graph import load_graph
+    from yolov3_tpu_torch.model import Darknet, forward_features
+    from yolov3_tpu_torch.ops.cuda_epilogue import (conv_epilogue,
+                                                    conv_epilogue_reference)
+    from yolov3_tpu_torch.weights import fold_raw, random_raw
+
+    torch.backends.cudnn.benchmark = False
+    cfg = REPO / "models" / "yolov3.cfg"
+    graph = load_graph(cfg)
+    convs = epilogue_convs(graph)
+    rng = torch.Generator(device=DEVICE).manual_seed(23)
+    bf16 = torch.bfloat16
+    variants = sorted({v for v in convs} | {(h, c, a, None)
+                                              for h, c, a, _ in convs},
+                      key=str)
+    err = 0.0
+    for bsz in EPI_BATCHES:
+        for h, c, act, res_act in variants:
+            y, b, r = epilogue_operands(rng, bsz, h, c, res_act is not None, bf16)
+            err = max(err, epilogue_exact(
+                y, b, act, r, res_act or "linear",
+                f"bf16 B={bsz} {h}x{h}x{c} {act} shortcut {res_act}"))
+            del y, b, r
+        log(f"[epilogue] bf16 B={bsz}: {len(variants)} variants of yolov3@608's "
+            f"conv outputs ({len(set((h, c) for h, c, _, _ in convs))} shapes, "
+            f"the 255-channel heads among them) bit for bit against the "
+            f"library chain and the plain version")
+    for h, c, act in EPI_F32_SHAPES:
+        for res_act in (None, "linear", "leaky"):
+            y, b, r = epilogue_operands(rng, 8, h, c, res_act is not None,
+                                        torch.float32)
+            err = max(err, epilogue_exact(
+                y, b, act, r, res_act or "linear",
+                f"float32 B=8 {h}x{h}x{c} {act} shortcut {res_act}"))
+    log(f"[epilogue] float32 B=8 at {EPI_F32_SHAPES}, without a residual and "
+        f"with a linear and a leaky shortcut: bit for bit")
+
+    # one forward's epilogues, by graph replay
+    times = {}
+    for bsz in EPI_BATCHES:
+        ops, nbytes = [], 0
+        for h, c, act, res_act in convs:
+            y, b, r = epilogue_operands(rng, bsz, h, c, res_act is not None, bf16)
+            ops.append((y, b, act, r, res_act or "linear"))
+            nbytes += (3 if r is not None else 2) * y.numel() * 2 + c * 2
+
+        def run(fn):
+            return lambda: [fn(*op) for op in ops]
+
+        ms = graph_ms(run(conv_epilogue), iters=3, warmup=1)
+        lib_ms = graph_ms(run(library_chain), iters=3, warmup=1)
+        plain_ms = graph_ms(run(conv_epilogue_reference), iters=3, warmup=1)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        times[bsz] = {"ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bytes": nbytes}
+        log(f"[epilogue] yolov3@608 B={bsz} bf16, one forward's {len(ops)} "
+            f"epilogues ({sum(op[3] is not None for op in ops)} with a "
+            f"residual) by graph replay: kernel {ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {bound_ms / ms:.1%} of it), "
+            f"the library chain it replaces {lib_ms:.3f} ms, the plain "
+            f"version {plain_ms:.3f} ms; {card}")
+        del ops
+        torch.cuda.empty_cache()
+
+    # the walk's head maps against the code before
+    net = Darknet(cfg, precision="bf16", device=DEVICE).set_params(
+        fold_raw(random_raw(graph, seed=23)))
+    x8 = torch.rand(8, EPI_SIZE, EPI_SIZE, 3, generator=torch.Generator(
+        ).manual_seed(23)).to(DEVICE)
+
+    def before_conv(x, w, b, node, conv_impl="xla", residual=None,
+                    residual_activation="linear"):
+        assert residual is None
+        return tmodel._activate(F.conv2d(
+            x, w.to(x.dtype), b.to(x.dtype), stride=node.stride,
+            padding=node.size // 2 if node.pad else 0), node.activation)
+
+    def heads(params, x, precision, node_by_node: bool):
+        saved = tmodel._conv, tmodel.residual_convs
+        if node_by_node:
+            tmodel._conv = before_conv
+            tmodel.residual_convs = lambda graph, upto=None: {}
+        try:
+            with torch.inference_mode():
+                return forward_features(graph, params, x, precision)
+        finally:
+            tmodel._conv, tmodel.residual_convs = saved
+
+    net32 = Darknet(cfg, device=DEVICE).set_params(
+        fold_raw(random_raw(graph, seed=23)))
+    for params, bsz, precision in ((net.params, 8, "bf16"),
+                                   (net.params, 32, "bf16"),
+                                   (net32.params, 8, None),
+                                   (net32.params, 8, "highest")):
+        x = x8 if bsz == 8 else x8.repeat(4, 1, 1, 1)
+        got = heads(params, x, precision, False)
+        want = heads(params, x, precision, True)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w) or g.dtype != w.dtype:
+                raise AssertionError(f"yolov3@608 B={bsz} precision="
+                                     f"{precision}: the fused walk's head "
+                                     f"maps differ from the walk node by node")
+    log(f"[epilogue] yolov3@608 head maps bit for bit equal to the walk "
+        f"node by node with biased cuDNN convs (bf16 B=8 and 32, float32 None "
+        f"and \"highest\" B=8); largest difference of the kernel from the "
+        f"chain and the plain version over every case: {err}")
+    del net, net32
+    torch.cuda.empty_cache()
+    return {"times": times, "max_abs_err": err}
+
+
 def main() -> int:
     if not (REPO / "yolov3_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: yolov3_tpu_torch/ is not beside this script; "
@@ -4549,6 +4845,8 @@ def main() -> int:
         res["tools"] = phase_tools(card)
     if "bench" in phases:
         res["bench"] = phase_bench(card)
+    if "epilogue" in phases:
+        res["epilogue"] = phase_epilogue(card)
     if set(phases) != set(PHASES):
         log(f"phases run: {phases}; no result printed for a partial run")
         return 0
@@ -4560,6 +4858,7 @@ def main() -> int:
     k5_err, k5 = res["k5"]
     k6_err, k6 = res["k6"]
     k3 = res["k3"]
+    epi = res["epilogue"]["times"]
     bf16, f32 = torch.bfloat16, torch.float32
     # bounds: the larger of bytes over the memory rate (each input read
     # once, each output written once) and operations over the unit's peak
@@ -4688,6 +4987,21 @@ def main() -> int:
          # the block's two bare int8 products on torch._int_mm: a yardstick,
          # not the same function (no epilogues, mid tile or shortcut)
          "library_ms": k6_forward[3]},
+        {"name": "conv_epilogue", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/conv_epilogue.cu",
+         # XLA fused the bias, activation and shortcut into the conv
+         "replaces": None, "max_abs_err": res["epilogue"]["max_abs_err"],
+         # one forward of the main phase's yolov3 bf16 + K1 Detector, on
+         # its captured path (warm-up and capture, halved)
+         "launches": epilogue_row()["per_forward"]["conv_epilogue"],
+         "residual_launches":
+             epilogue_row()["per_forward"]["conv_epilogue_residual"],
+         "ms_of": "one yolov3@608 forward's 75 epilogues at B=32, bf16",
+         **{k: epi[32][k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "library_ms")},
+         "bound_by": "bytes",
+         **{f"{k}_b8": epi[8][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms")}},
         *probe_records(res["dots"], res["probes"], bound),
     ]}
     for entry in kernels["kernels"]:

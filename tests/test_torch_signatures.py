@@ -33,13 +33,14 @@ MODULES = ("inference", "model", "ops.nms", "utils.boxes", "ops.preprocess",
 # appends after the original's). Each appended parameter is the port's own:
 # the device a net or Detector lives on, the cached resize
 # matrices, the int8 operands cached on the card, the float walk's ``upto``
-# (the per-layer profile's prefixes, as the int8 carrier walk has). The
+# (the per-layer profile's prefixes, as the int8 carrier walk has), the
+# shortcut that _conv's epilogue takes over (its residual and activation). The
 # port's _conv and _conv_bf16 take no precision: the weights' type says it;
 # nor do the spatial walk's convs, under the walk's one precision scope.
 DEVIATIONS = {
     ("inference", "Detector.__init__"): ((), ("device",)),
     ("model", "Darknet.__init__"): ((), ("device",)),
-    ("model", "_conv"): (("precision",), ()),
+    ("model", "_conv"): (("precision",), ("residual", "residual_activation")),
     ("model", "forward_features"): ((), ("upto",)),
     ("ops.preprocess", "preprocess"): ((), ("interp",)),
     ("ops.preprocess", "resize_bilinear"): ((), ("interp",)),

@@ -7,9 +7,11 @@ carries their state: ``quantize_int8``, ``save_quantized``,
 a plain function:
 
 * convs are ``F.conv2d`` (cuDNN on the card) on NCHW tensors in
-  ``torch.channels_last`` memory, + folded-BN bias + LeakyReLU; with
-  ``conv_impl="pallas"`` each eligible 3×3/s1 conv runs the fused K5 kernel
-  instead (``ops/cuda_conv.py``);
+  ``torch.channels_last`` memory, + folded-BN bias + LeakyReLU; on the card
+  the bias, the activation and the add of a shortcut right after the conv
+  (:func:`residual_convs`) are one pass of the epilogue kernel
+  (``ops/cuda_epilogue.py``); with ``conv_impl="pallas"`` each eligible
+  3×3/s1 conv runs the fused K5 kernel instead (``ops/cuda_conv.py``);
 * darknet maxpool: ``-inf`` pad with ``lo = padding // 2``, ``hi = padding -
   lo``, then an unpadded ``F.max_pool2d`` (tiny's stride-1 size-2 pool pads
   ``lo=0, hi=1``);
@@ -44,10 +46,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .graph import Graph, Node, load_graph
-from .ops import cuda_conv
+from .ops import cuda_conv, cuda_epilogue
 from .ops import decode as plain_decode
 from .ops.cuda_decode import (decode_all, decode_compact, decode_packed,
                               decode_packed_fused, fused_head_supported)
+from .ops.cuda_epilogue import activate as _activate
 from .precision import tf32
 from .weights import (Params, TorchParams, load_weights,
                       load_weights_cached, param_count,
@@ -66,29 +69,57 @@ def _check_route(precision: Optional[str], conv_impl: str) -> None:
         raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
 
 
-def _activate(y: torch.Tensor, activation: str) -> torch.Tensor:
-    if activation == "leaky":
-        return F.leaky_relu(y, 0.1)
-    if activation == "relu":
-        return F.relu(y)
-    if activation != "linear":
-        raise ValueError(f"unsupported activation {activation!r}")
-    return y
-
-
 def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, node: Node,
-          conv_impl: str = "xla") -> torch.Tensor:
+          conv_impl: str = "xla", residual: Optional[torch.Tensor] = None,
+          residual_activation: str = "linear") -> torch.Tensor:
+    """Conv + bias + activation of NCHW (channels_last) ``x``; with
+    ``residual`` (x's layout) also the add and the activation of the
+    shortcut right after the conv (:func:`residual_convs`)."""
     if (conv_impl == "pallas" and node.pad
             and cuda_conv.supported(node.size, node.stride, w.shape[1],
                                     node.activation)):
         y = cuda_conv.conv3x3_fused(x.permute(0, 2, 3, 1), w, b,
                                     activation=node.activation)
-        return y.permute(0, 3, 1, 2)
+        y = y.permute(0, 3, 1, 2)
+        return y if residual is None else _activate(y + residual,
+                                                    residual_activation)
     pad = node.size // 2 if node.pad else 0
     # weights follow the activations' type, as in the JAX package
-    y = F.conv2d(x, w.to(x.dtype), b.to(x.dtype), stride=node.stride,
-                 padding=pad)
-    return _activate(y, node.activation)
+    w, b = w.to(x.dtype), b.to(x.dtype)
+    # The CPU's convs add the bias inside their sum (bf16 rounds once
+    # there), so it stays there. On the card PyTorch runs cuDNN's conv
+    # without the bias and adds it in a pass of its own: the epilogue kernel
+    # makes that add, the activation and the residual's add one pass, bit
+    # for bit the same. cuDNN writes channels_last (the weights are), so
+    # the NHWC view is dense; the kernel raises where it is not.
+    on_cpu = x.device.type == "cpu"
+    y = F.conv2d(x, w, b if on_cpu else None, stride=node.stride,
+                 padding=pad).permute(0, 2, 3, 1)
+    r = None if residual is None else residual.permute(0, 2, 3, 1)
+    if on_cpu:
+        y = cuda_epilogue.conv_epilogue_reference(y, None, node.activation, r,
+                                                  residual_activation)
+    else:
+        y = cuda_epilogue.conv_epilogue(y, b, node.activation, r,
+                                        residual_activation)
+    return y.permute(0, 3, 1, 2)
+
+
+def residual_convs(graph: Graph, upto: Optional[int] = None
+                   ) -> Dict[int, Node]:
+    """Conv index → the shortcut node right after it whose add and
+    activation the conv's epilogue takes over, in a walk of
+    ``graph.nodes[:upto]``: the shortcut's first input is the conv, its
+    other input is another node, and nothing else reads the conv's own
+    output (it is not in ``graph.needed_outputs``). 23 convs of yolov3 and
+    of yolov3-spp, none of tiny."""
+    needed = graph.needed_outputs
+    nodes = graph.nodes[:upto]
+    return {sc.index - 1: sc for sc in nodes[1:]
+            if sc.kind == "shortcut" and sc.inputs[0] == sc.index - 1
+            and sc.inputs[1] != sc.index - 1
+            and graph.nodes[sc.index - 1].kind == "convolutional"
+            and sc.index - 1 not in needed}
 
 
 def _maxpool(x: torch.Tensor, node: Node) -> torch.Tensor:
@@ -114,6 +145,7 @@ def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
     ``tools/profile_layers.py``)."""
     _check_route(precision, conv_impl)
     needed = graph.needed_outputs
+    fused = residual_convs(graph, upto)
     head_convs = ({yn.inputs[0] for yn in graph.yolo_nodes}
                   if stop_before_heads else frozenset())
     cache: Dict[int, torch.Tensor] = {}
@@ -130,13 +162,19 @@ def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
                 out = prev
             elif node.kind == "convolutional":
                 p = params[node.index]
-                out = _conv(prev, p["w"], p["b"], node, conv_impl)
+                sc = fused.get(node.index)
+                out = (_conv(prev, p["w"], p["b"], node, conv_impl)
+                       if sc is None else
+                       _conv(prev, p["w"], p["b"], node, conv_impl,
+                             cache[sc.inputs[1]], sc.activation))
             elif node.kind == "maxpool":
                 out = _maxpool(prev, node)
             elif node.kind == "upsample":
                 out = F.interpolate(prev, scale_factor=node.stride, mode="nearest")
             elif node.kind == "shortcut":
-                out = _activate(prev + cache[node.inputs[1]], node.activation)
+                # taken over by the epilogue of the conv before it
+                out = (prev if node.inputs[0] in fused else
+                       _activate(prev + cache[node.inputs[1]], node.activation))
             elif node.kind == "route":
                 srcs = [prev if i == node.index - 1 else cache[i]
                         for i in node.inputs]

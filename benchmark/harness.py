@@ -6,6 +6,28 @@ file of its own, found by the name ``BENCHMARK.json`` gives it:
 ``configs/<config>.json`` (and the Darknet cfg it names), ``traffic/<mix>.json``
 (read by ``loadgen``) and ``metrics/<metric>.py`` (a ``read(run)`` that
 returns the number, or None where it finds nothing to read).
+
+A configuration names its plain reference by its ``"reference"`` key: a
+module ``reference/<name>.py``, imported as ``reference.<name>``, that
+every use of the reference in a run goes through. Such a module has
+
+* ``read_cfg(path) -> Net``: the Darknet cfg the configuration names;
+* ``letterbox(frames_bgr, net_hw)``: (B, H, W, 3) uint8 BGR frames to
+  (B, 3, net_h, net_w) float32 RGB in [0, 1];
+* ``forward(net, weights, x, cast=None, on_conv=None, rounding=None)``:
+  each head's raw map; ``on_conv(layer, y)`` sees each convolution's
+  output before its activation and returns the output to go on with (the
+  weights' scaling, ``inputs.make_weights``);
+* ``detect(net, weights, frames_bgr, prob_thresh, iou_thresh, top_k,
+  max_results, cast=None, rounding=None) -> (List[Detections], Decoded)``.
+
+``Net``, ``Decoded`` and ``Detections`` are those of ``reference.yolo``, so
+that ``check`` and ``counts`` read every module's results alike; a module
+may import the parts it shares (``letterbox``, ``select``, ``iou``, the
+dataclasses) from ``reference.yolo`` and replace only what differs. The
+float8 control's ``fp8_cast`` is shared; the int4 control walks
+``reference.yolo`` (``reference.int8``), so a configuration with that
+control names ``"yolo"``.
 """
 from __future__ import annotations
 
@@ -13,11 +35,13 @@ import argparse
 import gc
 import importlib.util
 import json
+import re
 import sys
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,6 +59,8 @@ MANIFEST = ROOT / "BENCHMARK.json"
 FORBIDDEN = ("jax", "jaxlib", "flax", "yolov3_tpu")
 REFERENCE_BLOCK = 8  # frames a reference forward takes at once
 WALKS = ("float32", "fp8", "int4")  # what ``reference_walk`` builds
+CONTRACT = ("read_cfg", "letterbox", "forward", "detect")  # a reference module's
+MODULE_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
 
 
 class Fail(RuntimeError):
@@ -49,6 +75,7 @@ class Cell:
     config: Dict
     traffic: Dict
     cfg_path: Path
+    reference: ModuleType  # the plain reference the configuration names
     metrics: Dict[str, Dict] = field(default_factory=dict)
 
     @property
@@ -62,13 +89,31 @@ def load_cell(name: str, trace: bool = False) -> Cell:
     if entry is None:
         raise Fail(f"no workload {name!r} in {MANIFEST}")
     conf_entry = next(c for c in man["configs"] if c["name"] == entry["config"])
-    config = json.loads((ROOT / conf_entry["file"]).read_text())
+    conf_path = ROOT / conf_entry["file"]
+    config = json.loads(conf_path.read_text())
     traffic = json.loads((HERE / "traffic" / f"{entry['traffic']}.json").read_text())
     group = man["per_layer"] if trace else man["end_to_end"]
     metrics = {m["name"]: m for m in group
                if name in m.get("workloads", [name])}
     return Cell(name, entry, config, traffic, HERE / "configs" / config["cfg"],
-                metrics)
+                reference_module(config, conf_path), metrics)
+
+
+def reference_module(config: Dict, conf_path: Path) -> ModuleType:
+    """The module ``reference.<name>`` that the configuration's
+    ``"reference"`` key names, holding the contract above."""
+    name = config.get("reference")
+    if not isinstance(name, str) or not MODULE_NAME.match(name):
+        raise Fail(f"{conf_path}: \"reference\" must name a module of "
+                   f"{HERE / 'reference'}, not {name!r}")
+    full = f"reference.{name}"
+    if importlib.util.find_spec(full) is None:
+        raise Fail(f"{conf_path}: no reference module {full!r}")
+    mod = importlib.import_module(full)
+    missing = [f for f in CONTRACT if not callable(getattr(mod, f, None))]
+    if missing:
+        raise Fail(f"{conf_path}: reference module {full!r} lacks {missing}")
+    return mod
 
 
 @dataclass
@@ -149,9 +194,9 @@ def as_reference(d) -> yolo.Detections:
                            np.asarray(d.class_idx).astype(np.int64))
 
 
-def reference_walk(net: yolo.Net, weights, calib: Optional[np.ndarray],
-                   kind: str) -> Tuple[Dict, Dict]:
-    """(weights, ``yolo.detect``'s rounding arguments) of a walk held
+def reference_walk(ref: ModuleType, net: yolo.Net, weights,
+                   calib: Optional[np.ndarray], kind: str) -> Tuple[Dict, Dict]:
+    """(weights, ``ref.detect``'s rounding arguments) of a walk held
     against the program: ``"float32"``, the plain reference; ``"fp8"``, it
     with every convolution's operands rounded to float8 (a bf16
     configuration's control); ``"int4"``, the int8 scheme of
@@ -165,8 +210,10 @@ def reference_walk(net: yolo.Net, weights, calib: Optional[np.ndarray],
         return weights, {"cast": yolo.fp8_cast}
     if kind != "int4" or calib is None:
         raise Fail(f"no {kind} walk for a configuration without calibration frames")
+    if ref is not yolo:
+        raise Fail(f"the int4 control walks reference.yolo, not {ref.__name__}")
     device = next(iter(weights.values()))[0].device
-    x = yolo.letterbox(torch.from_numpy(calib).to(device), (net.height, net.width))
+    x = ref.letterbox(torch.from_numpy(calib).to(device), (net.height, net.width))
     qw, walk = int8.quantize(net, weights, x, int8.INT4)
     return qw, {"rounding": walk}
 
@@ -183,9 +230,10 @@ def reference_readings(cell: Cell, net: yolo.Net, folded, pool: np.ndarray,
     weights = {i: (torch.from_numpy(f["w"]).permute(3, 2, 0, 1).to(device),
                    torch.from_numpy(f["b"]).to(device))
                for i, f in folded.items()}
-    ref_w, ref_kw = reference_walk(net, weights, calib, "float32")
+    ref = cell.reference
+    ref_w, ref_kw = reference_walk(ref, net, weights, calib, "float32")
     if served is None:
-        ctrl_w, ctrl_kw = reference_walk(net, weights, calib, cfg["control"])
+        ctrl_w, ctrl_kw = reference_walk(ref, net, weights, calib, cfg["control"])
     kw = dict(prob_thresh=cfg["prob_thresh"], iou_thresh=cfg["iou_thresh"],
               top_k=cfg["top_k"], max_results=cfg["max_results"])
     port, refs, cands = [], [], []
@@ -194,9 +242,9 @@ def reference_readings(cell: Cell, net: yolo.Net, folded, pool: np.ndarray,
         for lo in range(0, len(frames), REFERENCE_BLOCK):
             ids = frames[lo:lo + REFERENCE_BLOCK]
             x = torch.from_numpy(pool[ids]).to(device)
-            dets, dec = yolo.detect(net, ref_w, x, **kw, **ref_kw)
+            dets, dec = ref.detect(net, ref_w, x, **kw, **ref_kw)
             if served is None:
-                ctrl, _ = yolo.detect(net, ctrl_w, x, **kw, **ctrl_kw)
+                ctrl, _ = ref.detect(net, ctrl_w, x, **kw, **ctrl_kw)
             for j, i in enumerate(ids):
                 c = check.candidates(dec, j, tuple(pool.shape[1:3]), net_hw)
                 got = [ctrl[j]] if served is None else served[i]
@@ -237,11 +285,12 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, devices,
     ``attempted``, ``failed``, ``metrics``, ``device``, maybe
     ``breakdown``, ``compared``, then ``checked``) and what the metrics
     read."""
-    net = yolo.read_cfg(cell.cfg_path)
+    net = cell.reference.read_cfg(cell.cfg_path)
     traffic = cell.traffic
     pool = inputs.make_frames(int(traffic["pool"]), traffic["frame_hw"], seed,
                               0, devices[0])
-    folded = inputs.as_folded_hwio(inputs.make_weights(net, seed, devices[0]))
+    folded = inputs.as_folded_hwio(
+        inputs.make_weights(cell.reference, net, seed, devices[0]))
     calib = calibration_frames(cell, seed, devices[0])
     det = build_detector(cell, folded, calib, devices)
     drv = loadgen.driver(det, pool, traffic)

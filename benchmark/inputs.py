@@ -17,13 +17,13 @@
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from reference import yolo
 from reference.yolo import Net, conv_in_channels
 
 BN_EPS = 1e-5
@@ -47,11 +47,13 @@ def generator(seed: int, stream: int, device) -> torch.Generator:
     return g
 
 
-def make_weights(net: Net, seed: int, device) -> Weights:
-    """{conv index: (folded OIHW weight, bias)} float32 on ``device``."""
+def make_weights(ref: ModuleType, net: Net, seed: int, device) -> Weights:
+    """{conv index: (folded OIHW weight, bias)} float32 on ``device``; the
+    scaling walks ``net`` with the plain reference ``ref`` (the module the
+    configuration names, ``harness.reference_module``)."""
     weights = draw_weights(net, seed, device)
     frames = make_frames(SCALING_FRAMES, (net.height, net.width), seed, 2, device)
-    x = yolo.letterbox(torch.from_numpy(frames).to(device), (net.height, net.width))
+    x = ref.letterbox(torch.from_numpy(frames).to(device), (net.height, net.width))
 
     per = 5 + net.classes
     obj_at = -np.log(1.0 / OBJECTNESS_FLOOR - 1.0)
@@ -76,7 +78,7 @@ def make_weights(net: Net, seed: int, device) -> Weights:
         return y + b[:, None, None]
 
     with torch.inference_mode():
-        yolo.forward(net, weights, x, on_conv=unit)
+        ref.forward(net, weights, x, on_conv=unit)
     return weights
 
 

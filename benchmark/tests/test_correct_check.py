@@ -38,7 +38,7 @@ def mesh_cell() -> harness.Cell:
                          .read_text())
     return harness.Cell("yolov3-608-bf16.dp4-batch128",
                         dict(base.entry, chips=4, traffic="dp4-batch128"),
-                        base.config, traffic, base.cfg_path)
+                        base.config, traffic, base.cfg_path, base.reference)
 
 
 def small_cell(name, cfg: Path) -> harness.Cell:

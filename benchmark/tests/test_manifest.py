@@ -74,6 +74,18 @@ def test_every_config_keeps_a_cell_and_its_file():
         assert conf["control"] in harness.WALKS
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in MAN["configs"]])
+def test_config_names_its_reference(config):
+    """A module of ``benchmark/reference/`` that holds the contract; the
+    int4 control walks ``reference.yolo``, so its configurations name it."""
+    path = ROOT / next(c["file"] for c in MAN["configs"] if c["name"] == config)
+    conf = json.loads(path.read_text())
+    assert (BENCH / "reference" / f"{conf['reference']}.py").is_file()
+    assert harness.reference_module(conf, path).__name__ == f"reference.{conf['reference']}"
+    if conf["control"] == "int4":
+        assert conf["reference"] == "yolo"
+
+
 def test_at_most_one_four_chip_cell():
     four = [w for w in MAN["workloads"] if w["chips"] == 4]
     assert len(four) <= max(1, math.floor(0.25 * len(CELLS)))

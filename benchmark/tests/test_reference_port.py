@@ -41,7 +41,7 @@ def test_head_maps_match_port(which, request):
 
     cfg = request.getfixturevalue(which)
     net = yolo.read_cfg(cfg)
-    weights = inputs.make_weights(net, 3, "cpu")
+    weights = inputs.make_weights(yolo, net, 3, "cpu")
     x = torch.rand(2, net.height, net.width, 3, generator=torch.Generator().manual_seed(0))
     pnet = port_net(cfg, weights)
     want = forward_features(pnet.graph, pnet.params, x, precision="highest")
@@ -57,7 +57,7 @@ def test_detections_match_port(which, request, dense):
 
     cfg = request.getfixturevalue(which)
     net = yolo.read_cfg(cfg)
-    weights = inputs.make_weights(net, 4, "cpu")
+    weights = inputs.make_weights(yolo, net, 4, "cpu")
     det = Detector(port_net(cfg, weights, "highest"), prob_thresh=0.05,
                    iou_thresh=0.3, top_k=256, max_results=128, device="cpu")
     frames = inputs.make_frames(4, (48, 64), 9, 0, "cpu")
@@ -86,7 +86,7 @@ def test_int8_state_matches_port(small_cfg):
     from yolov3_tpu_torch import Darknet
 
     net = yolo.read_cfg(small_cfg)
-    weights = inputs.make_weights(net, 7, "cpu")
+    weights = inputs.make_weights(yolo, net, 7, "cpu")
     calib = inputs.make_frames(8, (48, 64), 7, 1, "cpu")
     pnet = Darknet(str(small_cfg), precision="bf16", device="cpu").set_params(
         inputs.as_folded_hwio(weights))

@@ -4565,6 +4565,13 @@ def probe_records(dots, probes, bound):
 EPI_BATCHES = (32, 8)
 EPI_F32_SHAPES = ((608, 32, "leaky"), (76, 256, "leaky"), (19, 255, "linear"))
 EPI_SIZE = 608
+# the Mish kernel against the library chain (the bias add, F.mish, the
+# shortcut's add): the most bf16 / float32 ulps an element may differ by
+MISH_ULPS = 0
+# a yolov4 forward: 110 convs through the epilogue, 72 of them Mish, 23
+# with a shortcut's residual, and 3 heads decoded with a scale_x_y
+YOLOV4_EPILOGUES = (110, 72, 23)
+YOLOV4_SCALED_HEADS = 3
 
 
 def epilogue_convs(graph, size: int = EPI_SIZE):
@@ -4637,6 +4644,250 @@ def epilogue_exact(y, b, activation, r, res_act, what: str) -> float:
                              f"from the library chain's or the plain "
                              f"version's (largest difference {err})")
     return err
+
+
+def ulps(a, b) -> tuple:
+    """(elements whose bits differ, the most ulps of a's type between them)
+    of two same-type float tensors: each read as its bits in sign-magnitude
+    order; NaN against NaN agrees, NaN against a number is infinitely far."""
+    import torch
+
+    wide = torch.int32 if a.element_size() == 2 else torch.int64
+    ints = torch.int16 if a.element_size() == 2 else torch.int32
+    mask = (1 << (8 * a.element_size() - 1)) - 1
+
+    def order(t):
+        i = t.contiguous().view(ints).to(wide)
+        return torch.where(i < 0, -(i & mask), i)
+
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    one_nan = torch.isnan(a) ^ torch.isnan(b)
+    differ = (a.contiguous().view(ints) != b.contiguous().view(ints)) & ~both_nan
+    gap = (order(a) - order(b)).abs().float()
+    gap = torch.where(one_nan, float("inf"), gap)[differ]
+    return int(differ.sum()), float(gap.max()) if gap.numel() else 0.0
+
+
+def mish_check(y, b, r, what: str) -> dict:
+    """The Mish kernel (``act1`` mish, a linear shortcut where ``r``) on a
+    copy of ``y`` against the library chain and the plain version: the
+    elements whose bits differ and their most ulps; raises past
+    :data:`MISH_ULPS` or where the kernel does not count a Mish launch."""
+    import torch
+    from yolov3_tpu_torch.ops.cuda_epilogue import (conv_epilogue,
+                                                    conv_epilogue_reference)
+
+    before = conv_epilogue.mish_launches
+    got = conv_epilogue(y.clone(), b, "mish", r, "linear")
+    want = library_chain(y.clone(), b, "mish", r, "linear")
+    plain = conv_epilogue_reference(y, b, "mish", r, "linear")
+    torch.cuda.synchronize()
+    if conv_epilogue.mish_launches != before + 1:
+        raise AssertionError(f"mish epilogue {what}: mish_launches moved by "
+                             f"{conv_epilogue.mish_launches - before}")
+    out = {}
+    for name, ref in (("chain", want), ("plain", plain)):
+        n, worst = ulps(got, ref)
+        out[name] = (n, worst)
+        if worst > MISH_ULPS:
+            log(f"[epilogue] mish {what}: {n} of {got.numel()} elements "
+                f"differ from the {name}, by up to {worst} ulp")
+            raise AssertionError(f"mish epilogue {what}: {worst} ulp from "
+                                 f"the {name}, past {MISH_ULPS}")
+    return out
+
+
+def phase_scaled_decode(v4) -> float:
+    """K1, K1c and K3 with yolov4's heads (scale_x_y 1.2 / 1.1 / 1.05) at
+    608, B=8, float32 and bf16 maps: K1 and K1c within K1's bars of their
+    plain versions (``scale_x_y`` passed), K3 exact against the plain
+    decode, each counted in ``scaled_heads`` (3 a call); scales of 1 equal
+    to the bit to no scales. Returns the largest K1 / K1c difference."""
+    import torch
+    from yolov3_tpu_torch.ops import cuda_decode as cd
+    from yolov3_tpu_torch.ops import decode as plain_decode
+
+    anchors, strides, ncls = head_spec(v4)
+    scales = list(v4.head_scales())
+    ones = [1.0] * len(scales)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = [torch.from_numpy(h).to(DEVICE, dtype)
+                 for h in k1_inputs(v4, seed=6, size=608)]
+        offs = cd.candidate_offsets(feats, anchors)
+        for prob in (0.0, 0.3):
+            before = cd.launch_decode.scaled_heads
+            got, _ = cd.decode_packed(feats, anchors, strides, ncls, prob,
+                                      scales=scales)
+            want = torch.cat([cd.decode_packed_head_reference(
+                f, a, st, ncls, prob, off, sxy) for f, a, st, off, sxy in zip(
+                    feats, anchors, strides, offs, scales)], dim=1)
+            worst = max(worst, check_records(got, want,
+                                             f"K1 yolov4 {dtype} prob={prob}"))
+            cgot = cd.decode_compact(feats, anchors, strides, ncls, prob,
+                                     scales=scales)
+            cwant = [cd.decode_compact_head_reference(f, a, st, ncls, prob, sxy)
+                     for f, a, st, sxy in zip(feats, anchors, strides, scales)]
+            cwant = tuple(torch.cat([p[i] for p in cwant], dim=1)
+                          for i in range(3))
+            worst = max(worst, check_records(
+                compact_record(cgot), compact_record(cwant),
+                f"K1c yolov4 {dtype} prob={prob}"))
+            if cd.launch_decode.scaled_heads - before != 2 * YOLOV4_SCALED_HEADS:
+                raise AssertionError(
+                    f"K1 / K1c counted {cd.launch_decode.scaled_heads - before}"
+                    f" scaled heads in two calls")
+            for fn in (cd.decode_packed, cd.decode_compact):
+                a1 = fn(feats, anchors, strides, ncls, prob)
+                a2 = fn(feats, anchors, strides, ncls, prob, scales=ones)
+                if not all(torch.equal(x, y) for x, y in zip(a1, a2)):
+                    raise AssertionError(f"{fn.__name__}: scales of 1 differ "
+                                         f"from none")
+        before = cd.launch_full_decode.scaled_heads
+        got = cd.decode_all(feats, anchors, strides, ncls, scales)
+        want = plain_decode.decode_all([f.float() for f in feats], anchors,
+                                       strides, ncls, scales)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 yolov4 {dtype}: "
+                                 f"{int((got != want).sum())} elements differ "
+                                 f"from the plain decode")
+        if cd.launch_full_decode.scaled_heads - before != YOLOV4_SCALED_HEADS:
+            raise AssertionError("K3 miscounted its scaled heads")
+        if not torch.equal(cd.decode_all(feats, anchors, strides, ncls),
+                           cd.decode_all(feats, anchors, strides, ncls, ones)):
+            raise AssertionError("K3: scales of 1 differ from none")
+    log(f"[epilogue] K1 / K1c / K3 with yolov4's scale_x_y {scales} at 608 "
+        f"B={BATCH}, float32 and bf16 maps: K1 / K1c within K1's bars (max "
+        f"|err| {worst!r}), K3 exact; scales of 1 bit for bit no scales; "
+        f"{YOLOV4_SCALED_HEADS} scaled heads a call counted")
+    return worst
+
+
+def phase_epilogue_yolov4(card: str) -> dict:
+    """yolov4@608 on the card: the Mish kernel against the library chain
+    and the plain version at every Mish conv output shape at B=32 and 8
+    (with the residual the walk gives it, and without), and in float32 at
+    B=8; one forward's 110 epilogues (72 Mish) by graph replay beside the
+    bound; a captured yolov4 bf16 + K1 Detector's launches a forward
+    (``conv_epilogue.launches`` / ``.mish_launches`` /
+    ``.residual_launches`` and ``launch_decode.scaled_heads``)."""
+    import torch
+    from yolov3_tpu_torch import Darknet, Detector
+    from yolov3_tpu_torch.graph import load_graph
+    from yolov3_tpu_torch.model import residual_convs
+    from yolov3_tpu_torch.ops import cuda_decode as cd
+    from yolov3_tpu_torch.ops.cuda_epilogue import (conv_epilogue,
+                                                    conv_epilogue_reference)
+    from yolov3_tpu_torch.weights import fold_raw, random_raw
+
+    cfg = REPO / "models" / "yolov4.cfg"
+    v4 = load_graph(cfg)
+    decode_err = phase_scaled_decode(v4)
+    convs = epilogue_convs(v4)
+    rng = torch.Generator(device=DEVICE).manual_seed(25)
+    mish = sorted({(h, c, r) for h, c, a, r in convs if a == "mish"}
+                  | {(h, c, None) for h, c, a, _ in convs if a == "mish"},
+                  key=str)
+    diffs = {"chain": [0, 0.0], "plain": [0, 0.0]}
+
+    def note(out):
+        for k, (n, w) in out.items():
+            diffs[k][0] += n
+            diffs[k][1] = max(diffs[k][1], w)
+
+    for bsz in EPI_BATCHES:
+        for h, c, res_act in mish:
+            y, b, r = epilogue_operands(rng, bsz, h, c, res_act is not None,
+                                        torch.bfloat16)
+            # Mish's turns in the last pixel: NaN, softplus's threshold,
+            # exp's overflow
+            y.view(-1, c)[-1, :4] = torch.tensor(
+                [float("nan"), 20.5, -20.5, 89.0], device=DEVICE)[:c].to(y.dtype)
+            note(mish_check(y, b, r, f"bf16 B={bsz} {h}x{h}x{c} shortcut "
+                                     f"{res_act}"))
+            del y, b, r
+    for h, c, res_act in mish[:4]:
+        y, b, r = epilogue_operands(rng, 8, h, c, res_act is not None,
+                                    torch.float32)
+        note(mish_check(y, b, r, f"float32 B=8 {h}x{h}x{c} shortcut {res_act}"))
+    log(f"[epilogue] yolov4@608 Mish: {len(mish)} variants at B=32 and 8 "
+        f"bf16 and 4 float32 against the library chain (bias add_, F.mish, "
+        f"the shortcut's add) and the plain version: elements differing, "
+        f"most ulps: chain {diffs['chain']}, plain {diffs['plain']} (bar "
+        f"{MISH_ULPS} ulp)")
+
+    times = {}
+    for bsz in EPI_BATCHES[:1]:
+        ops, nbytes, mish_ops, mish_bytes = [], 0, [], 0
+        for h, c, act, res_act in convs:
+            y, b, r = epilogue_operands(rng, bsz, h, c, res_act is not None,
+                                        torch.bfloat16)
+            op = (y, b, act, r, res_act or "linear")
+            ops.append(op)
+            n = (3 if r is not None else 2) * y.numel() * 2
+            nbytes += n + c * 2
+            if act == "mish":
+                mish_ops.append(op)
+                mish_bytes += n
+
+        def run(fn, which):
+            return lambda: [fn(*op) for op in which]
+
+        times[bsz] = {
+            "ms": graph_ms(run(conv_epilogue, ops), iters=3, warmup=1),
+            "mish_ms": graph_ms(run(conv_epilogue, mish_ops), iters=3,
+                                warmup=1),
+            "library_mish_ms": graph_ms(run(library_chain, mish_ops), iters=3,
+                                        warmup=1),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "mish_bound_ms": mish_bytes / HBM_BYTES_PER_S * 1e3}
+        t = times[bsz]
+        log(f"[epilogue] yolov4@608 B={bsz} bf16, one forward's {len(ops)} "
+            f"epilogues by graph replay: {t['ms']:.3f} ms (bound "
+            f"{t['bound_ms']:.3f}); its {len(mish_ops)} Mish ones "
+            f"{t['mish_ms']:.3f} ms (bound {t['mish_bound_ms']:.3f} ms, "
+            f"{mish_bytes / 1e9:.2f} GB: {t['mish_bound_ms'] / t['mish_ms']:.1%}"
+            f" of it), the library chain {t['library_mish_ms']:.3f} ms; {card}")
+        del ops, mish_ops
+        torch.cuda.empty_cache()
+
+    # a captured yolov4 Detector's launches a forward
+    net = Darknet(cfg, precision="bf16", device=DEVICE).set_params(
+        fold_raw(random_raw(v4, seed=25)))
+    det = Detector(net, decode_impl="pallas", device=DEVICE)
+    frames = np.random.default_rng(25).integers(
+        0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)
+    counters = (lambda: (conv_epilogue.launches, conv_epilogue.mish_launches,
+                         conv_epilogue.residual_launches,
+                         cd.launch_decode.scaled_heads,
+                         cd.decode_packed.launches))
+    c0 = counters()
+    det.detect_batch(frames)  # warm-up forward and capture: two forwards
+    torch.cuda.synchronize()
+    c1 = counters()
+    det.detect_batch(frames)  # a replay: no launch
+    torch.cuda.synchronize()
+    c2 = counters()
+    per_forward = tuple((b - a) // 2 for a, b in zip(c0, c1))
+    want = (*YOLOV4_EPILOGUES, YOLOV4_SCALED_HEADS, 1)
+    mish_convs = sum(n.activation == "mish" for n in v4.conv_nodes)
+    if (det.route != "pallas" or per_forward != want or c2 != c1
+            or (len(v4.conv_nodes), mish_convs, len(residual_convs(v4)))
+            != YOLOV4_EPILOGUES
+            or any((b - a) % 2 for a, b in zip(c0, c1))):
+        raise AssertionError(f"yolov4 Detector ({det.route}): launches a "
+                             f"forward (epilogues, Mish, residual, scaled "
+                             f"heads, K1) {per_forward}, want {want}; a "
+                             f"replay launched {tuple(b - a for a, b in zip(c1, c2))}")
+    log(f"[epilogue] yolov4@608 bf16 + K1 Detector, captured: a forward "
+        f"launches {per_forward[0]} epilogues, {per_forward[1]} Mish, "
+        f"{per_forward[2]} with a residual, {per_forward[3]} scaled heads in "
+        f"{per_forward[4]} K1 launch; a replay launches none")
+    del det, net
+    torch.cuda.empty_cache()
+    return {"times": times, "mish_ulps": diffs, "decode_err": decode_err,
+            "per_forward": per_forward}
 
 
 def phase_epilogue(card: str) -> dict:
@@ -4766,7 +5017,8 @@ def phase_epilogue(card: str) -> dict:
         f"chain and the plain version over every case: {err}")
     del net, net32
     torch.cuda.empty_cache()
-    return {"times": times, "max_abs_err": err}
+    return {"times": times, "max_abs_err": err,
+            "yolov4": phase_epilogue_yolov4(card)}
 
 
 def main() -> int:
@@ -5001,7 +5253,13 @@ def main() -> int:
                                     "library_ms")},
          "bound_by": "bytes",
          **{f"{k}_b8": epi[8][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "library_ms")}},
+                                           "library_ms")},
+         # yolov4@608 B=32: the Mish kernel's 72 epilogues, its ulps from
+         # the library chain, and the captured Detector's launches a forward
+         **{f"yolov4_{k}": v for k, v in
+            res["epilogue"]["yolov4"]["times"][32].items()},
+         "yolov4_mish_ulps": res["epilogue"]["yolov4"]["mish_ulps"],
+         "yolov4_per_forward": res["epilogue"]["yolov4"]["per_forward"]},
         *probe_records(res["dots"], res["probes"], bound),
     ]}
     for entry in kernels["kernels"]:

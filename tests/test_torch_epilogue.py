@@ -2,7 +2,9 @@
 version against the PyTorch chain it replaces, bit for bit; the walk that
 hands a shortcut to the epilogue of the conv before it against the same walk
 node by node; the fusion plan ``model.residual_convs``; the kernel's gate
-``supported`` and its grid ``plan_conv_epilogue``, replayed in numpy."""
+``supported`` and its grid ``plan_conv_epilogue``, replayed in numpy. Mish
+(YOLOv4) with and without a residual, on edge values too; on the card
+(``card``, skipped here) the kernel against the chain bit for bit."""
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +25,13 @@ TINY_CFG = str(ROOT / "models" / "yolov3-tiny.cfg")
 DTYPES = [torch.float32, torch.bfloat16]
 CHANNELS = [32, 255, 1024]
 # (the conv's activation, the shortcut's activation or None: no residual)
-CHAINS = [(a, r) for a in ("leaky", "linear") for r in (None, "linear", "leaky")]
+CHAINS = [(a, r) for a in ("leaky", "linear", "mish")
+          for r in (None, "linear", "leaky")]
+# -0, +-inf, NaN, large and tiny values, and Mish's turns: past 20 softplus
+# is x, past 88.7 exp overflows, below -88 it underflows
+EDGES = [-0.0, 0.0, float("inf"), float("-inf"), float("nan"), 3.0e38,
+         -3.0e38, 1.0e-39, -1.0e-39, 20.0, 20.5, -20.0, 88.0, 89.0, -88.0,
+         -104.0, 1.0e4, -1.0e4, 0.3, -0.3, -1.19]
 
 # a conv whose output feeds both a shortcut right after it and a route
 ROUTE_CFG = """
@@ -129,6 +137,73 @@ def test_plain_version_is_the_chain_it_replaces(chain, dtype, c):
                                      ).permute(0, 3, 1, 2)
     assert got.dtype == dtype
     assert torch.equal(_bits(got), _bits(want))
+
+
+def _edges(rng, dtype, c: int = 24, residual: bool = False):
+    """NHWC y (2, 3, 4, c) whose first pixels hold :data:`EDGES`, its bias
+    (zero in the channels the edges sit in, so they reach the activation
+    as they are) and a residual when asked."""
+    y = torch.from_numpy(rng.normal(0, 4, (2, 3, 4, c)).astype(np.float32))
+    flat = y.view(-1, c)
+    for k, v in enumerate(EDGES):
+        flat[k // c, k % c] = v
+    b = torch.from_numpy(rng.normal(0, 1, c).astype(np.float32))
+    b[:] = torch.where(torch.arange(c) < len(EDGES), 0.0, b)
+    r = (torch.from_numpy(rng.normal(0, 2, (2, 3, 4, c)).astype(np.float32))
+         if residual else None)
+    return (y.to(dtype), b.to(dtype), None if r is None else r.to(dtype))
+
+
+def _mish_chain(y, b, r):
+    """The walk's chain for a Mish conv: the bias add, ``F.mish``, then a
+    linear shortcut's add, each rounded to y's type."""
+    out = F.mish(y + b)
+    return out if r is None else out + r
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["alone", "shortcut"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_mish_plain_version_is_the_chain(dtype, residual):
+    """Mish with and without a residual, on -0, +-inf, NaN and large and
+    small values: the plain version's bits are the chain's."""
+    y, b, r = _edges(np.random.default_rng(7), dtype, residual=residual)
+    got = ce.conv_epilogue_reference(y, b, "mish", r, "linear")
+    want = _mish_chain(y, b, r)
+    assert got.dtype == dtype
+    assert torch.equal(_bits(got), _bits(want))
+    # F.mish's corner cases, which the kernel keeps: -inf gives NaN (-inf *
+    # 0), +inf and large values stay, NaN stays NaN
+    mid = ce.activate(y + b, "mish").float().view(-1)
+    assert torch.isnan(mid[3]) and torch.isnan(mid[4]) and mid[2] == float("inf")
+    assert mid[5] == y.float().view(-1)[5]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the epilogue kernel runs on the card only")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("c", [24, 64, 255])
+@pytest.mark.parametrize("residual", [False, True], ids=["alone", "shortcut"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_mish_kernel_is_the_chain_on_the_card(dtype, residual, c, card):
+    """The Mish kernel (``conv_epilogue_mish_kernel``) against the chain
+    and the plain version on the card, bit for bit, with the edge values;
+    C = 255 takes the one-element path. Runs with ``python -m pytest
+    tests/test_torch_epilogue.py -m card --noconftest`` on the card's
+    machine (no JAX there)."""
+    y, b, r = (None if t is None else t.to(card)
+               for t in _edges(np.random.default_rng(c), dtype, c, residual))
+    want = _mish_chain(y, b, r)
+    plain = ce.conv_epilogue_reference(y, b, "mish", r, "linear")
+    before = ce.conv_epilogue.mish_launches
+    got = ce.conv_epilogue(y.clone(), b, "mish", r, "linear")
+    assert ce.conv_epilogue.mish_launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got), _bits(plain))
 
 
 def _conv_node(activation: str) -> Node:
@@ -350,8 +425,8 @@ def test_plan_refuses(rows, c):
 def test_wrapper_refuses_mismatched_operands():
     y = _on_card(torch.zeros(1, 2, 2, 8))
     for b, kw in [(torch.zeros(4), {}), (torch.zeros(8, dtype=torch.bfloat16), {}),
-                  (torch.zeros(8), {"activation": "mish"}),
-                  (torch.zeros(8), {"residual_activation": "mish"}),
+                  (torch.zeros(8), {"activation": "swish"}),
+                  (torch.zeros(8), {"residual_activation": "swish"}),
                   (torch.zeros(8), {"residual": torch.zeros(1, 2, 2, 4)})]:
         with pytest.raises(ValueError):
             ce.conv_epilogue(y, _on_card(b), **{

@@ -31,8 +31,15 @@ def test_lower_matches_jax_field_by_field(cfg_paths, name):
     tg = tgraph.load_graph(cfg_paths[name])
     jg = jgraph.load_graph(cfg_paths[name])
     assert len(tg.nodes) == len(jg.nodes)
+    # the JAX Node's fields, each equal; the port's one more field,
+    # scale_x_y (YOLOv4's heads), is 1.0 for every YOLOv3 cfg
+    fields = [f.name for f in dataclasses.fields(jgraph.Node)]
+    assert set(fields) < {f.name for f in dataclasses.fields(tgraph.Node)}
     for tn, jn in zip(tg.nodes, jg.nodes):
-        assert dataclasses.asdict(tn) == dataclasses.asdict(jn)
+        assert ({f: getattr(tn, f) for f in fields}
+                == dataclasses.asdict(jn))
+        assert tn.scale_x_y == 1.0
+    assert tg.head_scales() == (1.0,) * len(tg.yolo_nodes)
     assert (tg.in_width, tg.in_height, tg.in_channels, tg.name) == \
         (jg.in_width, jg.in_height, jg.in_channels, jg.name)
     assert tg.needed_outputs == jg.needed_outputs

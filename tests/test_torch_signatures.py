@@ -34,7 +34,8 @@ MODULES = ("inference", "model", "ops.nms", "utils.boxes", "ops.preprocess",
 # the device a net or Detector lives on, the cached resize
 # matrices, the int8 operands cached on the card, the float walk's ``upto``
 # (the per-layer profile's prefixes, as the int8 carrier walk has), the
-# shortcut that _conv's epilogue takes over (its residual and activation). The
+# shortcut that _conv's epilogue takes over (its residual and activation),
+# the heads' scale_x_y (YOLOv4) of the graph's nodes and the plain decode. The
 # port's _conv and _conv_bf16 take no precision: the weights' type says it;
 # nor do the spatial walk's convs, under the walk's one precision scope.
 DEVIATIONS = {
@@ -52,6 +53,11 @@ DEVIATIONS = {
     ("quant", "forward_features_int8_carrier"): ((), ("operands",)),
     ("quant", "forward_packed_fused_int8"): ((), ("operands",)),
     ("quant", "forward_packed_int8"): ((), ("operands",)),
+    ("graph", "Node.__init__"): ((), ("scale_x_y",)),
+    ("ops.decode", "decode_head"): ((), ("scale_x_y",)),
+    ("ops.decode", "decode_compact_head"): ((), ("scale_x_y",)),
+    ("ops.decode", "decode_all"): ((), ("scales",)),
+    ("ops.decode", "decode_compact"): ((), ("scales",)),
     ("parallel.spatial", "_conv_sharded"): (("precision",), ()),
     ("parallel.spatial", "_conv_col"): (("precision",), ()),
     ("parallel.spatial", "_conv_row"): (("precision",), ()),

@@ -4,9 +4,13 @@
 //
 // over a dense NHWC tensor y (B, H, W, C): the output of one cuDNN conv, in
 // place, with b the conv's per-channel bias, act1 its activation (leaky 0.1,
-// linear or relu), and, where a shortcut follows the conv, r the shortcut's
-// other input (same shape) and act2 the shortcut's activation. Without r the
-// pass stops after act1.
+// linear, relu or mish), and, where a shortcut follows the conv, r the
+// shortcut's other input (same shape) and act2 the shortcut's activation.
+// Without r the pass stops after act1. Where act1 or act2 is mish (YOLOv4's
+// CSPDarknet53: 72 convs, 23 of them before a linear shortcut) the walk runs
+// in a kernel of its own, conv_epilogue_mish_kernel, so that a device trace
+// tells its time from the leaky and linear epilogues' (conv_epilogue_kernel,
+// whose code does not change with it).
 //
 // It replaces no TPU kernel: on the TPU, XLA fused the bias, the activation
 // and the shortcut's add into the conv. On the card PyTorch runs cuDNN's conv
@@ -31,9 +35,11 @@
 // Rounding: the result is bit-identical to the PyTorch chain it replaces, in
 // bf16 and in float32. Each step computes in float32 and rounds to the
 // element type where PyTorch's kernels round: after y + b (add_, float
-// opmath), after act1 (leaky_relu: a > 0 ? a : a * 0.1f), after + r, after
-// act2. Built with -fmad=false: a * 0.1f + r must not contract into an FMA.
-// One rounding at the end would be more accurate and a different result.
+// opmath), after act1 (leaky_relu: a > 0 ? a : a * 0.1f; mish: PyTorch's
+// CUDA F.mish, a * tanhf(log1pf(expf(a))) in float32 with no threshold), after
+// + r, after act2. Built with -fmad=false: a * 0.1f + r must not contract into
+// an FMA. One rounding at the end would be more accurate and a different
+// result.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,7 +47,7 @@
 #define CE_THREADS 256
 #define CE_MAX_ELEMENTS (1LL << 62)
 
-enum { CE_LINEAR = 0, CE_LEAKY = 1, CE_RELU = 2 };
+enum { CE_LINEAR = 0, CE_LEAKY = 1, CE_RELU = 2, CE_MISH = 3 };
 
 __device__ __forceinline__ float ce_float(float v) { return v; }
 __device__ __forceinline__ float ce_float(__nv_bfloat16 v) {
@@ -66,22 +72,38 @@ __device__ __forceinline__ float ce_act(float v, int act) {
   return v;
 }
 
-template <typename T, bool RES>
+// PyTorch's CUDA mish (ActivationMishKernel.cu): float opmath, no threshold;
+// expf overflows to inf past 88.7 and the product is then v * 1.0f
+__device__ __forceinline__ float ce_mish(float v) {
+  return v * tanhf(log1pf(expf(v)));
+}
+
+// the leaky / linear / relu walk (MISH false) or the one that also takes mish
+template <bool MISH>
+__device__ __forceinline__ float ce_apply(float v, int act) {
+  if (MISH && act == CE_MISH) return ce_mish(v);
+  return ce_act(v, act);
+}
+
+template <typename T, bool RES, bool MISH>
 __device__ __forceinline__ T ce_one(T y, float b, T r, int act1, int act2) {
   T v = ce_round<T>(ce_float(y) + b);
-  v = ce_round<T>(ce_act(ce_float(v), act1));
+  v = ce_round<T>(ce_apply<MISH>(ce_float(v), act1));
   if (RES) {
     v = ce_round<T>(ce_float(v) + ce_float(r));
-    v = ce_round<T>(ce_act(ce_float(v), act2));
+    v = ce_round<T>(ce_apply<MISH>(ce_float(v), act2));
   }
   return v;
 }
 
-template <typename T, bool VEC, bool RES>
-__global__ void __launch_bounds__(CE_THREADS)
-    conv_epilogue_kernel(T* __restrict__ y, const T* __restrict__ bias,
-                         const T* __restrict__ r, long long rows,
-                         long long c, int act1, int act2) {
+// the walk both kernels run: one 16-byte piece (or element) of a row a
+// thread, the rows strided over grid y
+template <typename T, bool VEC, bool RES, bool MISH>
+__device__ __forceinline__ void ce_walk(T* __restrict__ y,
+                                        const T* __restrict__ bias,
+                                        const T* __restrict__ r,
+                                        long long rows, long long c, int act1,
+                                        int act2) {
   constexpr int V = VEC ? 16 / (int)sizeof(T) : 1;
   const long long c0 =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
@@ -101,26 +123,56 @@ __global__ void __launch_bounds__(CE_THREADS)
       const T* s = reinterpret_cast<const T*>(&res);
 #pragma unroll
       for (int e = 0; e < V; ++e)
-        v[e] = ce_one<T, RES>(v[e], b[e], s[e], act1, act2);
+        v[e] = ce_one<T, RES, MISH>(v[e], b[e], s[e], act1, act2);
       *reinterpret_cast<uint4*>(y + i) = piece;
     } else {
-      y[i] = ce_one<T, RES>(y[i], b[0], RES ? r[i] : y[i], act1, act2);
+      y[i] = ce_one<T, RES, MISH>(y[i], b[0], RES ? r[i] : y[i], act1, act2);
     }
   }
+}
+
+template <typename T, bool VEC, bool RES>
+__global__ void __launch_bounds__(CE_THREADS)
+    conv_epilogue_kernel(T* __restrict__ y, const T* __restrict__ bias,
+                         const T* __restrict__ r, long long rows,
+                         long long c, int act1, int act2) {
+  ce_walk<T, VEC, RES, false>(y, bias, r, rows, c, act1, act2);
+}
+
+template <typename T, bool VEC, bool RES>
+__global__ void __launch_bounds__(CE_THREADS)
+    conv_epilogue_mish_kernel(T* __restrict__ y, const T* __restrict__ bias,
+                              const T* __restrict__ r, long long rows,
+                              long long c, int act1, int act2) {
+  ce_walk<T, VEC, RES, true>(y, bias, r, rows, c, act1, act2);
+}
+
+template <typename T, bool VEC, bool RES>
+static void launch_res(bool mish, T* y, const T* bias, const T* r,
+                       long long rows, long long c, int act1, int act2,
+                       dim3 grid, dim3 block, cudaStream_t s) {
+  if (mish)
+    conv_epilogue_mish_kernel<T, VEC, RES><<<grid, block, 0, s>>>(
+        y, bias, r, rows, c, act1, act2);
+  else
+    conv_epilogue_kernel<T, VEC, RES><<<grid, block, 0, s>>>(
+        y, bias, r, rows, c, act1, act2);
 }
 
 template <typename T, bool VEC>
 static void launch(void* y, const void* bias, const void* r,
                    long long rows, long long c, int act1, int act2,
                    dim3 grid, dim3 block, cudaStream_t s) {
+  const bool mish = act1 == CE_MISH || act2 == CE_MISH;
   if (r)
-    conv_epilogue_kernel<T, VEC, true><<<grid, block, 0, s>>>(
-        static_cast<T*>(y), static_cast<const T*>(bias),
-        static_cast<const T*>(r), rows, c, act1, act2);
+    launch_res<T, VEC, true>(mish, static_cast<T*>(y),
+                             static_cast<const T*>(bias),
+                             static_cast<const T*>(r), rows, c, act1, act2,
+                             grid, block, s);
   else
-    conv_epilogue_kernel<T, VEC, false><<<grid, block, 0, s>>>(
-        static_cast<T*>(y), static_cast<const T*>(bias), nullptr, rows, c,
-        act1, act2);
+    launch_res<T, VEC, false>(mish, static_cast<T*>(y),
+                              static_cast<const T*>(bias), nullptr, rows, c,
+                              act1, act2, grid, block, s);
 }
 
 static bool ce_off_grid(const void* p) {
@@ -128,7 +180,8 @@ static bool ce_off_grid(const void* p) {
 }
 
 // y (rows, c) dense, bf16 (is_bf16) or float32, rewritten in place; bias (c,)
-// of y's type; r (rows, c) dense of y's type, or null; act1 / act2 CE_*; a
+// of y's type; r (rows, c) dense of y's type, or null; act1 / act2 CE_* (the
+// mish kernel where either is CE_MISH); a
 // (grid_x, grid_y) grid of threads_x x threads_y blocks
 // (ops/cuda_epilogue.py plan_conv_epilogue), grid_x * threads_x pieces
 // covering a row; vec: c a multiple of the 16-byte piece and y, r on the
@@ -140,7 +193,7 @@ extern "C" int yolo_conv_epilogue(void* y, const void* bias, const void* r,
                                   void* stream) {
   const int v = vec ? (is_bf16 ? 8 : 4) : 1;
   if (rows < 1 || c < 1 || c > CE_MAX_ELEMENTS / rows || act1 < 0 ||
-      act1 > CE_RELU || act2 < 0 || act2 > CE_RELU || threads_x < 1 ||
+      act1 > CE_MISH || act2 < 0 || act2 > CE_MISH || threads_x < 1 ||
       threads_y < 1 || threads_x * threads_y > CE_THREADS || grid_x < 1 ||
       (long long)grid_x * threads_x * v < c || grid_y < 1 ||
       grid_y > 65535 ||

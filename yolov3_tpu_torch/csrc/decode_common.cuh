@@ -7,8 +7,12 @@
 // kernels (decode_fused.cu), so their record math cannot drift apart. For
 // one (cell, anchor) it computes
 //
-//   cx = (sig(tx) + col) * stride,   w = exp(min(tw, 60)) * anchor_w,
+//   cx = (sig(tx) * s - h + col) * stride,   w = exp(min(tw, 60)) * anchor_w,
 //   x0 = cx - w * 0.5,  x1 = cx + w * 0.5,  (same for y)
+//
+// with s the head's scale_x_y (YOLOv4) and h = (s - 1) / 2; s = 1 and h = 0
+// (every YOLOv3 head, and K4, which takes no scale) give sig(tx) + col to
+// the bit, since sig * 1 and sig - 0 are exact.
 //   score = sig(obj) * sig(max class logit), zeroed below prob_thresh,
 //   class = first argmax of the class logits.
 //
@@ -101,7 +105,7 @@ template <int G, class Load>
 __device__ __forceinline__ K1Record k1_decode_finish(
     const Load& load, int base, float best, int best_i, int j, int col,
     int row, float stride, float anchor_w, float anchor_h,
-    float prob_thresh) {
+    float prob_thresh, float scale_xy = 1.0f, float half_xy = 0.0f) {
   // the record's six transcendental values, sigmoid of tx, ty, obj and
   // the best logit and exp of the clamped tw and th, spread over the
   // group: lane j computes sigmoid input j mod 4 (and j + 2 with two
@@ -131,8 +135,8 @@ __device__ __forceinline__ K1Record k1_decode_finish(
     ex[0] = __shfl_sync(0xffffffffu, e, 0, G);
     ex[1] = __shfl_sync(0xffffffffu, e, 1, G);
   }
-  const float cx = (sig[0] + (float)col) * stride;
-  const float cy = (sig[1] + (float)row) * stride;
+  const float cx = (sig[0] * scale_xy - half_xy + (float)col) * stride;
+  const float cy = (sig[1] * scale_xy - half_xy + (float)row) * stride;
   const float w = ex[0] * anchor_w;
   const float h = ex[1] * anchor_h;
   float score = sig[2] * sig[3];
@@ -158,14 +162,16 @@ __device__ __forceinline__ K1Record k1_decode_finish(
 template <int G, class Load>
 __device__ __forceinline__ K1Record k1_decode_anchor_group(
     const Load& load, int base, int n_classes, int j, int col, int row,
-    float stride, float anchor_w, float anchor_h, float prob_thresh) {
+    float stride, float anchor_w, float anchor_h, float prob_thresh,
+    float scale_xy = 1.0f, float half_xy = 0.0f) {
   static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two");
   float best = -INFINITY;
   int best_i = n_classes;
   k1_scan_classes<G>(load, base + 5, 0, n_classes, j, best, best_i);
   k1_group_best<G>(best, best_i);
   return k1_decode_finish<G>(load, base, best, best_i, j, col, row, stride,
-                             anchor_w, anchor_h, prob_thresh);
+                             anchor_w, anchor_h, prob_thresh, scale_xy,
+                             half_xy);
 }
 
 // lane `lane` of the 8-float record [x0, y0, x1, y1, score, class, cand, 0]

@@ -6,14 +6,15 @@
 // tensor (B, N, 5 + C), cell-major within a head (row head_offset +
 // cell * A + anchor), heads concatenated in cfg order:
 //
-//   x, y : (sig(t) + cell column / row) * stride
+//   x, y : (sig(t) * s - (s - 1) / 2 + cell column / row) * stride
 //   w, h : exp(min(t, 60)) * anchor width / height
 //   objectness and classes : sig(t)
 //
 // The sigmoid is decode_common.cuh's (1 / (1 + expf(-t))), the clamp
 // k1_clamp60 and the exp expf, as in K1 / K1c / K4, so with -fmad=false the
 // full decode equals its plain version (ops/decode.py :: decode_head on the
-// float32 map) bit for bit.
+// float32 map) bit for bit. s is the head's scale_x_y (YOLOv4); at s = 1 the
+// centre is sig(t) + cell to the bit, as before it.
 //
 // What bounds it on the H100: memory, by the bytes. yolov3 at 416, batch 8:
 // 28.96 MB in at float32 (14.48 MB at bf16) and 28.96 MB out, 17.3 us (13.0
@@ -89,6 +90,7 @@ struct K3Head {
   int first_block, tiles;  // its first block; blocks an image
   int dense;
   float stride;
+  float scale_xy, half_xy;  // scale_x_y and (scale_x_y - 1) / 2
   K3Div by_need, by_per, by_gx;  // A * (5 + C), 5 + C and gx
   // a block's step of K3_THREADS elements split into column, row, anchor
   // and channel (each below its bound, so one carry each)
@@ -190,7 +192,8 @@ decode_full_kernel(const K3Table tab, int per, int n_total,
     const float e = expf(wh ? clamped : -t);
     const float s = 1.0f / (1.0f + e);  // k1_sigmoid(t), bit for bit
     const float wa = e * k3_anchor[2 * a + (k & 1)];
-    const float xy = (s + (k == 0 ? x : y)) * hd.stride;
+    const float xy =
+        (s * hd.scale_xy - hd.half_xy + (k == 0 ? x : y)) * hd.stride;
     k3_out[i + oshift] = wh ? wa : (k < 2 ? xy : s);
     k += hd.step_k;
     bool carry = k >= per;
@@ -240,14 +243,15 @@ static K3Div k3_magic(unsigned d) {
 // array addressed as feat[b * sb + y * sy + x * sx + channel]; dense = 1
 // only where that is one packed range per image with a 16-byte aligned base
 // (cuda_decode.dense_map). head_strides: per head its stride in pixels;
-// anchors_wh: 2 * n_anchors_total floats (w0, h0, w1, h1, ...) of all heads
+// head_xy: per head its scale_x_y s and (s - 1) / 2; anchors_wh: 2 * n_anchors_total floats (w0, h0, w1, h1, ...) of all heads
 // in order. out: float32 (batch, n_total, 5 + n_classes), contiguous and
 // 16-byte aligned; head h writes rows [head_offset, head_offset + gy * gx *
 // n_anchors) of every image. blocks: the table's total (batch * tiles per
 // head). Launch on `stream`, allocate nothing, return the CUDA error code
 // (0 on success).
 extern "C" int yolo_decode_full(const long long* head_args,
-                                const float* head_strides, int n_heads,
+                                const float* head_strides,
+                                const float* head_xy, int n_heads,
                                 const float* anchors_wh, int n_anchors_total,
                                 int is_bf16, int blocks, int n_classes,
                                 int n_total, float* out, void* stream) {
@@ -274,6 +278,8 @@ extern "C" int yolo_decode_full(const long long* head_args,
     hd.tiles = (int)a[10];
     hd.dense = (int)a[11];
     hd.stride = head_strides[h];
+    hd.scale_xy = head_xy[2 * h];
+    hd.half_xy = head_xy[2 * h + 1];
     const int need = hd.n_anchors * per;
     hd.by_need = k3_magic(need);
     hd.by_per = k3_magic(per);

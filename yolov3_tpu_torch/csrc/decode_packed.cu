@@ -11,6 +11,8 @@
 //   payload[b, n] = [x0, y0, x1, y1, score * [score >= prob_thresh],
 //                    first-argmax class, cand = n, 0]
 //
+// (a head's box centre scaled by its scale_x_y, decode_common.cuh)
+//
 // and K1c splits the same record three ways, with no candidate lane:
 // boxes[b, n] = [x0, y0, x1, y1], scores[b, n], classes[b, n] (int32).
 //
@@ -71,6 +73,7 @@ struct K1Head {
   int n_anchors, anchor0;  // anchors [anchor0, anchor0 + n_anchors) of the table
   int head_offset, first_block, dense;
   float stride;
+  float scale_xy, half_xy;  // scale_x_y and (scale_x_y - 1) / 2
 };
 
 struct K1Table {
@@ -161,7 +164,7 @@ decode_heads_kernel(const K1Table tab, int batch, int n_classes,
     const int an = hd.anchor0 + a;
     const K1Record rec = k1_decode_anchor_group<G>(
         load, a * per, n_classes, jg, x, y, hd.stride, tab.anchors.wh[2 * an],
-        tab.anchors.wh[2 * an + 1], prob_thresh);
+        tab.anchors.wh[2 * an + 1], prob_thresh, hd.scale_xy, hd.half_xy);
     if (!live) continue;
     const int cand = hd.head_offset + a * cells + cell;
     const long long slot = (long long)b * n_total + cand;
@@ -227,15 +230,17 @@ static int launch_group(int group, const K1Table& tab, int blocks,
 //    first_block, dense]
 // with the map a float32 (is_bf16 = 0) or bf16 (is_bf16 = 1) channels-last
 // array addressed as feat[b * sb + y * sy + x * sx + channel]; head_strides:
-// per head its stride in pixels; anchors_wh: 2 * n_anchors_total floats (w0,
-// h0, w1, h1, ...) of all heads in order. Outputs are device arrays over
+// per head its stride in pixels; head_xy: per head its scale_x_y s and
+// (s - 1) / 2 (1 and 0 for a YOLOv3 head); anchors_wh: 2 * n_anchors_total
+// floats (w0, h0, w1, h1, ...) of all heads in order. Outputs are device arrays over
 // n_total candidates per image, contiguous; packed = 1: payload float32
 // (batch, n_total, 8); packed = 0: boxes float32 (batch, n_total, 4), scores
 // float32 (batch, n_total), classes int32 (batch, n_total). group: lanes a
 // cell (2 or 4); tile_cells: 16 or 32; blocks: the table's total. Launch
 // on `stream`, allocate nothing, return the CUDA error code (0 on success).
 extern "C" int yolo_decode_heads(const long long* head_args,
-                                 const float* head_strides, int n_heads,
+                                 const float* head_strides,
+                                 const float* head_xy, int n_heads,
                                  const float* anchors_wh, int n_anchors_total,
                                  int is_bf16, int packed, int group,
                                  int tile_cells, int blocks, int batch,
@@ -264,6 +269,8 @@ extern "C" int yolo_decode_heads(const long long* head_args,
     hd.first_block = (int)a[9];
     hd.dense = (int)a[10];
     hd.stride = head_strides[h];
+    hd.scale_xy = head_xy[2 * h];
+    hd.half_xy = head_xy[2 * h + 1];
     if (hd.gy < 1 || hd.gx < 1 || hd.n_anchors < 1 ||
         hd.anchor0 + hd.n_anchors > n_anchors_total)
       return (int)cudaErrorInvalidValue;

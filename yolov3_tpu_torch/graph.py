@@ -13,7 +13,8 @@ sets resolved from ``mask``. No JAX imports — the IR is backend-agnostic.
 
 This module is a copy of ``yolov3_tpu/graph.py`` (the PyTorch port walks the
 same IR in ``yolov3_tpu_torch/model.py``); ``tests/test_torch_frontend.py``
-holds ``lower()`` equal to the original field by field.
+holds ``lower()`` equal to the original field by field. The port adds one
+field, ``Node.scale_x_y`` (YOLOv4's heads), which the original lacks.
 """
 from __future__ import annotations
 
@@ -56,6 +57,8 @@ class Node:
     # yolo
     anchors: Tuple[Tuple[float, float], ...] = ()
     classes: int = 0
+    # the box centre's scale (YOLOv4's ``scale_x_y``): sig(t) * s - (s - 1) / 2
+    scale_x_y: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -79,6 +82,10 @@ class Graph:
     def head_strides(self) -> Tuple[int, ...]:
         """Detection stride of each yolo head (net input px per grid cell)."""
         return tuple(self.nodes[n.inputs[0]].downsample for n in self.yolo_nodes)
+
+    def head_scales(self) -> Tuple[float, ...]:
+        """Each yolo head's ``scale_x_y`` (1.0 where the cfg gives none)."""
+        return tuple(n.scale_x_y for n in self.yolo_nodes)
 
     def num_detections(self, height: int, width: int) -> int:
         """Total anchors*cells across heads at a given input resolution."""
@@ -222,6 +229,7 @@ def lower(blocks: List[Block], name: str = "darknet") -> Graph:
                 index=i, kind=kind, inputs=(i - 1,),
                 out_channels=prev_c, downsample=prev_d,
                 anchors=anchors, classes=int(b.get("classes", 80)),
+                scale_x_y=float(b.get("scale_x_y", 1.0)),
             )
             expected = len(anchors) * (5 + node.classes)
             if prev_c != expected:

@@ -114,7 +114,9 @@ def decode_route(graph, decode_impl: str, q_ok: bool = True,
     JAX package's gates (``yolov3_tpu/inference.py``), with its warnings
     unless ``warn`` is False. ``q_ok`` is False for a net quantized with
     the bf16 carrier, whose walk has no head-fused form; ``spatial`` for
-    ``partition="spatial"``, which shards the head convs themselves."""
+    ``partition="spatial"``, which shards the head convs themselves. A
+    graph whose heads scale their centres (``scale_x_y``, YOLOv4) leaves
+    "pallas-fused" for "pallas": K4 takes no scale, K1 does."""
     if decode_impl not in DECODE_IMPLS:
         raise ValueError(f"decode_impl must be one of {DECODE_IMPLS}, got "
                          f"{decode_impl!r}")
@@ -124,7 +126,10 @@ def decode_route(graph, decode_impl: str, q_ok: bool = True,
             log.warning("head-fused decode not applicable here (%s); "
                         "falling back to decode_impl='pallas'",
                         "bf16-carrier int8" if not q_ok else
-                        "spatial" if spatial else "graph shape")
+                        "spatial" if spatial else
+                        "scale_x_y" if any(v != 1.0 for v in
+                                           graph.head_scales()) else
+                        "graph shape")
         decode_impl = "pallas"
     if (decode_impl in ("pallas", "pallas-fused")
             and not packed_decode_supported([n.anchors for n in graph.yolo_nodes])):

@@ -208,7 +208,7 @@ def forward(graph: Graph, params: TorchParams, x: torch.Tensor,
     a head, heads in cfg order. The full decode is K3 (``ops.cuda_decode.
     decode_all``); the maps widen to float32 before any math."""
     heads = forward_features(graph, params, x, precision, conv_impl)
-    return decode_all(heads, *_head_spec(graph))
+    return decode_all(heads, *_head_spec(graph), scales=graph.head_scales())
 
 
 def forward_compact(graph: Graph, params: TorchParams, x: torch.Tensor,
@@ -223,7 +223,7 @@ def forward_compact(graph: Graph, params: TorchParams, x: torch.Tensor,
                          f"got {decode_impl!r}")
     heads = forward_features(graph, params, x, precision, conv_impl)
     fn = decode_compact if decode_impl == "pallas" else plain_decode.decode_compact
-    return fn(heads, *_head_spec(graph))
+    return fn(heads, *_head_spec(graph), scales=graph.head_scales())
 
 
 def forward_packed(graph: Graph, params: TorchParams, x: torch.Tensor,
@@ -237,7 +237,7 @@ def forward_packed(graph: Graph, params: TorchParams, x: torch.Tensor,
     heads = forward_features(graph, params, x, precision, conv_impl)
     anchors, strides, classes = _head_spec(graph)
     return decode_packed(heads, anchors, strides, classes,
-                         prob_thresh=prob_thresh)
+                         prob_thresh=prob_thresh, scales=graph.head_scales())
 
 
 def _consumer_counts(graph: Graph) -> Dict[int, int]:
@@ -255,7 +255,11 @@ def fused_heads_eligible(graph: Graph) -> bool:
     branch ends in a 1×1/s1 linear conv whose ONLY consumer is its yolo
     node, whose yolo node feeds nothing, and whose input channel count and
     anchor count pass K4's shape gate (``fused_head_supported``: Cin % 128
-    == 0, ≤ 4 anchors). True for yolov3 / tiny / spp."""
+    == 0, ≤ 4 anchors). True for yolov3 / tiny / spp. The port adds one
+    condition: no head scales its centre (``scale_x_y`` 1), since K4 takes
+    no scale; false for yolov4."""
+    if any(s != 1.0 for s in graph.head_scales()):
+        return False
     consumers = _consumer_counts(graph)
     for yn in graph.yolo_nodes:
         hc = yn.inputs[0]

@@ -114,8 +114,8 @@ def load_kernels() -> ctypes.CDLL:
                         ctypes.c_float)
     anchors = ctypes.POINTER(ctypes.c_float)
     lib.yolo_decode_heads.argtypes = [
-        ctypes.POINTER(ctypes.c_longlong), anchors, i32, anchors, i32, i32,
-        i32, i32, i32, i32, i32, i32, f32, i32, p, p, p, p, p]
+        ctypes.POINTER(ctypes.c_longlong), anchors, anchors, i32, anchors,
+        i32, i32, i32, i32, i32, i32, i32, i32, f32, i32, p, p, p, p, p]
     lib.yolo_decode_packed_fused_head.argtypes = [
         p, i64, i64, i64, i32, p, p, p, i32, i32, i32, i32, i32, i32, anchors,
         f32, f32, i32, i32, i32, i32, i32, p, p]
@@ -126,8 +126,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.yolo_conv_epilogue.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32,
                                        i32, i32, i32, i32, p]
     lib.yolo_decode_full.argtypes = [
-        ctypes.POINTER(ctypes.c_longlong), anchors, i32, anchors, i32, i32,
-        i32, i32, i32, p, p]
+        ctypes.POINTER(ctypes.c_longlong), anchors, anchors, i32, anchors,
+        i32, i32, i32, i32, i32, p, p]
     lib.yolo_residual_block_int8.argtypes = [
         p, p, p, p, p, p, p, i32, i32, i32, i32, i32, f32, f32, f32, f32, f32,
         i32, p, i32, p]

@@ -39,13 +39,18 @@ Ports of ``yolov3_tpu/ops/pallas_decode.py``:
   ``model.forward``.
 
 K1, K1c and K4 share one decode body (``csrc/decode_common.cuh``), and K3
-takes its sigmoid, clamp and exp from the same header. For a CUDA
-tensor each wrapper launches its kernel on the current stream (counted in
-``<wrapper>.launches``) or raises; for a CPU tensor, and only then, it runs
-its plain PyTorch version (``*_reference``), which the CPU tests and
-``chip_smoke.py``'s comparison use. Head maps decode in float32 whatever
-their type: a bf16 map widens exactly. Channel padding needs no copy: the
-kernels take the map's element strides.
+takes its sigmoid, clamp and exp from the same header. K1, K1c and K3 take
+each head's ``scale_x_y`` s (YOLOv4: centre = (sig(t)·s − (s − 1)/2 + cell)
+× stride; ``scales``, 1 for every head when None, bit for bit the centre
+without it); K4 takes none, and ``model.fused_heads_eligible`` keeps a graph
+with a scaled head off its route. ``launch_decode.scaled_heads`` and
+``launch_full_decode.scaled_heads`` count the heads launched with s ≠ 1.
+For a CUDA tensor each wrapper launches its kernel on the current stream
+(counted in ``<wrapper>.launches``) or raises; for a CPU tensor, and only
+then, it runs its plain PyTorch version (``*_reference``), which the CPU
+tests and ``chip_smoke.py``'s comparison use. Head maps decode in float32
+whatever their type: a bf16 map widens exactly. Channel padding needs no
+copy: the kernels take the map's element strides.
 """
 from __future__ import annotations
 
@@ -131,7 +136,8 @@ def _stream(device: torch.device) -> int:
 def decode_packed_head_reference(feat: torch.Tensor, anchors: Anchors,
                                  stride: int, num_classes: int,
                                  prob_thresh: float = 0.0,
-                                 head_offset: int = 0) -> torch.Tensor:
+                                 head_offset: int = 0,
+                                 scale_x_y: float = 1.0) -> torch.Tensor:
     """Plain PyTorch K1 for one head → records (B, a·gy·gx, 8) float32."""
     _check_head(feat, anchors, num_classes)
     b, gy, gx, _ = feat.shape
@@ -147,8 +153,8 @@ def decode_packed_head_reference(feat: torch.Tensor, anchors: Anchors,
                                   device=feat.device)
                        for wh in anchors for v in wh]).reshape(len(anchors), 2)
 
-    cx = (torch.sigmoid(f[..., 0]) + col) * stride       # (b, cells, a)
-    cy = (torch.sigmoid(f[..., 1]) + row) * stride
+    cx = (plain_decode.sigmoid_xy(f[..., 0], scale_x_y) + col) * stride
+    cy = (plain_decode.sigmoid_xy(f[..., 1], scale_x_y) + row) * stride
     w = torch.exp(torch.clamp(f[..., 2], max=60.0)) * anc[:, 0]
     h = torch.exp(torch.clamp(f[..., 3], max=60.0)) * anc[:, 1]
 
@@ -288,13 +294,15 @@ def launch_decode(feats: Sequence[torch.Tensor],
                   strides: Sequence[int], num_classes: int,
                   prob_thresh: float, head_offsets: Sequence[int],
                   outs: Sequence[torch.Tensor], kernel: str,
-                  group: Optional[int] = None, lib=None) -> int:
+                  group: Optional[int] = None, lib=None,
+                  scales: Optional[Sequence[float]] = None) -> int:
     """Launch K1 (``outs`` = [payload]) or K1c (``outs`` = [boxes, scores,
     classes]) over CUDA head maps as :func:`plan_decode` plans them (with
-    ``group`` lanes a record); return the number of launches (1 for every
-    published cfg). The wrappers' launcher; ``chip_smoke.py`` times each
-    ``group`` through it, and ``tools/ablate_phases.py`` its builds
-    (``lib``: a library other than the package's)."""
+    ``group`` lanes a record; ``scales``: each head's ``scale_x_y``, 1 when
+    None); return the number of launches (1 for every published cfg). The
+    wrappers' launcher; ``chip_smoke.py`` times each ``group`` through it,
+    and ``tools/ablate_phases.py`` its builds (``lib``: a library other than
+    the package's)."""
     b = feats[0].shape[0]
     for f, a in zip(feats, anchors_per_head):
         _check_kernel_io(f, outs, len(a), kernel)
@@ -305,13 +313,14 @@ def launch_decode(feats: Sequence[torch.Tensor],
         raise ValueError(f"{kernel} stores records in 16-byte pieces: its "
                          f"outputs must be 16-byte aligned")
     lib = lib or load_kernels()
+    scales = plain_decode.per_head(scales, len(feats))
     packed = len(outs) == 1
     ptrs = ([outs[0].data_ptr(), 0, 0, 0] if packed
             else [0, *(o.data_ptr() for o in outs)])
     plans = plan_decode(feats, anchors_per_head, num_classes, head_offsets,
                         group)
     for plan in plans:
-        args, strides_c, anchors = [], [], []
+        args, strides_c, xy, anchors = [], [], [], []
         for row in plan.rows:
             f = feats[row.head]
             a = anchors_per_head[row.head]
@@ -319,27 +328,35 @@ def launch_decode(feats: Sequence[torch.Tensor],
                      f.shape[1], f.shape[2], len(a), row.anchor0,
                      row.head_offset, row.first_block, int(row.dense)]
             strides_c.append(float(strides[row.head]))
+            xy += [scales[row.head], (scales[row.head] - 1.0) / 2.0]
             anchors += [float(v) for wh in a for v in wh]
         with torch.cuda.device(outs[0].device):
             rc = lib.yolo_decode_heads(
                 (ctypes.c_longlong * len(args))(*args),
-                (ctypes.c_float * len(strides_c))(*strides_c), len(plan.rows),
+                (ctypes.c_float * len(strides_c))(*strides_c),
+                (ctypes.c_float * len(xy))(*xy), len(plan.rows),
                 (ctypes.c_float * len(anchors))(*anchors), len(anchors) // 2,
                 int(feats[plan.rows[0].head].dtype == torch.bfloat16),
                 int(packed), plan.group, plan.tile_cells, plan.blocks, b,
                 num_classes, float(prob_thresh), outs[0].shape[1], *ptrs,
                 _stream(outs[0].device))
         check_launch(rc, kernel)
+    launch_decode.scaled_heads += sum(v != 1.0 for v in scales)
     return len(plans)
+
+
+launch_decode.scaled_heads = 0
 
 
 def decode_packed_head(feat: torch.Tensor, anchors: Anchors, stride: int,
                        num_classes: int, prob_thresh: float = 0.0,
                        head_offset: int = 0,
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       out: Optional[torch.Tensor] = None,
+                       scale_x_y: float = 1.0) -> torch.Tensor:
     """K1: decode one head into ``out[:, head_offset : head_offset + a·gy·gx]``
     of a (B, N, 8) float32 payload (allocated when ``out`` is None, with
-    N = head_offset + a·gy·gx); returns the payload.
+    N = head_offset + a·gy·gx); returns the payload. ``scale_x_y``: the
+    head's centre scale.
 
     CUDA tensor: launches the K1 kernel with a one-head table on the
     current stream (counted in ``decode_packed_head.launches``) or raises.
@@ -350,11 +367,12 @@ def decode_packed_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     out = _payload_out(out, b, head_offset + n_head, feat.device)
     if _check_device(feat, "K1"):
         out[:, head_offset:head_offset + n_head] = decode_packed_head_reference(
-            feat, anchors, stride, num_classes, prob_thresh, head_offset)
+            feat, anchors, stride, num_classes, prob_thresh, head_offset,
+            scale_x_y)
         return out
     decode_packed_head.launches += launch_decode(
         [feat], [anchors], [stride], num_classes, prob_thresh, [head_offset],
-        [out], "K1")
+        [out], "K1", scales=[scale_x_y])
     return out
 
 
@@ -374,11 +392,13 @@ def candidate_offsets(feats: Sequence[torch.Tensor],
 
 def decode_packed(feats: Sequence[torch.Tensor], anchors_per_head: Sequence[Anchors],
                   strides: Sequence[int], num_classes: int,
-                  prob_thresh: float = 0.0
+                  prob_thresh: float = 0.0,
+                  scales: Optional[Sequence[float]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 over every head → (payload (B, N, 8), scores (B, N)). One payload
     allocation, written in place, so no concat follows. ``scores`` is the
-    view ``payload[..., 4]``.
+    view ``payload[..., 4]``. ``scales``: each head's ``scale_x_y`` (1 when
+    None).
 
     CUDA tensors: ONE launch of the K1 kernel for all the heads (counted in
     ``decode_packed.launches``) or raises. CPU tensors: the plain version
@@ -389,13 +409,14 @@ def decode_packed(feats: Sequence[torch.Tensor], anchors_per_head: Sequence[Anch
     payload = torch.empty((feats[0].shape[0], offsets[-1], 8),
                           dtype=torch.float32, device=feats[0].device)
     if _check_device(feats[0], "K1"):
-        for f, a, s, off in zip(feats, anchors_per_head, strides, offsets):
+        for f, a, s, off, sxy in zip(feats, anchors_per_head, strides, offsets,
+                                     plain_decode.per_head(scales, len(feats))):
             decode_packed_head(f, a, s, num_classes, prob_thresh=prob_thresh,
-                               head_offset=off, out=payload)
+                               head_offset=off, out=payload, scale_x_y=sxy)
     else:
         decode_packed.launches += launch_decode(
             feats, anchors_per_head, strides, num_classes, prob_thresh,
-            offsets, [payload], "K1")
+            offsets, [payload], "K1", scales=scales)
     return payload, payload[..., 4]
 
 
@@ -410,11 +431,12 @@ CompactOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def decode_compact_head_reference(feat: torch.Tensor, anchors: Anchors,
                                   stride: int, num_classes: int,
-                                  prob_thresh: float = 0.0) -> CompactOut:
+                                  prob_thresh: float = 0.0,
+                                  scale_x_y: float = 1.0) -> CompactOut:
     """Plain PyTorch K1c for one head: K1's records split three ways →
     (boxes (B, n, 4), scores (B, n), classes (B, n) int32), anchor-major."""
     rec = decode_packed_head_reference(feat, anchors, stride, num_classes,
-                                       prob_thresh)
+                                       prob_thresh, scale_x_y=scale_x_y)
     return rec[..., :4], rec[..., 4], rec[..., 5].to(torch.int32)
 
 
@@ -440,7 +462,8 @@ def _compact_out(out: Optional[CompactOut], b: int, n_end: int,
 def decode_compact_head(feat: torch.Tensor, anchors: Anchors, stride: int,
                         num_classes: int, prob_thresh: float = 0.0,
                         head_offset: int = 0,
-                        out: Optional[CompactOut] = None) -> CompactOut:
+                        out: Optional[CompactOut] = None,
+                        scale_x_y: float = 1.0) -> CompactOut:
     """K1c: decode one head into slots ``[head_offset, head_offset + a·gy·gx)``
     of (boxes (B, N, 4), scores (B, N), classes (B, N) int32) (allocated
     when ``out`` is None); returns the three.
@@ -458,11 +481,11 @@ def decode_compact_head(feat: torch.Tensor, anchors: Anchors, stride: int,
         sl = slice(head_offset, head_offset + n_head)
         boxes[:, sl], scores[:, sl], classes[:, sl] = (
             decode_compact_head_reference(feat, anchors, stride, num_classes,
-                                          prob_thresh))
+                                          prob_thresh, scale_x_y))
         return out
     decode_compact_head.launches += launch_decode(
         [feat], [anchors], [stride], num_classes, prob_thresh, [head_offset],
-        out, "K1c")
+        out, "K1c", scales=[scale_x_y])
     return out
 
 
@@ -472,7 +495,8 @@ decode_compact_head.launches = 0
 def decode_compact(feats: Sequence[torch.Tensor],
                    anchors_per_head: Sequence[Anchors],
                    strides: Sequence[int], num_classes: int,
-                   prob_thresh: float = 0.0) -> CompactOut:
+                   prob_thresh: float = 0.0,
+                   scales: Optional[Sequence[float]] = None) -> CompactOut:
     """K1c over every head → (boxes (B, N, 4), scores (B, N), classes (B, N)
     int32), anchor-major within each head, heads in cfg order: the same
     detection sets as ``ops.decode.decode_compact`` (cell-major).
@@ -485,13 +509,14 @@ def decode_compact(feats: Sequence[torch.Tensor],
     offsets = candidate_offsets(feats, anchors_per_head)
     out = _compact_out(None, feats[0].shape[0], offsets[-1], feats[0].device)
     if _check_device(feats[0], "K1c"):
-        for f, a, s, off in zip(feats, anchors_per_head, strides, offsets):
+        for f, a, s, off, sxy in zip(feats, anchors_per_head, strides, offsets,
+                                     plain_decode.per_head(scales, len(feats))):
             decode_compact_head(f, a, s, num_classes, prob_thresh=prob_thresh,
-                                head_offset=off, out=out)
+                                head_offset=off, out=out, scale_x_y=sxy)
     else:
         decode_compact.launches += launch_decode(
             feats, anchors_per_head, strides, num_classes, prob_thresh,
-            offsets, out, "K1c")
+            offsets, out, "K1c", scales=scales)
     return out
 
 
@@ -736,7 +761,8 @@ def launch_full_decode(feats: Sequence[torch.Tensor],
                        anchors_per_head: Sequence[Anchors],
                        strides: Sequence[int], num_classes: int,
                        row_offsets: Sequence[int], out: torch.Tensor,
-                       lib=None) -> int:
+                       lib=None, scales: Optional[Sequence[float]] = None
+                       ) -> int:
     """Launch K3 over CUDA head maps into ``out`` (B, N, 5+C) float32 as
     :func:`plan_full_decode` plans them; return the number of launches (1
     for every published cfg). The wrappers' launcher; ``tools/ablate_phases``
@@ -753,9 +779,10 @@ def launch_full_decode(feats: Sequence[torch.Tensor],
         raise ValueError(f"K3 writes a 16-byte aligned float32 (B, N, 5+C) "
                          f"output, got {tuple(out.shape)} {out.dtype}")
     lib = lib or load_kernels()
+    scales = plain_decode.per_head(scales, len(feats))
     plans = plan_full_decode(feats, anchors_per_head, num_classes, row_offsets)
     for plan in plans:
-        args, strides_c, anchors = [], [], []
+        args, strides_c, xy, anchors = [], [], [], []
         for row in plan.rows:
             f = feats[row.head]
             a = anchors_per_head[row.head]
@@ -764,21 +791,27 @@ def launch_full_decode(feats: Sequence[torch.Tensor],
                      row.row_offset, row.first_block, row.tiles,
                      int(row.dense)]
             strides_c.append(float(strides[row.head]))
+            xy += [scales[row.head], (scales[row.head] - 1.0) / 2.0]
             anchors += [float(v) for wh in a for v in wh]
         with torch.cuda.device(out.device):
             rc = lib.yolo_decode_full(
                 (ctypes.c_longlong * len(args))(*args),
-                (ctypes.c_float * len(strides_c))(*strides_c), len(plan.rows),
+                (ctypes.c_float * len(strides_c))(*strides_c),
+                (ctypes.c_float * len(xy))(*xy), len(plan.rows),
                 (ctypes.c_float * len(anchors))(*anchors), len(anchors) // 2,
                 int(feats[plan.rows[0].head].dtype == torch.bfloat16),
                 plan.blocks, num_classes, out.shape[1], out.data_ptr(),
                 _stream(out.device))
         check_launch(rc, "K3")
+    launch_full_decode.scaled_heads += sum(v != 1.0 for v in scales)
     return len(plans)
 
 
+launch_full_decode.scaled_heads = 0
+
+
 def decode_head(feat: torch.Tensor, anchors: Anchors, stride: int,
-                num_classes: int) -> torch.Tensor:
+                num_classes: int, scale_x_y: float = 1.0) -> torch.Tensor:
     """K3 for one head: its NHWC map (B, gy, gx, ≥A·(5+C)), float32 or
     bf16 → (B, gy·gx·A, 5+C) float32: center-xywh boxes in net pixels,
     sigmoid objectness and classes, cell-major (``cell·A + anchor``). The
@@ -791,12 +824,13 @@ def decode_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     _check_head(feat, anchors, num_classes)
     if _check_device(feat, "K3"):
         return plain_decode.decode_head(feat.float(), anchors, stride,
-                                        num_classes)
+                                        num_classes, scale_x_y)
     b, gy, gx, _ = feat.shape
     out = torch.empty((b, gy * gx * len(anchors), 5 + num_classes),
                       dtype=torch.float32, device=feat.device)
     decode_head.launches += launch_full_decode(
-        [feat], [anchors], [stride], num_classes, [0], out)
+        [feat], [anchors], [stride], num_classes, [0], out,
+        scales=[scale_x_y])
     return out
 
 
@@ -805,7 +839,8 @@ decode_head.launches = 0
 
 def decode_all(feats: Sequence[torch.Tensor],
                anchors_per_head: Sequence[Anchors], strides: Sequence[int],
-               num_classes: int) -> torch.Tensor:
+               num_classes: int,
+               scales: Optional[Sequence[float]] = None) -> torch.Tensor:
     """K3 over every head → (B, N, 5+C) float32, heads in cfg order (the
     reference layout), written in place: no concat follows.
 
@@ -817,11 +852,13 @@ def decode_all(feats: Sequence[torch.Tensor],
     offsets = candidate_offsets(feats, anchors_per_head)
     if _check_device(feats[0], "K3"):
         return plain_decode.decode_all([f.float() for f in feats],
-                                       anchors_per_head, strides, num_classes)
+                                       anchors_per_head, strides, num_classes,
+                                       scales)
     out = torch.empty((feats[0].shape[0], offsets[-1], 5 + num_classes),
                       dtype=torch.float32, device=feats[0].device)
     decode_all.launches += launch_full_decode(
-        feats, anchors_per_head, strides, num_classes, offsets[:-1], out)
+        feats, anchors_per_head, strides, num_classes, offsets[:-1], out,
+        scales=scales)
     return out
 
 

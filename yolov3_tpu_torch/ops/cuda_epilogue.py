@@ -8,15 +8,19 @@ of a shortcut right after the conv (``model.residual_convs``) and ``act2``
 the shortcut's activation; without ``r`` it stops after ``act1``. It replaces
 no TPU kernel (XLA fused this epilogue into the conv); on the card it
 replaces PyTorch's three passes after a cuDNN conv — the broadcast bias add,
-``F.leaky_relu`` and the shortcut's add — by one read of ``y`` (and ``r``)
-and one write (``csrc/conv_epilogue.cu``), rounding at the same points, so
-bit for bit the same result in bf16 and in float32.
+the activation (``F.leaky_relu``, ``F.relu``, ``F.mish``) and the shortcut's
+add — by one read of ``y`` (and ``r``) and one write
+(``csrc/conv_epilogue.cu``), rounding at the same points, so bit for bit the
+same result in bf16 and in float32. Where either activation is Mish
+(YOLOv4's backbone) a kernel of its own runs, ``conv_epilogue_mish_kernel``,
+so that a device trace tells its time apart.
 
 Where :func:`supported` takes the operands, :func:`conv_epilogue` launches
 the kernel on the current stream and writes the result into ``y`` (counted
-in ``conv_epilogue.launches``, and in ``conv_epilogue.residual_launches``
-when it took a residual); anywhere else it raises. On the CPU
-``model._conv`` runs :func:`conv_epilogue_reference` instead.
+in ``conv_epilogue.launches``, in ``conv_epilogue.residual_launches`` when
+it took a residual and in ``conv_epilogue.mish_launches`` when ``act1`` is
+Mish); anywhere else it raises. On the CPU ``model._conv`` runs
+:func:`conv_epilogue_reference` instead.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch.nn.functional as F
 
 from ._build import check_launch, load_kernels
 
-ACTIVATIONS = ("linear", "leaky", "relu")  # CE_LINEAR, CE_LEAKY, CE_RELU
+# CE_LINEAR, CE_LEAKY, CE_RELU, CE_MISH
+ACTIVATIONS = ("linear", "leaky", "relu", "mish")
 DTYPES = (torch.float32, torch.bfloat16)
 THREADS = 256            # CE_THREADS: the most threads a block
 GRID_Y_MAX = 65535
@@ -35,11 +40,14 @@ MAX_ELEMENTS = 2 ** 62   # CE_MAX_ELEMENTS: 64-bit indexes with a row stride
 
 
 def activate(y: torch.Tensor, activation: str) -> torch.Tensor:
-    """A darknet activation in PyTorch: leaky (0.1), relu or linear."""
+    """A darknet activation in PyTorch: leaky (0.1), relu, mish
+    (``x * tanh(log1p(exp(x)))`` in float32, ``F.mish``) or linear."""
     if activation == "leaky":
         return F.leaky_relu(y, 0.1)
     if activation == "relu":
         return F.relu(y)
+    if activation == "mish":
+        return F.mish(y)
     if activation != "linear":
         raise ValueError(f"unsupported activation {activation!r}")
     return y
@@ -155,8 +163,10 @@ def conv_epilogue(y: torch.Tensor, b: torch.Tensor, activation: str = "leaky",
     check_launch(rc, "conv_epilogue")
     conv_epilogue.launches += 1
     conv_epilogue.residual_launches += residual is not None
+    conv_epilogue.mish_launches += activation == "mish"
     return y
 
 
 conv_epilogue.launches = 0
 conv_epilogue.residual_launches = 0
+conv_epilogue.mish_launches = 0

@@ -2,7 +2,8 @@
 
 Port of ``yolov3_tpu/ops/decode.py``. Per head, the (B, gy, gx, A·(5+C))
 map is viewed per anchor; ``sigmoid(tx, ty)`` plus the cell offset, times
-the stride, gives the center; ``exp(min(tw, 60)) · anchor`` the size (net
+the stride, gives the center (with a head's ``scale_x_y`` s, YOLOv4's,
+``sigmoid(t)·s − (s − 1)/2`` in place of ``sigmoid(t)``); ``exp(min(tw, 60)) · anchor`` the size (net
 pixels); ``sigmoid`` the objectness and class scores. Order is cell-major
 (``cell·A + anchor``), heads concatenated in cfg order: the reference
 ``Darknet.forward`` contract.
@@ -16,7 +17,7 @@ inside a CUDA-graph capture.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,6 +39,19 @@ def anchor_wh(anchors: Anchors, dtype: torch.dtype,
     return t
 
 
+def sigmoid_xy(t: torch.Tensor, scale_x_y: float) -> torch.Tensor:
+    """sigmoid(t)·s − (s − 1)/2 in ``t``'s type; sigmoid(t) itself at s = 1."""
+    sig = torch.sigmoid(t)
+    if scale_x_y == 1.0:
+        return sig
+    return sig * scale_x_y - (scale_x_y - 1.0) / 2.0
+
+
+def per_head(scales: Optional[Sequence[float]], n: int):
+    """Each of ``n`` heads' ``scale_x_y``: ``scales``, or 1 for every head."""
+    return [1.0] * n if scales is None else [float(v) for v in scales]
+
+
 def _grid(gy: int, gx: int, a: int, dtype: torch.dtype,
           device: torch.device) -> torch.Tensor:
     """(gy, gx, a, 2) cell offsets [col, row]."""
@@ -47,7 +61,7 @@ def _grid(gy: int, gx: int, a: int, dtype: torch.dtype,
 
 
 def decode_head(feat: torch.Tensor, anchors: Anchors, stride: int,
-                num_classes: int) -> torch.Tensor:
+                num_classes: int, scale_x_y: float = 1.0) -> torch.Tensor:
     """One head's raw NHWC map (B, gy, gx, ≥A·(5+C)) → (B, gy·gx·A, 5+C)
     center-xywh boxes in net pixels, sigmoid objectness and classes. The
     math runs in ``feat``'s dtype, as in the JAX package (``forward`` widens
@@ -55,7 +69,8 @@ def decode_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     b, gy, gx, _ = feat.shape
     a, per = len(anchors), 5 + num_classes
     f = feat[..., :a * per].reshape(b, gy, gx, a, per)
-    xy = (torch.sigmoid(f[..., 0:2]) + _grid(gy, gx, a, f.dtype, f.device)) * stride
+    xy = (sigmoid_xy(f[..., 0:2], scale_x_y)
+          + _grid(gy, gx, a, f.dtype, f.device)) * stride
     # exp clamp at 60: float32 exp overflows past ~88
     wh = (torch.exp(torch.clamp(f[..., 2:4], max=60.0))
           * anchor_wh(anchors, f.dtype, f.device))
@@ -64,14 +79,18 @@ def decode_head(feat: torch.Tensor, anchors: Anchors, stride: int,
 
 
 def decode_all(feats: Sequence[torch.Tensor], anchors_per_head: Sequence[Anchors],
-               strides: Sequence[int], num_classes: int) -> torch.Tensor:
-    """Decode every head and concatenate → (B, N, 5+C) (reference layout)."""
-    return torch.cat([decode_head(f, a, s, num_classes)
-                      for f, a, s in zip(feats, anchors_per_head, strides)], dim=1)
+               strides: Sequence[int], num_classes: int,
+               scales: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """Decode every head and concatenate → (B, N, 5+C) (reference layout).
+    ``scales``: each head's ``scale_x_y`` (1 when None)."""
+    return torch.cat([decode_head(f, a, s, num_classes, sxy)
+                      for f, a, s, sxy in zip(feats, anchors_per_head, strides,
+                                              per_head(scales, len(feats)))],
+                     dim=1)
 
 
 def decode_compact_head(feat: torch.Tensor, anchors: Anchors, stride: int,
-                        num_classes: int
+                        num_classes: int, scale_x_y: float = 1.0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode plus the per-anchor score / class reduction → (tlbr boxes
     (B, n, 4), scores (B, n) = sigmoid(obj)·sigmoid(max class logit), first
@@ -80,7 +99,7 @@ def decode_compact_head(feat: torch.Tensor, anchors: Anchors, stride: int,
     b, gy, gx, _ = feat.shape
     a, per = len(anchors), 5 + num_classes
     f = feat[..., :a * per].reshape(b, gy, gx, a, per).float()
-    xy = (torch.sigmoid(f[..., 0:2])
+    xy = (sigmoid_xy(f[..., 0:2], scale_x_y)
           + _grid(gy, gx, a, torch.float32, f.device)) * float(stride)
     wh = (torch.exp(torch.clamp(f[..., 2:4], max=60.0))
           * anchor_wh(anchors, torch.float32, f.device))
@@ -95,10 +114,13 @@ def decode_compact_head(feat: torch.Tensor, anchors: Anchors, stride: int,
 
 def decode_compact(feats: Sequence[torch.Tensor],
                    anchors_per_head: Sequence[Anchors],
-                   strides: Sequence[int], num_classes: int
+                   strides: Sequence[int], num_classes: int,
+                   scales: Optional[Sequence[float]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Compact decode of every head → (boxes (B,N,4), scores (B,N),
-    classes (B,N)) concatenated in cfg head order."""
-    parts = [decode_compact_head(f, a, s, num_classes)
-             for f, a, s in zip(feats, anchors_per_head, strides)]
+    classes (B,N)) concatenated in cfg head order. ``scales``: each head's
+    ``scale_x_y`` (1 when None)."""
+    parts = [decode_compact_head(f, a, s, num_classes, sxy)
+             for f, a, s, sxy in zip(feats, anchors_per_head, strides,
+                                     per_head(scales, len(feats)))]
     return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))

@@ -418,6 +418,7 @@ def spatial_pipeline(graph: Graph, mesh: Mesh, net_hw: Tuple[int, int],
     decode = (decode_compact if decode_impl == "pallas"
               else plain_decode.decode_compact)
     strides = list(graph.head_strides())
+    scales = graph.head_scales()
     n, devices = mesh.size, mesh.devices
     local_h = net_hw[0] // n
     roles = dict(plan.roles) if tail == "channel" else None
@@ -443,7 +444,7 @@ def spatial_pipeline(graph: Graph, mesh: Mesh, net_hw: Tuple[int, int],
             graph, shards, bands, n_shards=n, crossover=plan.crossover,
             precision=precision, channel_roles=roles)
         boxes, scores, classes = decode(heads, anchors, strides,
-                                        yolo_nodes[0].classes)
+                                        yolo_nodes[0].classes, scales=scales)
         return batched_nms_compact(boxes, scores, classes,
                                    prob_thresh=prob_thresh,
                                    iou_thresh=iou_thresh, top_k=top_k,

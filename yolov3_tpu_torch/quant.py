@@ -693,7 +693,7 @@ def forward_compact_int8(graph: Graph, qparams: QParams, scales, x,
     heads = _int8_heads(graph, qparams, scales, x, precision, carrier,
                         block_impl, zeros, operands)
     fn = decode_compact if decode_impl == "pallas" else plain_decode.decode_compact
-    return fn(heads, *_head_spec(graph))
+    return fn(heads, *_head_spec(graph), scales=graph.head_scales())
 
 
 def forward_packed_int8(graph: Graph, qparams: QParams, scales, x,
@@ -707,7 +707,7 @@ def forward_packed_int8(graph: Graph, qparams: QParams, scales, x,
                         block_impl, zeros, operands)
     anchors, strides, classes = _head_spec(graph)
     return decode_packed(heads, anchors, strides, classes,
-                         prob_thresh=prob_thresh)
+                         prob_thresh=prob_thresh, scales=graph.head_scales())
 
 
 def forward_packed_fused_int8(graph: Graph, qparams: QParams, scales, x,
@@ -722,11 +722,15 @@ def forward_packed_fused_int8(graph: Graph, qparams: QParams, scales, x,
     memory. Quantized head weights (``include_heads``) are dequantized
     (``wq·sw``); the projection accumulates in float32. Callers gate on
     ``model.fused_heads_eligible``; int8 carrier only (``carrier="bf16"``
-    runs :func:`forward_packed_int8`)."""
+    runs :func:`forward_packed_int8`). A head with a ``scale_x_y`` raises:
+    K4 takes none."""
     if carrier != "int8":
         return forward_packed_int8(graph, qparams, scales, x, prob_thresh,
                                    precision=precision, carrier=carrier,
                                    block_impl=block_impl, operands=operands)
+    if any(v != 1.0 for v in graph.head_scales()):
+        raise ValueError("K4 takes no scale_x_y: a graph whose heads scale "
+                         "their centres runs forward_packed_int8")
     operands = operands or Operands(qparams)
     pre = forward_features_int8_carrier(
         graph, qparams, scales, x, precision, stop_before_heads=True,

@@ -123,7 +123,8 @@ def fake_quant_forward(graph, params, x, mode, minmax, qparams):
             if node.index in needed:
                 cache[node.index] = out
             prev = out
-    return decode_compact(heads, *_head_spec(graph))
+    return decode_compact(heads, *_head_spec(graph),
+                          scales=graph.head_scales())
 
 
 def score_modes(device=None) -> Dict[str, Dict[str, float]]:

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases k1,k1c,k2,k3,k4,k5,int8conv,k6,golden,main,int8,
                                     eval,cache,profile,probes,dots,native,entry,
-                                    serve,mesh,tools,bench,epilogue]
+                                    serve,mesh,tools,bench,epilogue,requant]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. With no arguments every phase runs, in this order, and
@@ -204,7 +204,22 @@ each raises on failure (the build always runs):
     graph replay beside their bound, the library chain and the plain
     version; ``forward_packed`` launching it 75 times a forward, 23 with a
     residual; the head maps equal bit for bit to the walk node by node
-    with biased cuDNN convs.
+    with biased cuDNN convs;
+25. requant, the int8 walk's requantize pass (an int8 conv's int32 sums
+    to its next activation, with the shortcut after it, in one pass): a
+    yolov3@608 int8 state calibrated on the card, one eager walk at B=32
+    with K6 blocks recording each pass's operands (51 a forward, 13 with a
+    shortcut), the kernel bit for bit against its plain version (the chain
+    it replaces, on PyTorch's kernels) on every one of them, on edge sums
+    at every activation and on a quantized head's 255 sums in rows 256
+    apart, 0 elements differing; the head maps equal bit for bit to the
+    walk that runs the plain version; the 51 passes by graph replay beside
+    their bound (bytes at HBM's rate) and the plain version; K6's time in a
+    captured forward beside the pass and beside the chain, with the SM
+    clock and board power meanwhile; a captured K6 + K1 Detector launching
+    the pass 51 times a forward, 13 with a shortcut, in its warm-up and its
+    capture, and none in its replays. The int8 phase and every main-path
+    capture hold the pass's launches to ``requant_launches``.
 
 Every kernel's launch count is zeroed just before phases 11 to 15, 20, 22
 and 23 (in 20 after the server's own warm-up), in 21 read before and after each
@@ -250,7 +265,7 @@ SRC_HW = (480, 640)
 PHASES = ("build", "k1", "k1c", "k2", "k3", "k4", "k5", "int8conv", "k6",
           "golden", "main", "int8", "eval", "cache", "profile", "probes",
           "dots", "native", "entry", "serve", "mesh", "tools", "bench",
-          "epilogue")
+          "epilogue", "requant")
 YOLOV3_WEIGHTS_BYTES = 248_007_048  # the published yolov3.weights file
 # float lanes of K1 / K1c against their plain versions: both run the same
 # float operations in the same order (no FMA contraction, full-precision
@@ -1679,26 +1694,26 @@ def phase_golden():
 
 
 class ResidualLaunches:
-    """``conv_epilogue.residual_launches`` read and zeroed as ``launches``,
-    like a kernel wrapper's count."""
+    """A kernel wrapper's ``residual_launches`` (``conv_epilogue``'s,
+    ``int8_requant``'s) read and zeroed as ``launches``, like the wrapper's
+    own count."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
 
     @property
     def launches(self) -> int:
-        from yolov3_tpu_torch.ops.cuda_epilogue import conv_epilogue
-
-        return conv_epilogue.residual_launches
+        return self.wrapper.residual_launches
 
     @launches.setter
     def launches(self, n: int) -> None:
-        from yolov3_tpu_torch.ops.cuda_epilogue import conv_epilogue
-
-        conv_epilogue.residual_launches = n
+        self.wrapper.residual_launches = n
 
 
 def path_wrappers():
     """The kernel wrappers a Detector program can run, by name."""
     from yolov3_tpu_torch.ops import (cuda_block, cuda_conv, cuda_decode,
-                                      cuda_epilogue, cuda_nms)
+                                      cuda_epilogue, cuda_nms, cuda_requant)
 
     return {"decode_packed": cuda_decode.decode_packed,
             "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
@@ -1706,7 +1721,11 @@ def path_wrappers():
             "residual_block_int8": cuda_block.residual_block_int8,
             "nms_suppress": cuda_nms.suppress,
             "conv_epilogue": cuda_epilogue.conv_epilogue,
-            "conv_epilogue_residual": ResidualLaunches()}
+            "conv_epilogue_residual": ResidualLaunches(
+                cuda_epilogue.conv_epilogue),
+            "int8_requant": cuda_requant.int8_requant,
+            "int8_requant_residual": ResidualLaunches(
+                cuda_requant.int8_requant)}
 
 
 def epilogue_launches(graph, route: str, conv_impl: str = "xla",
@@ -1733,11 +1752,38 @@ def epilogue_launches(graph, route: str, conv_impl: str = "xla",
     return len(convs), sum(n.index in fused for n in convs)
 
 
+def requant_launches(det):
+    """The requantize pass's launches in ONE forward of ``det``'s route (all
+    of them, those with a shortcut): in the int8-carrier walk's symmetric
+    scheme once a quantized conv but the stem and K6's, less the head convs
+    K4 takes over; with a shortcut where ``model.residual_convs`` hands the
+    conv its shortcut. yolov3: 51 and 13 with K6's 10 blocks."""
+    from yolov3_tpu_torch.model import residual_convs
+    from yolov3_tpu_torch.ops import cuda_block
+
+    net = det.net
+    if not (net.quantized and net.qcarrier == "int8") or (
+            net.act_zeros and any(net.act_zeros.values())):
+        return 0, 0
+    k6 = set()
+    if det.block_impl == "pallas":
+        k6 = {i for a in cuda_block.fused_block_plan(
+            net.graph, net.qparams, net.act_scales) for i in (a, a + 1)}
+    heads = ({yn.inputs[0] for yn in net.graph.yolo_nodes}
+             if det.route == "pallas-fused" else set())
+    convs = [n.index for n in net.graph.conv_nodes
+             if "wq" in net.qparams[n.index] and n.inputs[0] >= 0
+             and n.index not in k6 | heads]
+    fused = residual_convs(net.graph)
+    return len(convs), sum(i in fused for i in convs)
+
+
 def forward_launches(det):
     """Kernel-wrapper launches of ONE forward of ``det``'s route: K1 once
     for all the heads, K4 once a head, K5 once an eligible 3x3 conv, K6
     once a fused block, K2 once, the conv epilogue as
-    :func:`epilogue_launches` counts."""
+    :func:`epilogue_launches` counts, the requantize pass as
+    :func:`requant_launches` does."""
     from yolov3_tpu_torch.ops import cuda_block
 
     net = det.net
@@ -1756,7 +1802,9 @@ def forward_launches(det):
             **dict(zip(("conv_epilogue", "conv_epilogue_residual"),
                        epilogue_launches(net.graph, det.route, net.conv_impl,
                                          net.qparams if net.quantized
-                                         else None)))}
+                                         else None))),
+            **dict(zip(("int8_requant", "int8_requant_residual"),
+                       requant_launches(det)))}
 
 
 def replay_ms(prog, iters: int = 10) -> float:
@@ -1866,6 +1914,7 @@ def run_main_path(det, name: str, frames: np.ndarray, card: str,
            "graph_event_ms": float(np.median(dev)), "replay_ms": device_ms,
            "busy": device_ms / float(np.median(host)),
            "program_mb": prog.nbytes / 2 ** 20, "per_forward": want,
+           "per_capture": per_capture,
            "stages_ms": {k: float(np.median([st[k] for st in stages])) * 1e3
                          for k in stages[0]}}
     MAIN_ROWS.append(row)
@@ -2052,7 +2101,8 @@ def phase_main(card: str):
                "decode_all": cuda_decode.decode_all,
                "nms_suppress": cuda_nms.suppress,
                "conv_epilogue": cuda_epilogue.conv_epilogue,
-               "conv_epilogue_residual": ResidualLaunches()}
+               "conv_epilogue_residual": ResidualLaunches(
+                   cuda_epilogue.conv_epilogue)}
     k5_det = Detector(nets["bf16-k5"], decode_impl="pallas-fused")
     routes = (("bf16 + K1", Detector(nets["bf16"])),
               ("bf16 + K4", Detector(nets["bf16"], decode_impl="pallas-fused")),
@@ -2407,7 +2457,8 @@ def phase_int8(card: str):
                "decode_packed_fused_head": cuda_decode.decode_packed_fused_head,
                "residual_block_int8": cuda_block.residual_block_int8,
                "nms_suppress": cuda_nms.suppress,
-               "conv_epilogue": path_wrappers()["conv_epilogue"]}
+               "conv_epilogue": path_wrappers()["conv_epilogue"],
+               "int8_requant": path_wrappers()["int8_requant"]}
     for k in kernels.values():
         k.launches = 0
     routes = (("int8 carrier, K6 blocks, K1", "sym", dict(block_impl="pallas")),
@@ -2430,7 +2481,9 @@ def phase_int8(card: str):
         if per_forward != want:
             raise AssertionError(f"{name}: K6 launches {per_forward} times per "
                                  f"forward, expected {want}")
-        per_forwards[name] = per_forward, fwd["conv_epilogue"]
+        per_forwards[name] = (per_forward, fwd["conv_epilogue"],
+                              (fwd["int8_requant"],
+                               fwd["int8_requant_residual"]))
     # the counts of the detect_batch calls alone: the stage split below
     # rebuilds a call out of its stages and would add its own launches
     launches = {name: k.launches for name, k in kernels.items()}
@@ -2441,11 +2494,12 @@ def phase_int8(card: str):
         if n == 0:
             raise AssertionError(f"the int8 main path never launched {kernel}")
     for name, det in dets.items():
-        per_forward, epilogues = per_forwards[name]
+        per_forward, epilogues, requants = per_forwards[name]
         split = stage_split(det, frames, calls=5)
         busy = device_busy_ms(lambda: det.detect_batch(frames))
         log(f"[int8] {name}: K6 launches per forward {per_forward:.0f}, conv "
-            f"epilogue launches (its float convs) {epilogues}; stage "
+            f"epilogue launches (its float convs) {epilogues}, requantize "
+            f"passes (with a shortcut) {requants}; stage "
             f"ms (CUDA events, median of 5) "
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
             + f", sum {sum(split.values()):.3f}; kernel time of one profiled "
@@ -4052,7 +4106,8 @@ def phase_mesh(card: str) -> dict:
     for k in ("decode_packed", "decode_compact", "nms_suppress",
               "decode_packed_fused_head", "conv3x3_fused",
               "residual_block_int8", "conv_epilogue",
-              "conv_epilogue_residual"):
+              "conv_epilogue_residual", "int8_requant",
+              "int8_requant_residual"):
         if not counts[k]:
             raise AssertionError(f"[mesh] the mesh path launched {k} no time")
     log(f"[mesh] kernel launches of the phase's mesh Detectors: {dict(counts)}")
@@ -5021,6 +5076,339 @@ def phase_epilogue(card: str) -> dict:
             "yolov4": phase_epilogue_yolov4(card)}
 
 
+# the int8 walk's requantize pass: yolov3@608 at the stream cell's batch; a
+# forward's passes outside K6's 10 blocks, and those that take a shortcut
+REQ_BATCH, REQ_SIZE = 32, 608
+REQ_PER_FORWARD = (51, 13)
+# the int8 phase's main-path route whose measured launches the kernel record
+# gives: the stream cell's K6 + K1
+REQ_ROUTE = "yolov3 [int8 carrier, K6 blocks, K1]"
+
+
+def requant_differ(got, ref) -> tuple:
+    """(elements whose bits differ, the largest absolute difference)."""
+    import torch
+
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return got.numel(), float("inf")
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+    n = int((got.view(ints) != ref.view(ints)).sum())
+    return n, float((got.float() - ref.float()).abs().max())
+
+
+def smi_samples(device):
+    """Start sampling the card's SM clock (MHz) and board power (W) every
+    100 ms; returns a function that stops and returns the (clock, power)
+    medians, or None where nvidia-smi reads nothing."""
+    from yolov3_tpu_torch.bench import smi_id
+
+    try:
+        proc = subprocess.Popen(
+            ["nvidia-smi", f"--id={smi_id(device)}",
+             "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,"
+             "nounits", "-lms", "100"], stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        return lambda: None
+
+    def stop():
+        proc.terminate()
+        rows = []
+        for line in proc.communicate(timeout=30)[0].splitlines():
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+        if not rows:
+            return None
+        return tuple(float(np.median([r[i] for r in rows])) for i in (0, 1))
+    return stop
+
+
+def k6_beside(walks: dict, device, rounds: int = 3, replays: int = 20):
+    """K6 in a whole forward beside each producer of its input: each walk of
+    ``walks`` ({name: fn}) captured into a CUDA graph, the graphs replayed
+    in turn for ``rounds`` rounds, ``replays`` replays a round under the
+    profiler. Per name the medians over the rounds of K6's device ms a
+    forward (``block_int8_kernel``), the int8 products'
+    (``cutlass_80_tensorop_i16832gemm_s8``), all kernels', each of the
+    forward's K6 launches' ms in order, and the SM clock and board power
+    while it replayed (nvidia-smi; None where it reads nothing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    graphs = {}
+    for name, fn in walks.items():
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        graphs[name] = g
+    seen = {name: [] for name in graphs}
+    for _ in range(rounds):
+        for name, g in graphs.items():
+            g.replay()
+            torch.cuda.synchronize()
+            stop = smi_samples(device)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(replays):
+                    g.replay()
+                torch.cuda.synchronize()
+            smi = stop()
+            ms = Counter()
+            for ev in prof.key_averages():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                t = getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+                ms["all"] += t
+                for key, pat in (("k6", "block_int8_kernel"),
+                                 ("int8_mm", "i16832gemm_s8")):
+                    if pat in ev.key:
+                        ms[key] += t
+            k6 = sorted((e.time_range.start, e.time_range.elapsed_us())
+                        for e in prof.events()
+                        if "block_int8_kernel" in e.name
+                        and e.device_type == torch.autograd.DeviceType.CUDA)
+            per = len(k6) // replays
+            blocks = ([float(np.median([d for _, d in k6[i::per]])) / 1e3
+                       for i in range(per)] if per else [])
+            seen[name].append({**{k: v / 1e3 / replays for k, v in ms.items()},
+                               "blocks": blocks, "smi": smi})
+    del graphs
+    torch.cuda.empty_cache()
+    out = {}
+    for name, runs in seen.items():
+        med = {k: float(np.median([r[k] for r in runs]))
+               for k in ("k6", "int8_mm", "all")}
+        per = min(len(r["blocks"]) for r in runs)
+        med["blocks"] = [float(np.median([r["blocks"][i] for r in runs]))
+                         for i in range(per)]
+        smi = [r["smi"] for r in runs if r["smi"]]
+        med["sm_mhz"], med["power_w"] = ((float(np.median([v[0] for v in smi])),
+                                          float(np.median([v[1] for v in smi])))
+                                         if smi else (None, None))
+        out[name] = med
+    return out
+
+
+def phase_requant(card: str) -> dict:
+    """The int8 walk's requantize pass (``ops/cuda_requant.py``) on the card.
+
+    A yolov3@608 int8 state (random weights of seed 26, symmetric, K6
+    blocks) calibrated on 8 seeded frames; one eager walk at B=32 records
+    each pass's operands and output: 51 a forward, 13 with a shortcut. On
+    every one the kernel's output against its plain version (the chain it
+    replaces, on PyTorch's kernels), bit for bit, then the edge sums (0,
+    ±(2^24 ± 1), ±(2^31 − 1), .5 ties, ±127.5 and beyond) at each output
+    type and activation with and without a shortcut, and a quantized head's
+    255 sums in rows 256 apart; the walk's head maps equal bit for bit to
+    the walk that runs the plain version. The 51 passes timed by graph
+    replay beside their bound (bytes at HBM's rate) and the plain version.
+    K6 in a captured forward beside the pass and beside the chain
+    (:func:`k6_beside`). A captured K6 + K1 Detector at B=32: the warm-up
+    and the capture launch the pass twice a forward's count, steady calls
+    none, captured == eager."""
+    import torch
+    from yolov3_tpu_torch import Darknet, Detector, quant
+    from yolov3_tpu_torch.ops import cuda_requant as cr
+    from yolov3_tpu_torch.weights import fold_raw, random_raw
+
+    cfg = REPO / "models" / "yolov3.cfg"
+    hw = (REQ_SIZE, REQ_SIZE)
+    net = Darknet(cfg, precision="bf16", device=DEVICE)
+    net.set_params(fold_raw(random_raw(net.graph, seed=26)))
+    rng = np.random.default_rng(26)
+    calib = rng.integers(0, 256, (BATCH, *SRC_HW, 3), dtype=np.uint8)
+    net.quantize_int8(calib, net_hw=hw)
+    x = torch.rand(REQ_BATCH, *hw, 3, generator=torch.Generator(
+        ).manual_seed(26)).to(DEVICE)
+
+    def walk():
+        with torch.inference_mode():
+            return quant.forward_features_int8_carrier(
+                net.graph, net.qparams, net.act_scales, x, net.precision,
+                block_impl="pallas", tensor_zeros=net.act_zeros)
+
+    def plain_walk():
+        """The walk with the plain version in the kernel's place: the
+        chain the pass replaced, on PyTorch's kernels."""
+        kernel, cr.int8_requant = cr.int8_requant, cr.int8_requant_reference
+        try:
+            return walk()
+        finally:
+            cr.int8_requant = kernel
+
+    # one forward's passes, recorded with their operands
+    calls, kernel = [], cr.int8_requant
+
+    def record(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    # the wrapper counts into whatever its module name holds
+    record.launches = record.residual_launches = 0
+    cr.int8_requant = record
+    try:
+        heads = walk()
+    finally:
+        cr.int8_requant = kernel
+    torch.cuda.synchronize()
+    got = (len(calls), sum(a[6] is not None for a, _ in calls))
+    if got != REQ_PER_FORWARD:
+        raise AssertionError(f"yolov3@608 int8 walk: {got} passes (with a "
+                             f"shortcut), expected {REQ_PER_FORWARD}")
+    kinds = Counter((str(a[4]).replace("torch.", ""), a[6] is not None)
+                    for a, _ in calls)
+    bad, err = 0, 0.0
+
+    def check(out, args, what):
+        nonlocal bad, err
+        n, e = requant_differ(out, cr.int8_requant_reference(*args))
+        if n:
+            log(f"[requant] {what}: {n} elements differ from the plain "
+                f"version, by up to {e}")
+        bad, err = bad + n, max(err, e)
+
+    for args, out in calls:
+        check(out, args, f"{tuple(out.shape)} {out.dtype} shortcut "
+              f"{args[6] is not None}")
+    # edge sums, each output type and activation, with and without
+    ties = list(range(1, 259, 2))
+    edge_rows = [[0, 1, -1, 2 ** 24 - 1, 2 ** 24, 2 ** 24 + 1, -(2 ** 24 - 1),
+                  -(2 ** 24), -(2 ** 24 + 1), 2 ** 31 - 1, -(2 ** 31 - 1),
+                  -2 ** 31], ties, [-t for t in ties],
+                 [125, 126, 127, 128, 129, 254, 255, 256, -254, -255, -256,
+                  2000]]
+    acc = torch.zeros((1, 4, len(ties), 16), dtype=torch.int32)
+    for i, r in enumerate(edge_rows):
+        acc[0, i, :len(r)] = torch.tensor(r, dtype=torch.int32)[:, None]
+    acc = acc.to(DEVICE)
+    scale = torch.tensor([1.0, 0.5, 0.25, 2.0 ** -10, 1.0, 0.5, 2.0 ** -20,
+                          3.0] * 2, device=DEVICE)
+    b = torch.tensor([0.0, 0.0, 0.5, 0.0, -0.5, 0.25, 0.0, 0.0] * 2,
+                     device=DEVICE)
+    qr = torch.from_numpy(rng.integers(-127, 128, tuple(acc.shape)).astype(
+        np.int8)).to(DEVICE)
+    edges = 0
+    for out_dtype in cr.OUT_DTYPES:
+        for act in cr.ACTIVATIONS:
+            for res_act in (None, "linear", "leaky", "mish"):
+                sc = None if res_act is None else cr.Shortcut(qr, 0.5, 1.0,
+                                                              res_act)
+                args = (acc, scale, b, act, out_dtype, 1.0, sc)
+                check(cr.int8_requant(*args), args,
+                      f"edge sums {out_dtype} {act} shortcut {res_act}")
+                edges += 1
+    # a quantized head's 255 sums: _int_mm's 256 columns sliced, rows 256 apart
+    wide = torch.randint(-200_000, 200_000, (REQ_BATCH * 76 * 76, 256),
+                         device=DEVICE, dtype=torch.int32)
+    head = wide[:, :255].reshape(REQ_BATCH, 76, 76, 255)
+    args = (head, torch.rand(255, device=DEVICE) * 1e-3,
+            torch.randn(255, device=DEVICE), "linear", torch.bfloat16)
+    if cr.row_stride(head) != 256:
+        raise AssertionError(f"the head's sums lie {cr.row_stride(head)} "
+                             f"apart, 256 expected")
+    check(cr.int8_requant(*args), args, "a quantized head's 255 sums")
+    del wide, head, args
+    if bad:
+        raise AssertionError(f"requant: {bad} elements differ from the plain "
+                             f"version, by up to {err}")
+    log(f"[requant] yolov3@608 int8 B={REQ_BATCH}, K6 blocks: one eager walk "
+        f"made {got[0]} passes, {got[1]} with a shortcut (output, shortcut: "
+        f"{dict(kinds)}); every output, the edge sums ({edges} launches) and "
+        f"a quantized head's 255 sums in rows 256 apart bit for bit equal to "
+        f"the plain version (0 elements differing, largest difference "
+        f"{err})")
+
+    # the head maps against the walk that runs the plain version
+    for g, w in zip(heads, plain_walk()):
+        n, e = requant_differ(g, w)
+        if n:
+            raise AssertionError(f"yolov3@608 int8: {n} elements of the head "
+                                 f"maps of the walk with the pass differ from "
+                                 f"the plain version's, by up to {e}")
+        err = max(err, e)
+    log(f"[requant] yolov3@{REQ_SIZE} int8 B={REQ_BATCH} head maps bit for "
+        f"bit equal to the walk that runs the plain version")
+    del heads
+
+    # one forward's passes by graph replay
+    ops = [a for a, _ in calls]
+    nbytes = sum(a[0].numel() * 4 + out.numel() * out.element_size()
+                 + (a[6].q.numel() if a[6] is not None else 0)
+                 + a[0].shape[3] * 8 for a, out in calls)
+    del calls
+
+    def run(fn):
+        return lambda: [fn(*a) for a in ops]
+
+    ms = graph_ms(run(cr.int8_requant), iters=3, warmup=1)
+    plain_ms = graph_ms(run(cr.int8_requant_reference), iters=3, warmup=1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[requant] yolov3@608 B={REQ_BATCH}, one forward's {len(ops)} passes "
+        f"by graph replay: kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"{bound_ms / ms:.1%} of it), the plain version (the chain it "
+        f"replaces, on PyTorch's kernels) {plain_ms:.3f} ms; {card}")
+    del ops
+    torch.cuda.empty_cache()
+
+    # K6 beside the pass and beside the chain, in turn in one process; the
+    # pass's forward captured twice, so that two placements of the same
+    # forward's tensors show what placement alone moves
+    k6 = k6_beside({"pass": walk, "chain": plain_walk,
+                    "pass, captured again": walk},
+                   torch.device(DEVICE, torch.cuda.current_device()))
+    for name, r in k6.items():
+        log(f"[requant] K6 in a captured yolov3@608 int8 forward B="
+            f"{REQ_BATCH} beside {name}: {r['k6']:.3f} ms a forward "
+            f"({len(r['blocks'])} launches: "
+            + ", ".join(f"{v:.3f}" for v in r["blocks"])
+            + f"), int8 products {r['int8_mm']:.3f} ms, all kernels "
+            f"{r['all']:.3f} ms; SM clock {r['sm_mhz']} MHz, board power "
+            f"{r['power_w']} W (medians of 3 rounds of 20 replays); {card}")
+
+    # the captured path: launches a forward, none a replay
+    det = Detector(net, block_impl="pallas", net_hw=hw)
+    frames = rng.integers(0, 256, (REQ_BATCH, *SRC_HW, 3), dtype=np.uint8)
+    cr.int8_requant.launches = cr.int8_requant.residual_launches = 0
+    det.warmup(REQ_BATCH, SRC_HW)
+    per_capture = (cr.int8_requant.launches, cr.int8_requant.residual_launches)
+    want = tuple(2 * n for n in requant_launches(det))
+    if per_capture != want or want != tuple(2 * n for n in REQ_PER_FORWARD):
+        raise AssertionError(f"the int8 Detector's warm-up and capture "
+                             f"launched the pass {per_capture} times, "
+                             f"expected twice {REQ_PER_FORWARD}")
+    prog = det._pipeline(REQ_BATCH, SRC_HW)
+    replays = prog.replays
+    captured = [det.detect_batch(frames) for _ in range(3)]
+    steady = (cr.int8_requant.launches, cr.int8_requant.residual_launches)
+    if steady != per_capture or prog.replays - replays != 3:
+        raise AssertionError(f"3 steady calls launched the pass "
+                             f"{steady[0] - per_capture[0]} times and made "
+                             f"{prog.replays - replays} replays")
+    ref = det._run(det._stage(frames)).cpu()
+    res, _, _ = det._detect(frames, SRC_HW, None)
+    if not torch.equal(ref, res) or not all(
+            same_detections(c, captured[0]) for c in captured[1:]):
+        raise AssertionError("the int8 Detector's captured results differ "
+                             "from its eager _run's")
+    log(f"[requant] captured yolov3@608 int8 K6 + K1 Detector B={REQ_BATCH}: "
+        f"warm-up + capture launched the pass {per_capture[0]} times "
+        f"({per_capture[1]} with a shortcut), twice a forward's "
+        f"{REQ_PER_FORWARD}; 3 steady calls, 3 replays, no launch; captured "
+        f"== eager bit for bit")
+    del det, prog, net
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bytes": nbytes, "max_abs_err": err, "k6_beside": k6,
+            "kinds": {f"{k[0]}{' shortcut' if k[1] else ''}": v
+                      for k, v in kinds.items()}}
+
+
 def main() -> int:
     if not (REPO / "yolov3_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: yolov3_tpu_torch/ is not beside this script; "
@@ -5099,6 +5487,8 @@ def main() -> int:
         res["bench"] = phase_bench(card)
     if "epilogue" in phases:
         res["epilogue"] = phase_epilogue(card)
+    if "requant" in phases:
+        res["requant"] = phase_requant(card)
     if set(phases) != set(PHASES):
         log(f"phases run: {phases}; no result printed for a partial run")
         return 0
@@ -5134,6 +5524,7 @@ def main() -> int:
         k5_flop += count * 2 * BATCH * h * w * 9 * cin * cout
     k6_forward = [sum(n * k6[shape][i] for n, shape in zip((2, 8), K6_SHAPES))
                   for i in (0, 1, 2, 4)]
+    requant_row = next(r for r in MAIN_ROWS if r["name"] == REQ_ROUTE)
     kernels = {"kernels": [
         {"name": "decode_packed", "route": "cuda",
          "source": "yolov3_tpu_torch/csrc/decode_packed.cu",
@@ -5260,6 +5651,20 @@ def main() -> int:
             res["epilogue"]["yolov4"]["times"][32].items()},
          "yolov4_mish_ulps": res["epilogue"]["yolov4"]["mish_ulps"],
          "yolov4_per_forward": res["epilogue"]["yolov4"]["per_forward"]},
+        {"name": "int8_requant", "route": "cuda",
+         "source": "yolov3_tpu_torch/csrc/int8_requant.cu",
+         # XLA fused the int8 conv's epilogue into lax.conv_general_dilated
+         "replaces": None, "max_abs_err": res["requant"]["max_abs_err"],
+         # one forward's, as the int8 phase's warm-up and capture measured
+         # them on the cell's K6 + K1 route (twice a forward)
+         **{k: requant_row["per_capture"][w] // 2 for k, w in (
+             ("launches", "int8_requant"),
+             ("residual_launches", "int8_requant_residual"))},
+         "ms_of": "one yolov3@608 int8 forward's 51 passes at B=32",
+         "ms": res["requant"]["ms"], "plain_ms": res["requant"]["plain_ms"],
+         "bound_ms": res["requant"]["bound_ms"], "bound_by": "bytes",
+         # the plain version is the chain it replaces, on PyTorch's kernels
+         "library_ms": res["requant"]["plain_ms"]},
         *probe_records(res["dots"], res["probes"], bound),
     ]}
     for entry in kernels["kernels"]:

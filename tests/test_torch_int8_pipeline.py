@@ -18,7 +18,7 @@ from yolov3_tpu.inference import Detector as JDetector
 from yolov3_tpu.model import Darknet as JDarknet
 from yolov3_tpu_torch import Darknet, Detector
 from yolov3_tpu_torch.ops import (cuda_block, cuda_conv, cuda_decode,
-                                  cuda_nms)
+                                  cuda_nms, cuda_requant)
 from yolov3_tpu_torch.weights import fold_raw, random_raw
 
 torch.set_num_threads(1)
@@ -30,7 +30,8 @@ KERNELS = (cuda_decode.decode_packed, cuda_decode.decode_compact,
            cuda_decode.decode_packed_head, cuda_decode.decode_compact_head,
            cuda_decode.decode_packed_fused_head, cuda_decode.decode_head,
            cuda_decode.decode_all, cuda_conv.conv3x3_fused,
-           cuda_block.residual_block_int8, cuda_nms.suppress)
+           cuda_block.residual_block_int8, cuda_nms.suppress,
+           cuda_requant.int8_requant)
 
 
 def _pair(cfg, precision="highest", seed=6, native=False, **qkw):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` (the serving kernels K1-K6, the float walk's conv epilogue
-and ``probe.cu``, the diagnostic tools' kernels) compile with ``nvcc`` into ONE shared library with a plain C
+``csrc/*.cu`` (the serving kernels K1-K6, the float walk's conv epilogue,
+the int8 walk's requantize pass and ``probe.cu``, the diagnostic tools'
+kernels) compile with ``nvcc`` into ONE shared library with a plain C
 interface, loaded with ``ctypes``; ``decode_common.cuh`` (the decode body),
 ``block_int8_common.cuh`` (K6's arithmetic, shared with the probes),
 ``wgmma_common.cuh`` (the tensor-core building blocks of K4's and K5's bf16
@@ -32,7 +33,7 @@ from typing import Optional, Union
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_packed.cu", "decode_fused.cu", "decode_full.cu",
            "conv3x3.cu", "block_int8.cu", "nms_suppress.cu",
-           "conv_epilogue.cu", "probe.cu")
+           "conv_epilogue.cu", "int8_requant.cu", "probe.cu")
 HEADERS = ("decode_common.cuh", "block_int8_common.cuh",
            "wgmma_common.cuh", "conv3x3_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -125,6 +126,9 @@ def load_kernels() -> ctypes.CDLL:
     lib.yolo_nms_suppress.argtypes = [p, p, p, i32, i32, f32, p, p, p]
     lib.yolo_conv_epilogue.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32,
                                        i32, i32, i32, i32, p]
+    lib.yolo_int8_requant.argtypes = [p, p, p, p, p, i64, i64, i64, i32, i32,
+                                      i32, f32, f32, f32, f32, i32, i32, i32,
+                                      i32, i32, p]
     lib.yolo_decode_full.argtypes = [
         ctypes.POINTER(ctypes.c_longlong), anchors, anchors, i32, anchors,
         i32, i32, i32, i32, i32, p, p]
@@ -148,7 +152,7 @@ def load_kernels() -> ctypes.CDLL:
                lib.yolo_decode_heads,
                lib.yolo_decode_packed_fused_head, lib.yolo_conv3x3_fused,
                lib.yolo_nms_suppress, lib.yolo_conv_epilogue,
-               lib.yolo_decode_full,
+               lib.yolo_int8_requant, lib.yolo_decode_full,
                lib.yolo_residual_block_int8):
         fn.restype = i32
     return lib

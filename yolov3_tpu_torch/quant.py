@@ -18,10 +18,12 @@ Port of ``yolov3_tpu/quant.py``. The scheme is the reference's:
 (C,), ``b``; or ``w`` HWIO, ``b`` for a conv that stays float), so a state
 file written by either package loads in the other. The walks take NHWC
 ``x`` and return NHWC head maps, and work on NHWC tensors throughout: the
-int8 convs are im2col + an integer matmul (``ops/int8_conv.py``), the fused
-residual-block kernel K6 (``ops/cuda_block.py``) reads the int8 NHWC tensor
-in place, and only the few float convs view their operand as channels_last
-NCHW for ``F.conv2d``.
+int8 convs are im2col + an integer matmul (``ops/int8_conv.py``), in the
+int8-carrier walk's symmetric scheme followed by one requantize pass over
+the int32 sums (``ops/cuda_requant.py``), the fused residual-block kernel
+K6 (``ops/cuda_block.py``) reads the int8 NHWC tensor in place, and only
+the few float convs view their operand as channels_last NCHW for
+``F.conv2d``.
 
 Rounding is the reference's: ``1.0 / scale`` and ``s_in / s_out`` are
 Python doubles rounded once to float32, rounds are half-to-even, and every
@@ -43,7 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from .graph import Graph, Node
-from .model import PRECISIONS, _activate, _conv, _head_spec, _maxpool
+from .model import (PRECISIONS, _activate, _conv, _head_spec, _maxpool,
+                    residual_convs)
+from .ops import cuda_requant
 from .ops import decode as plain_decode
 from .ops import int8_conv
 from .ops.cuda_decode import decode_packed, decode_packed_fused
@@ -213,10 +217,20 @@ def chain_targets(graph: Graph, qparams) -> Dict[int, int]:
     return targets
 
 
-def _conv_int8_core(x_or_q: torch.Tensor, node: Node, qp, sx: float,
-                    prequantized: bool, zx: int = 0,
-                    operands: Optional[Operands] = None) -> torch.Tensor:
-    """int8 conv of the NHWC input → the float32 pre-activation.
+def _conv_int8_acc(x_or_q: torch.Tensor, node: Node, sx: float,
+                   prequantized: bool, zx: int, operands: Operands
+                   ) -> torch.Tensor:
+    """The int8 conv's exact int32 sums, NHWC, of the input quantized at
+    ``sx`` / ``zx`` (or already int8: ``prequantized``)."""
+    pad = node.size // 2 if node.pad else 0
+    xq = x_or_q if prequantized else _quantize_affine(x_or_q, sx, zx)
+    return int8_conv.conv_int8(xq, operands.conv(node.index), node.stride, pad)
+
+
+def _int8_conv_epilogue(acc: torch.Tensor, node: Node, qp, sx: float,
+                        zx: int, in_hw, operands: Operands) -> torch.Tensor:
+    """int32 sums ``acc`` of an input of ``in_hw`` pixels → the float32
+    pre-activation: widened, times the per-channel scale, plus the bias.
 
     ``zx`` is the input tensor's zero-point (``act_scheme="asymmetric"``):
     the input represents ``x = sx·(q − zx)``, so with implicit zero padding
@@ -227,23 +241,31 @@ def _conv_int8_core(x_or_q: torch.Tensor, node: Node, qp, sx: float,
     1-pixel pad-border ring. The global ``zx·Σwq`` term is a per-channel
     vector folded into the bias; the ring comes from
     :func:`_zp_border_deficit`. ``zx = 0`` is the symmetric scheme."""
-    operands = operands or Operands({node.index: qp})
-    pad = node.size // 2 if node.pad else 0
-    xq = x_or_q if prequantized else _quantize_affine(x_or_q, sx, zx)
-    y = int8_conv.conv_int8(xq, operands.conv(node.index), node.stride, pad)
-    y32 = y.float()
+    y32 = acc.float()
     scale = operands.dequant_scale(node.index, sx)
     b = qp["b"]
     if zx:
+        pad = node.size // 2 if node.pad else 0
         b, z_deficit = operands.zero_point_terms(
-            node, pad, y32.shape[1:3], xq.shape[1:3], sx, zx)
+            node, pad, y32.shape[1:3], in_hw, sx, zx)
         y32 = y32 + z_deficit
     return y32 * scale + b
 
 
+def _conv_int8_core(x_or_q: torch.Tensor, node: Node, qp, sx: float,
+                    prequantized: bool, zx: int = 0,
+                    operands: Optional[Operands] = None) -> torch.Tensor:
+    """int8 conv of the NHWC input → the float32 pre-activation
+    (:func:`_conv_int8_acc`, then :func:`_int8_conv_epilogue`)."""
+    operands = operands or Operands({node.index: qp})
+    acc = _conv_int8_acc(x_or_q, node, sx, prequantized, zx, operands)
+    return _int8_conv_epilogue(acc, node, qp, sx, zx, x_or_q.shape[1:3],
+                               operands)
+
+
 def _zp_border_deficit(w32: torch.Tensor, node: Node, pad: int,
                        hp: int, wp: int, h_in: int, w_in: int) -> torch.Tensor:
-    """The ``deficit[p]`` map of :func:`_conv_int8_core`, (1, hp, wp, C):
+    """The ``deficit[p]`` map of :func:`_int8_conv_epilogue`, (1, hp, wp, C):
     outer products of 1-D edge masks with per-channel tap-row sums of the
     HWIO float weight ``w32``, corners corrected by inclusion–exclusion.
 
@@ -363,6 +385,22 @@ def _requantize_affine(q: torch.Tensor, s_in: float, z_in: int,
     return _to_int8(f)
 
 
+def _shortcut_sum(a: Value, b: Value) -> torch.Tensor:
+    """A shortcut's float32 sum of two walk values: an int8 operand widened
+    with its scale, both operands' zero-point constants folded into ONE
+    subtract."""
+    zc = 0.0
+    terms = []
+    for v in (a, b):
+        if v[0] == "q":
+            terms.append(v[1].float() * v[2])
+            zc += float(v[3]) * v[2]
+        else:
+            terms.append(v[1].float())
+    y = terms[0] + terms[1]
+    return y - zc if zc else y
+
+
 def _maxpool_int8(x: torch.Tensor, node: Node) -> torch.Tensor:
     """int8 NHWC maxpool: max is monotone, so pooling quantized values in
     the producer's scale is exact. Eager PyTorch has no int8 pool on CUDA:
@@ -406,7 +444,12 @@ def forward_features_int8_carrier(
 
     * conv (eligible): consumes int8 directly (producer scale), exact
       int8×int8→int32, dequant/bias/activation epilogue in float32,
-      requantized to its own output scale;
+      requantized to its own output scale. In the symmetric scheme the
+      epilogue is one requantize pass over the int32 sums
+      (``ops/cuda_requant.py``: the kernel on the card, its plain version,
+      bit for bit the same, on the CPU), which also takes a shortcut right
+      after the conv (``model.residual_convs``) whose other input is int8;
+      the asymmetric scheme runs the chain with its zero-point terms;
     * shortcut: widen both operands with their scales, add + activation in
       float32, requantize;
     * route: single-input passes through (scale rides along); multi-input
@@ -433,7 +476,8 @@ def forward_features_int8_carrier(
     operands = operands or Operands(qparams)
     zof = ((lambda i: tensor_zeros.get(i, 0)) if tensor_zeros
            else (lambda i: 0))
-    if tensor_zeros and any(tensor_zeros.values()):
+    symmetric = not (tensor_zeros and any(tensor_zeros.values()))
+    if not symmetric:
         block_impl = "xla"  # K6 mimics the SYMMETRIC quantize sites
     needed = graph.needed_outputs
     cons = consumers_of(graph)
@@ -505,11 +549,39 @@ def forward_features_int8_carrier(
             carrier_dtype=carrier_dtype)
         return ("q", out, s_out, 0) if eq else ("f", out)
 
+    # the shortcut right after a conv, which the conv's requantize pass
+    # takes over where it reads int8
+    shortcuts = residual_convs(graph, upto)
+
+    def requant(acc: torch.Tensor, node: Node, sx: float):
+        """Quantized conv ``node``'s epilogue over its int32 sums ``acc`` in
+        the symmetric scheme as one requantize pass (``int8_requant`` on
+        the card, which raises where it cannot take the sums; its plain
+        version on the CPU), with the shortcut after it where the conv's
+        output is int8 and the shortcut's other input too (the conv's own
+        int8 output then never exists): (the value, the shortcut node taken
+        or None)."""
+        sc, short = shortcuts.get(node.index), None
+        r = cache[sc.inputs[1]] if sc is not None else None
+        if r is not None and r[0] == "q" and want_q(node):
+            short = cuda_requant.Shortcut(
+                r[1], r[2], tensor_scales[node.index], sc.activation)
+        site = node if short is None else sc
+        q = want_q(site)
+        run = (cuda_requant.int8_requant_reference
+               if acc.device.type == "cpu" else cuda_requant.int8_requant)
+        out = run(acc, operands.dequant_scale(node.index, sx),
+                  qparams[node.index]["b"], node.activation,
+                  torch.int8 if q else carrier_dtype,
+                  tensor_scales[site.index] if q else None, short)
+        value = ("q", out, tensor_scales[site.index], 0) if q else ("f", out)
+        return value, None if short is None else sc
+
     skip_upto = -1
     with tf32(precision is None):
         for node in (graph.nodes if upto is None else graph.nodes[:upto]):
             if node.index <= skip_upto:
-                continue  # node ran inside a fused block
+                continue  # node ran inside a K6 block or a requant pass
             if (node.index in bplan and prev[0] == "q"
                     and (upto is None or node.index + 2 < upto)):
                 prev = run_block(node.index, prev)
@@ -524,22 +596,29 @@ def forward_features_int8_carrier(
                 out = prev
             elif node.kind == "convolutional":
                 qp = qparams[node.index]
-                if "wq" in qp:
-                    if node.inputs[0] < 0:
-                        # stem: exact-u8 int8 input from the RAW network
-                        # input (the carrier cast would break exactness)
-                        y = _conv_stem_int8(x, node, qp, operands)
-                    elif prev[0] == "q":
-                        y = _conv_int8_core(prev[1], node, qp, prev[2],
-                                            prequantized=True, zx=prev[3],
-                                            operands=operands)
-                    else:
-                        y = _conv_int8_core(as_f(prev), node, qp,
-                                            tensor_scales[node.inputs[0]],
-                                            prequantized=False,
-                                            zx=zof(node.inputs[0]),
-                                            operands=operands)
+                if "wq" in qp and node.inputs[0] < 0:
+                    # stem: exact-u8 int8 input from the RAW network input
+                    # (the carrier cast would break exactness)
+                    y = _conv_stem_int8(x, node, qp, operands)
                     out = emit(_activate(y, node.activation), node)
+                elif "wq" in qp:
+                    if prev[0] == "q":
+                        xin, sx, zx = prev[1], prev[2], prev[3]
+                    else:
+                        src = node.inputs[0]
+                        xin, sx, zx = as_f(prev), tensor_scales[src], zof(src)
+                    acc = _conv_int8_acc(xin, node, sx, prev[0] == "q", zx,
+                                         operands)
+                    if symmetric:
+                        out, sc = requant(acc, node, sx)
+                        if sc is not None:  # the shortcut ran in the pass
+                            skip_upto = sc.index
+                            if sc.index in needed:
+                                cache[sc.index] = out
+                    else:
+                        y = _int8_conv_epilogue(acc, node, qp, sx, zx,
+                                                xin.shape[1:3], operands)
+                        out = emit(_activate(y, node.activation), node)
                 else:
                     y = _conv_bf16(as_f(prev), node, qp, operands)
                     # a float conv whose consumers all read int8 (conv0)
@@ -554,18 +633,7 @@ def forward_features_int8_carrier(
                 out = (prev[0], _upsample_nearest(prev[1], node.stride),
                        *prev[2:])
             elif node.kind == "shortcut":
-                # both operands' zero-point constants fold into ONE subtract
-                zc = 0.0
-                terms = []
-                for v in (prev, cache[node.inputs[1]]):
-                    if v[0] == "q":
-                        terms.append(v[1].float() * v[2])
-                        zc += float(v[3]) * v[2]
-                    else:
-                        terms.append(v[1].float())
-                y = terms[0] + terms[1]
-                if zc:
-                    y = y - zc
+                y = _shortcut_sum(prev, cache[node.inputs[1]])
                 out = emit(_activate(y, node.activation), node)
             elif node.kind == "route":
                 srcs = [prev if i == node.index - 1 else cache[i]

@@ -295,11 +295,14 @@ def test_upto_at_a_conv_before_a_shortcut_returns_its_own_output(monkeypatch):
     returns the conv's own output, one that stops at the shortcut the sum."""
     graph, params = _net(BLOCK_CFG)
     assert graph.nodes[3].kind == "shortcut" and 2 in tmodel.residual_convs(graph)
-    assert 2 not in tmodel.residual_convs(graph, upto=3)
     x = torch.from_numpy(np.random.default_rng(6).uniform(
         0, 1, (2, 48, 48, 3)).astype(np.float32))
-    conv, shortcut = (tmodel.forward_features(graph, params, x, upto=u)[-1]
-                      for u in (3, 4))
+    with monkeypatch.context() as m:
+        calls = _count_residuals(m)
+        conv = tmodel.forward_features(graph, params, x, upto=3)[-1]
+        assert calls == []  # conv 2 takes no shortcut the walk never reaches
+        shortcut = tmodel.forward_features(graph, params, x, upto=4)[-1]
+        assert calls == ["linear"]
     _unfused(monkeypatch)
     want_conv, want_shortcut = (
         tmodel.forward_features(graph, params, x, upto=u)[-1] for u in (3, 4))

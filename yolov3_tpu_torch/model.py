@@ -4,7 +4,8 @@ Port of ``yolov3_tpu/model.py`` (float tiers ``"highest"``, ``None`` and
 ``"bf16"``; the int8 tier's walks live in ``quant.py`` and ``Darknet``
 carries their state: ``quantize_int8``, ``save_quantized``,
 ``load_quantized``). The lowered :class:`~yolov3_tpu_torch.graph.Graph` is walked by
-a plain function:
+:func:`walk`, the one node walk of the port (the int8 and spatial walks
+and the calibration pass hand it ops of their own); the float walk's ops:
 
 * convs are ``F.conv2d`` (cuDNN on the card) on NCHW tensors in
   ``torch.channels_last`` memory, + folded-BN bias + LeakyReLU; on the card
@@ -105,17 +106,15 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, node: Node,
     return y.permute(0, 3, 1, 2)
 
 
-def residual_convs(graph: Graph, upto: Optional[int] = None
-                   ) -> Dict[int, Node]:
+def residual_convs(graph: Graph) -> Dict[int, Node]:
     """Conv index → the shortcut node right after it whose add and
-    activation the conv's epilogue takes over, in a walk of
-    ``graph.nodes[:upto]``: the shortcut's first input is the conv, its
-    other input is another node, and nothing else reads the conv's own
-    output (it is not in ``graph.needed_outputs``). 23 convs of yolov3 and
-    of yolov3-spp, none of tiny."""
+    activation the conv's epilogue takes over: the shortcut's first input
+    is the conv, its other input is another node, and nothing else reads
+    the conv's own output (it is not in ``graph.needed_outputs``). 23 convs
+    of yolov3 and of yolov3-spp, none of tiny. A walk cut by ``upto`` takes
+    only those whose shortcut it reaches (:func:`walk`)."""
     needed = graph.needed_outputs
-    nodes = graph.nodes[:upto]
-    return {sc.index - 1: sc for sc in nodes[1:]
+    return {sc.index - 1: sc for sc in graph.nodes[1:]
             if sc.kind == "shortcut" and sc.inputs[0] == sc.index - 1
             and sc.inputs[1] != sc.index - 1
             and graph.nodes[sc.index - 1].kind == "convolutional"
@@ -128,6 +127,126 @@ def _maxpool(x: torch.Tensor, node: Node) -> torch.Tensor:
     hi = node.padding - lo
     x = F.pad(x, (lo, hi, lo, hi), value=float("-inf"))
     return F.max_pool2d(x, node.size, node.stride)
+
+
+class NodeOps:
+    """One walk's values and per-kind arithmetic, for :func:`walk`.
+
+    A subclass defines ``conv(node, x, cache, end) -> (value, last)``,
+    ``maxpool(node, x)``, ``upsample(node, x)``, ``shortcut(node, x,
+    other)``, ``route(node, xs)`` (two or more inputs) and ``head(x)`` (a
+    value → the NHWC map the walk returns). ``x`` is the running value (the
+    previous node's output), ``cache`` the walk's outputs by node index.
+    ``conv`` may take over the nodes right after its own, up to but not
+    including index ``end``: it returns its value and the index of the last
+    node it consumed (its own where it fused nothing)."""
+
+    def enter(self, node: Node, x, cache: Dict[int, object]):
+        """The running value as ``node`` reads it. A walk whose values
+        change form partway (the spatial walk's gathers) may also replace
+        the cache entries ``node`` reads by the same values in the new
+        form. The default reads both as they are."""
+        return x
+
+
+def walk(graph: Graph, x, ops: NodeOps, *, upto: Optional[int] = None,
+         stop_before_heads: bool = False, visit=None) -> list:
+    """Walk ``graph.nodes[:upto]`` from the value ``x`` with ``ops``; return
+    ``ops.head`` of each yolo node's input, and with ``upto`` that of the
+    last value reached too.
+
+    Only outputs on a skip edge are kept (``graph.needed_outputs``); a
+    route of one input passes its value through. A node that an earlier
+    op consumed is skipped, and the value that op returned is kept under
+    the last node's index where that output is needed.
+    ``stop_before_heads`` skips each head conv and takes its input as the
+    head. ``visit(node, inp, out)`` runs after each node with its running
+    input and its output (a calibration pass; its ops fuse nothing)."""
+    needed = graph.needed_outputs
+    nodes = graph.nodes[:upto]
+    end = len(nodes)
+    head_convs = ({yn.inputs[0] for yn in graph.yolo_nodes}
+                  if stop_before_heads else frozenset())
+    cache: Dict[int, object] = {}
+    heads: list = []
+    prev, i = x, 0
+    while i < end:
+        node = nodes[i]
+        prev = ops.enter(node, prev, cache)
+        last = node.index
+        if node.index in head_convs:
+            # the head branch ends here; the skipped conv's only consumer
+            # is its yolo node (fused_heads_eligible gate)
+            heads.append(ops.head(prev))
+            out = prev
+        elif node.kind == "convolutional":
+            out, last = ops.conv(node, prev, cache, end)
+        elif node.kind == "maxpool":
+            out = ops.maxpool(node, prev)
+        elif node.kind == "upsample":
+            out = ops.upsample(node, prev)
+        elif node.kind == "shortcut":
+            out = ops.shortcut(node, prev, cache[node.inputs[1]])
+        elif node.kind == "route":
+            srcs = [prev if j == node.index - 1 else cache[j]
+                    for j in node.inputs]
+            out = srcs[0] if len(srcs) == 1 else ops.route(node, srcs)
+        elif node.kind == "yolo":
+            if not stop_before_heads:
+                heads.append(ops.head(prev))
+            out = prev
+        else:  # pragma: no cover - lower() already validates kinds
+            raise ValueError(node.kind)
+        if visit is not None:
+            visit(node, prev, out)
+        if last in needed:
+            cache[last] = out
+        prev, i = out, last + 1
+    if upto is not None:
+        heads.append(ops.head(prev))
+    return heads
+
+
+class FloatOps(NodeOps):
+    """The float walk's ops: NCHW views of channels_last tensors in the
+    walk's type. ``residual``: conv index → the shortcut its epilogue
+    takes over (:func:`residual_convs`); none by default, so every conv
+    gives its own output (the calibration walk)."""
+
+    def __init__(self, params: TorchParams, conv_impl: str = "xla",
+                 residual: Optional[Dict[int, Node]] = None):
+        self.params, self.conv_impl = params, conv_impl
+        self.residual = residual or {}
+
+    def conv(self, node, x, cache, end):
+        p = self.params[node.index]
+        sc = self.residual.get(node.index)
+        if sc is None or sc.index >= end:
+            return _conv(x, p["w"], p["b"], node, self.conv_impl), node.index
+        return (_conv(x, p["w"], p["b"], node, self.conv_impl,
+                      cache[sc.inputs[1]], sc.activation), sc.index)
+
+    def maxpool(self, node, x):
+        return _maxpool(x, node)
+
+    def upsample(self, node, x):
+        return F.interpolate(x, scale_factor=node.stride, mode="nearest")
+
+    def shortcut(self, node, x, other):
+        return _activate(x + other, node.activation)
+
+    def route(self, node, xs):
+        return torch.cat(xs, dim=1)
+
+    def head(self, x):
+        return x.permute(0, 2, 3, 1)
+
+
+def _float_input(x: torch.Tensor, precision: Optional[str]) -> torch.Tensor:
+    """NHWC ``x`` as the float walk's first value: its NCHW view (NHWC
+    memory = NCHW channels_last), in bfloat16 at precision "bf16"."""
+    x = x.permute(0, 3, 1, 2)
+    return x.to(torch.bfloat16) if precision == "bf16" else x
 
 
 def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
@@ -144,53 +263,10 @@ def forward_features(graph: Graph, params: TorchParams, x: torch.Tensor,
     ``quant.forward_features_int8_carrier`` does (the per-layer profile,
     ``tools/profile_layers.py``)."""
     _check_route(precision, conv_impl)
-    needed = graph.needed_outputs
-    fused = residual_convs(graph, upto)
-    head_convs = ({yn.inputs[0] for yn in graph.yolo_nodes}
-                  if stop_before_heads else frozenset())
-    cache: Dict[int, torch.Tensor] = {}
-    heads: List[torch.Tensor] = []
-    prev = x.permute(0, 3, 1, 2)  # NHWC memory = NCHW channels_last
-    if precision == "bf16":
-        prev = prev.to(torch.bfloat16)
+    ops = FloatOps(params, conv_impl, residual_convs(graph))
     with tf32(precision is None):
-        for node in graph.nodes[:upto]:
-            if node.index in head_convs:
-                # the head branch ends here; the skipped conv's only
-                # consumer is its yolo node (eligibility-gated)
-                heads.append(prev.permute(0, 2, 3, 1))
-                out = prev
-            elif node.kind == "convolutional":
-                p = params[node.index]
-                sc = fused.get(node.index)
-                out = (_conv(prev, p["w"], p["b"], node, conv_impl)
-                       if sc is None else
-                       _conv(prev, p["w"], p["b"], node, conv_impl,
-                             cache[sc.inputs[1]], sc.activation))
-            elif node.kind == "maxpool":
-                out = _maxpool(prev, node)
-            elif node.kind == "upsample":
-                out = F.interpolate(prev, scale_factor=node.stride, mode="nearest")
-            elif node.kind == "shortcut":
-                # taken over by the epilogue of the conv before it
-                out = (prev if node.inputs[0] in fused else
-                       _activate(prev + cache[node.inputs[1]], node.activation))
-            elif node.kind == "route":
-                srcs = [prev if i == node.index - 1 else cache[i]
-                        for i in node.inputs]
-                out = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-            elif node.kind == "yolo":
-                if not stop_before_heads:
-                    heads.append(prev.permute(0, 2, 3, 1))
-                out = prev
-            else:  # pragma: no cover - lower() already validates kinds
-                raise ValueError(node.kind)
-            if node.index in needed:
-                cache[node.index] = out
-            prev = out
-    if upto is not None:
-        return heads + [prev.permute(0, 2, 3, 1)]
-    return heads
+        return walk(graph, _float_input(x, precision), ops, upto=upto,
+                    stop_before_heads=stop_before_heads)
 
 
 def _head_spec(graph: Graph):

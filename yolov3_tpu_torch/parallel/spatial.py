@@ -35,7 +35,8 @@ import torch.nn.functional as F
 
 from ..graph import Graph, Node
 from ..inference import _InterpCache
-from ..model import _activate, _conv, _maxpool
+from ..model import (NodeOps, _activate, _conv, _float_input, _maxpool,
+                     walk)
 from ..ops import decode as plain_decode
 from ..ops.cuda_decode import decode_compact, supported as _packed_decode_ok
 from ..ops.nms import NMSResult, batched_nms_compact
@@ -297,6 +298,67 @@ def _conv_row(x: Shards, p: List[Dict[str, torch.Tensor]], node: Node,
         collectives.psum(partial), p)
 
 
+class _SpatialOps(NodeOps):
+    """The ops of :func:`forward_features_spatial`: one value is a list of
+    per-shard NCHW tensors, row bands before ``crossover`` and full maps
+    from it on."""
+
+    def __init__(self, params: List[Dict[int, Dict[str, torch.Tensor]]],
+                 n_shards: int, crossover: int, roles: Dict[int, str]):
+        self.params, self.n = params, n_shards
+        self.crossover, self.roles = crossover, roles
+        self.gathered = set()  # cached band outputs replaced by full maps
+
+    def enter(self, node, x, cache):
+        """From the crossover on, the running map is gathered once, and a
+        cached band a node reads is gathered at its first such read."""
+        if node.index < self.crossover:
+            return x
+        if node.index == self.crossover:
+            x = collectives.all_gather(x)
+            if node.index - 1 in cache:
+                cache[node.index - 1] = x
+                self.gathered.add(node.index - 1)
+        for i in node.inputs:
+            if (0 <= i < self.crossover and i != node.index - 1
+                    and i not in self.gathered):
+                cache[i] = collectives.all_gather(cache[i])
+                self.gathered.add(i)
+        return x
+
+    def conv(self, node, x, cache, end):
+        p = [shard[node.index] for shard in self.params]
+        role = self.roles.get(node.index)
+        if node.index < self.crossover:
+            out = _conv_sharded(x, [q["w"] for q in p], [q["b"] for q in p],
+                                node, self.n)
+        elif role == "col":
+            out = _conv_col(x, p, node, self.n)
+        elif role == "row":
+            out = _conv_row(x, p, node, self.n)
+        else:
+            out = _map(lambda t, q: _conv(t, q["w"], q["b"], node), x, p)
+        return out, node.index
+
+    def maxpool(self, node, x):
+        if node.index < self.crossover:
+            return _maxpool_sharded(x, node, self.n)
+        return _map(lambda t: _maxpool(t, node), x)
+
+    def upsample(self, node, x):
+        return _map(lambda t: F.interpolate(
+            t, scale_factor=node.stride, mode="nearest"), x)
+
+    def shortcut(self, node, x, other):
+        return _map(lambda a, s: _activate(a + s, node.activation), x, other)
+
+    def route(self, node, xs):
+        return _map(lambda *ts: torch.cat(ts, 1), *xs)
+
+    def head(self, x):
+        return x[0].permute(0, 2, 3, 1)
+
+
 def forward_features_spatial(
     graph: Graph,
     params: List[Dict[int, Dict[str, torch.Tensor]]],
@@ -319,69 +381,9 @@ def forward_features_spatial(
     alike (the planner never shards a yolo node), as the first shard holds
     them."""
     _check(x_local, n_shards)
-    roles = dict(channel_roles or {})
-    needed = graph.needed_outputs
-    cache: Dict[int, Shards] = {}
-    local: Dict[int, bool] = {}
-    heads: List[Shards] = []
-    prev = [x.permute(0, 3, 1, 2) for x in x_local]
-    if precision == "bf16":
-        prev = [x.to(torch.bfloat16) for x in prev]
-    prev_local = True
-
-    def fetch(i: int, want_full: bool) -> Shards:
-        t = cache[i]
-        if want_full and local[i]:
-            t = collectives.all_gather(t)
-            cache[i], local[i] = t, False
-        return t
-
+    ops = _SpatialOps(params, n_shards, crossover, dict(channel_roles or {}))
     with tf32(precision is None):
-        for node in graph.nodes:
-            repl = node.index >= crossover
-            if repl and prev_local:
-                prev = collectives.all_gather(prev)
-                prev_local = False
-                if node.index - 1 in cache and local[node.index - 1]:
-                    cache[node.index - 1], local[node.index - 1] = prev, False
-            if node.kind == "convolutional":
-                p = [shard[node.index] for shard in params]
-                role = roles.get(node.index) if repl else None
-                if role == "col":
-                    out = _conv_col(prev, p, node, n_shards)
-                elif role == "row":
-                    out = _conv_row(prev, p, node, n_shards)
-                elif repl:
-                    out = _map(lambda t, q: _conv(t, q["w"], q["b"], node),
-                               prev, p)
-                else:
-                    out = _conv_sharded(prev, [q["w"] for q in p],
-                                        [q["b"] for q in p], node, n_shards)
-            elif node.kind == "maxpool":
-                out = (_map(lambda t: _maxpool(t, node), prev) if repl else
-                       _maxpool_sharded(prev, node, n_shards))
-            elif node.kind == "upsample":
-                out = _map(lambda t: F.interpolate(
-                    t, scale_factor=node.stride, mode="nearest"), prev)
-            elif node.kind == "shortcut":
-                out = _map(lambda a, s: _activate(a + s, node.activation),
-                           prev, fetch(node.inputs[1], want_full=repl))
-            elif node.kind == "route":
-                srcs = [prev if i == node.index - 1
-                        else fetch(i, want_full=repl) for i in node.inputs]
-                out = (srcs[0] if len(srcs) == 1 else
-                       _map(lambda *ts: torch.cat(ts, 1), *srcs))
-            elif node.kind == "yolo":
-                heads.append(prev)
-                out = prev
-            else:  # pragma: no cover - lower() already validates kinds
-                raise ValueError(node.kind)
-            if node.index in needed:
-                cache[node.index] = out
-                local[node.index] = not repl
-            prev = out
-            prev_local = not repl
-    return [h[0].permute(0, 2, 3, 1) for h in heads]
+        return walk(graph, [_float_input(x, precision) for x in x_local], ops)
 
 
 def spatial_pipeline(graph: Graph, mesh: Mesh, net_hw: Tuple[int, int],

@@ -45,8 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from .graph import Graph, Node
-from .model import (PRECISIONS, _activate, _conv, _head_spec, _maxpool,
-                    residual_convs)
+from .model import (PRECISIONS, FloatOps, NodeOps, _activate, _conv,
+                    _float_input, _head_spec, _maxpool, residual_convs, walk)
 from .ops import cuda_requant
 from .ops import decode as plain_decode
 from .ops import int8_conv
@@ -431,6 +431,171 @@ def _carrier_dtype(precision: Optional[str]) -> torch.dtype:
     return torch.bfloat16 if precision == "bf16" else torch.float32
 
 
+class _CarrierOps(NodeOps):
+    """The ops of :func:`forward_features_int8_carrier`: values ("q", int8
+    NHWC, scale, zero) or ("f", carrier NHWC)."""
+
+    def __init__(self, graph: Graph, qparams: QParams,
+                 tensor_scales: Dict[int, float], x: torch.Tensor,
+                 carrier_dtype: torch.dtype, block_impl: str,
+                 tensor_zeros: Optional[Dict[int, int]], operands: Operands):
+        self.graph, self.qparams, self.scales = graph, qparams, tensor_scales
+        self.x, self.carrier_dtype, self.operands = x, carrier_dtype, operands
+        self.tensor_zeros = tensor_zeros
+        self.symmetric = not (tensor_zeros and any(tensor_zeros.values()))
+        if not self.symmetric:
+            block_impl = "xla"  # K6 mimics the SYMMETRIC quantize sites
+        self.cons = cons = consumers_of(graph)
+        # q_friendly[i]: node i genuinely absorbs an int8 operand. Quantized
+        # convs and scale-resolving joins (shortcut, multi-input route)
+        # consume int8 natively. PASS-THROUGH ops (maxpool/upsample/single-
+        # input route) forward the carrier unchanged, so they are friendly
+        # only if ALL of their own consumers are — computed transitively in
+        # reverse topological order (graph.nodes is topo-ordered; skip edges
+        # only point backward).
+        self.q_friendly = q_friendly = {}
+        for n in reversed(graph.nodes):
+            if n.kind == "convolutional":
+                ok = "wq" in qparams.get(n.index, {})
+            elif n.kind == "shortcut" or (n.kind == "route"
+                                          and len(n.inputs) > 1):
+                ok = True
+            elif n.kind in ("maxpool", "upsample", "route"):
+                ncs = cons[n.index]
+                ok = bool(ncs) and all(q_friendly[c.index] for c in ncs)
+            else:  # yolo heads read the carrier type
+                ok = False
+            q_friendly[n.index] = ok
+        self.bplan: Dict[int, Dict] = {}
+        if block_impl == "pallas":
+            from .ops import cuda_block
+
+            self.bplan = cuda_block.fused_block_plan(graph, qparams,
+                                                     tensor_scales)
+        elif block_impl != "xla":
+            raise ValueError(f"unknown block_impl {block_impl!r} "
+                             "(expected 'xla' or 'pallas')")
+        # the shortcut right after a conv, which the conv's requantize pass
+        # takes over where it reads int8
+        self.shortcuts = residual_convs(graph)
+
+    def zof(self, i: int) -> int:
+        return self.tensor_zeros.get(i, 0) if self.tensor_zeros else 0
+
+    def want_q(self, node: Node) -> bool:
+        """Emit int8 for this node's output? Only when ALL consumers read
+        int8: a mixed edge would add a quantize→dequantize round trip on
+        the float consumer's operand."""
+        if node.index not in self.scales:
+            return False
+        cs = self.cons[node.index]
+        return bool(cs) and all(self.q_friendly[c.index] for c in cs)
+
+    def as_f(self, v: Value) -> torch.Tensor:
+        if v[0] == "f":
+            return v[1]
+        return _dequantize_affine(v[1], v[2], v[3]).to(self.carrier_dtype)
+
+    def emit(self, y: torch.Tensor, node: Node) -> Value:
+        if self.want_q(node):
+            s, z = self.scales[node.index], self.zof(node.index)
+            return ("q", _quantize_affine(y, s, z), s, z)
+        return ("f", y.to(self.carrier_dtype))
+
+    def run_block(self, a: int, prev_q: Value) -> Value:
+        """Nodes a, a+1, a+2 (1×1 → 3×3 → shortcut) as one K6 launch."""
+        from .ops import cuda_block
+
+        eq = self.want_q(self.graph.nodes[a + 2])
+        s_out = self.scales[a + 2] if eq else None
+        bp = cuda_block.prepare_block_params(
+            self.qparams[a], self.qparams[a + 1], prev_q[2], self.scales[a],
+            cache=self.operands.blocks, key=a)
+        out = cuda_block.residual_block_int8(
+            prev_q[1], bp, s_in=prev_q[2], s_mid=self.scales[a],
+            s_mid2=self.scales[a + 1], s_out=s_out, emit_q=eq,
+            carrier_dtype=self.carrier_dtype)
+        return ("q", out, s_out, 0) if eq else ("f", out)
+
+    def requant(self, acc: torch.Tensor, node: Node, sx: float, cache, end):
+        """Quantized conv ``node``'s epilogue over its int32 sums ``acc`` in
+        the symmetric scheme as one requantize pass (``int8_requant`` on
+        the card, which raises where it cannot take the sums; its plain
+        version on the CPU), with the shortcut after it where the walk
+        reaches it, the conv's output is int8 and the shortcut's other
+        input too (the conv's own int8 output then never exists): (the
+        value, the index of the last node taken)."""
+        sc, short = self.shortcuts.get(node.index), None
+        r = cache[sc.inputs[1]] if sc is not None and sc.index < end else None
+        if r is not None and r[0] == "q" and self.want_q(node):
+            short = cuda_requant.Shortcut(
+                r[1], r[2], self.scales[node.index], sc.activation)
+        site = node if short is None else sc
+        q = self.want_q(site)
+        run = (cuda_requant.int8_requant_reference
+               if acc.device.type == "cpu" else cuda_requant.int8_requant)
+        out = run(acc, self.operands.dequant_scale(node.index, sx),
+                  self.qparams[node.index]["b"], node.activation,
+                  torch.int8 if q else self.carrier_dtype,
+                  self.scales[site.index] if q else None, short)
+        value = ("q", out, self.scales[site.index], 0) if q else ("f", out)
+        return value, site.index
+
+    def conv(self, node, x, cache, end):
+        a = node.index
+        if a in self.bplan and x[0] == "q" and a + 2 < end:
+            return self.run_block(a, x), a + 2
+        qp = self.qparams[a]
+        if "wq" not in qp:
+            # a float conv whose consumers all read int8 (conv0)
+            # quantizes in its epilogue
+            y = _conv_bf16(self.as_f(x), node, qp, self.operands)
+            return self.emit(y, node), a
+        if node.inputs[0] < 0:
+            # stem: exact-u8 int8 input from the RAW network input (the
+            # carrier cast would break exactness)
+            y = _conv_stem_int8(self.x, node, qp, self.operands)
+            return self.emit(_activate(y, node.activation), node), a
+        if x[0] == "q":
+            xin, sx, zx = x[1], x[2], x[3]
+        else:
+            src = node.inputs[0]
+            xin, sx, zx = self.as_f(x), self.scales[src], self.zof(src)
+        acc = _conv_int8_acc(xin, node, sx, x[0] == "q", zx, self.operands)
+        if self.symmetric:
+            return self.requant(acc, node, sx, cache, end)
+        y = _int8_conv_epilogue(acc, node, qp, sx, zx, xin.shape[1:3],
+                                self.operands)
+        return self.emit(_activate(y, node.activation), node), a
+
+    def maxpool(self, node, x):
+        if x[0] == "q":
+            return ("q", _maxpool_int8(x[1], node), x[2], x[3])
+        return ("f", _maxpool_f(x[1], node))
+
+    def upsample(self, node, x):
+        return (x[0], _upsample_nearest(x[1], node.stride), *x[2:])
+
+    def shortcut(self, node, x, other):
+        return self.emit(_activate(_shortcut_sum(x, other), node.activation),
+                         node)
+
+    def route(self, node, xs):
+        if self.want_q(node) and all(v[0] == "q" for v in xs):
+            s, z = self.scales[node.index], self.zof(node.index)
+            if self.tensor_zeros:
+                parts = [_requantize_affine(v[1], v[2], v[3], s, z)
+                         for v in xs]
+            else:
+                parts = [_quantize_affine(
+                    _dequantize_affine(v[1], v[2], v[3]), s, z) for v in xs]
+            return ("q", torch.cat(parts, dim=-1), s, z)
+        return ("f", torch.cat([self.as_f(v) for v in xs], dim=-1))
+
+    def head(self, x):
+        return self.as_f(x)
+
+
 def forward_features_int8_carrier(
         graph: Graph, qparams: QParams, tensor_scales: Dict[int, float],
         x: torch.Tensor, precision: Optional[str] = "bf16",
@@ -473,197 +638,57 @@ def forward_features_int8_carrier(
     only, so nonzero zero-points force ``block_impl="xla"``.
     """
     carrier_dtype = _carrier_dtype(precision)
-    operands = operands or Operands(qparams)
-    zof = ((lambda i: tensor_zeros.get(i, 0)) if tensor_zeros
-           else (lambda i: 0))
-    symmetric = not (tensor_zeros and any(tensor_zeros.values()))
-    if not symmetric:
-        block_impl = "xla"  # K6 mimics the SYMMETRIC quantize sites
-    needed = graph.needed_outputs
-    cons = consumers_of(graph)
-
-    # q_friendly[i]: node i genuinely absorbs an int8 operand. Quantized
-    # convs and scale-resolving joins (shortcut, multi-input route) consume
-    # int8 natively. PASS-THROUGH ops (maxpool/upsample/single-input route)
-    # forward the carrier unchanged, so they are friendly only if ALL of
-    # their own consumers are — computed transitively in reverse topological
-    # order (graph.nodes is topo-ordered; skip edges only point backward).
-    q_friendly: Dict[int, bool] = {}
-    for n in reversed(graph.nodes):
-        if n.kind == "convolutional":
-            ok = "wq" in qparams.get(n.index, {})
-        elif n.kind == "shortcut" or (n.kind == "route" and len(n.inputs) > 1):
-            ok = True
-        elif n.kind in ("maxpool", "upsample", "route"):
-            ncs = cons[n.index]
-            ok = bool(ncs) and all(q_friendly[c.index] for c in ncs)
-        else:  # yolo heads read the carrier type
-            ok = False
-        q_friendly[n.index] = ok
-
-    def want_q(node: Node) -> bool:
-        """Emit int8 for this node's output? Only when ALL consumers read
-        int8: a mixed edge would add a quantize→dequantize round trip on
-        the float consumer's operand."""
-        if node.index not in tensor_scales:
-            return False
-        cs = cons[node.index]
-        return bool(cs) and all(q_friendly[c.index] for c in cs)
-
-    head_convs = ({yn.inputs[0] for yn in graph.yolo_nodes}
-                  if stop_before_heads else frozenset())
-    cache: Dict[int, Value] = {}
-    heads: List[torch.Tensor] = []
-    prev: Value = ("f", x.to(carrier_dtype))
-
-    def as_f(v: Value) -> torch.Tensor:
-        if v[0] == "f":
-            return v[1]
-        return _dequantize_affine(v[1], v[2], v[3]).to(carrier_dtype)
-
-    def emit(y: torch.Tensor, node: Node) -> Value:
-        if want_q(node):
-            s, z = tensor_scales[node.index], zof(node.index)
-            return ("q", _quantize_affine(y, s, z), s, z)
-        return ("f", y.to(carrier_dtype))
-
-    bplan: Dict[int, Dict] = {}
-    if block_impl == "pallas":
-        from .ops import cuda_block
-
-        bplan = cuda_block.fused_block_plan(graph, qparams, tensor_scales)
-    elif block_impl != "xla":
-        raise ValueError(f"unknown block_impl {block_impl!r} "
-                         "(expected 'xla' or 'pallas')")
-
-    def run_block(a: int, prev_q: Value) -> Value:
-        """Nodes a, a+1, a+2 (1×1 → 3×3 → shortcut) as one K6 launch."""
-        eq = want_q(graph.nodes[a + 2])
-        s_out = tensor_scales[a + 2] if eq else None
-        bp = cuda_block.prepare_block_params(
-            qparams[a], qparams[a + 1], prev_q[2], tensor_scales[a],
-            cache=operands.blocks, key=a)
-        out = cuda_block.residual_block_int8(
-            prev_q[1], bp, s_in=prev_q[2], s_mid=tensor_scales[a],
-            s_mid2=tensor_scales[a + 1], s_out=s_out, emit_q=eq,
-            carrier_dtype=carrier_dtype)
-        return ("q", out, s_out, 0) if eq else ("f", out)
-
-    # the shortcut right after a conv, which the conv's requantize pass
-    # takes over where it reads int8
-    shortcuts = residual_convs(graph, upto)
-
-    def requant(acc: torch.Tensor, node: Node, sx: float):
-        """Quantized conv ``node``'s epilogue over its int32 sums ``acc`` in
-        the symmetric scheme as one requantize pass (``int8_requant`` on
-        the card, which raises where it cannot take the sums; its plain
-        version on the CPU), with the shortcut after it where the conv's
-        output is int8 and the shortcut's other input too (the conv's own
-        int8 output then never exists): (the value, the shortcut node taken
-        or None)."""
-        sc, short = shortcuts.get(node.index), None
-        r = cache[sc.inputs[1]] if sc is not None else None
-        if r is not None and r[0] == "q" and want_q(node):
-            short = cuda_requant.Shortcut(
-                r[1], r[2], tensor_scales[node.index], sc.activation)
-        site = node if short is None else sc
-        q = want_q(site)
-        run = (cuda_requant.int8_requant_reference
-               if acc.device.type == "cpu" else cuda_requant.int8_requant)
-        out = run(acc, operands.dequant_scale(node.index, sx),
-                  qparams[node.index]["b"], node.activation,
-                  torch.int8 if q else carrier_dtype,
-                  tensor_scales[site.index] if q else None, short)
-        value = ("q", out, tensor_scales[site.index], 0) if q else ("f", out)
-        return value, None if short is None else sc
-
-    skip_upto = -1
+    ops = _CarrierOps(graph, qparams, tensor_scales, x, carrier_dtype,
+                      block_impl, tensor_zeros, operands or Operands(qparams))
     with tf32(precision is None):
-        for node in (graph.nodes if upto is None else graph.nodes[:upto]):
-            if node.index <= skip_upto:
-                continue  # node ran inside a K6 block or a requant pass
-            if (node.index in bplan and prev[0] == "q"
-                    and (upto is None or node.index + 2 < upto)):
-                prev = run_block(node.index, prev)
-                skip_upto = node.index + 2
-                if skip_upto in needed:
-                    cache[skip_upto] = prev
-                continue
-            if node.index in head_convs:
-                # head branch ends here: the skipped conv's only consumer
-                # is its yolo node (fused_heads_eligible gate)
-                heads.append(as_f(prev))
-                out = prev
-            elif node.kind == "convolutional":
-                qp = qparams[node.index]
-                if "wq" in qp and node.inputs[0] < 0:
-                    # stem: exact-u8 int8 input from the RAW network input
-                    # (the carrier cast would break exactness)
-                    y = _conv_stem_int8(x, node, qp, operands)
-                    out = emit(_activate(y, node.activation), node)
-                elif "wq" in qp:
-                    if prev[0] == "q":
-                        xin, sx, zx = prev[1], prev[2], prev[3]
-                    else:
-                        src = node.inputs[0]
-                        xin, sx, zx = as_f(prev), tensor_scales[src], zof(src)
-                    acc = _conv_int8_acc(xin, node, sx, prev[0] == "q", zx,
-                                         operands)
-                    if symmetric:
-                        out, sc = requant(acc, node, sx)
-                        if sc is not None:  # the shortcut ran in the pass
-                            skip_upto = sc.index
-                            if sc.index in needed:
-                                cache[sc.index] = out
-                    else:
-                        y = _int8_conv_epilogue(acc, node, qp, sx, zx,
-                                                xin.shape[1:3], operands)
-                        out = emit(_activate(y, node.activation), node)
-                else:
-                    y = _conv_bf16(as_f(prev), node, qp, operands)
-                    # a float conv whose consumers all read int8 (conv0)
-                    # quantizes in its epilogue
-                    out = emit(y, node) if want_q(node) else ("f", y)
-            elif node.kind == "maxpool":
-                if prev[0] == "q":
-                    out = ("q", _maxpool_int8(prev[1], node), prev[2], prev[3])
-                else:
-                    out = ("f", _maxpool_f(prev[1], node))
-            elif node.kind == "upsample":
-                out = (prev[0], _upsample_nearest(prev[1], node.stride),
-                       *prev[2:])
-            elif node.kind == "shortcut":
-                y = _shortcut_sum(prev, cache[node.inputs[1]])
-                out = emit(_activate(y, node.activation), node)
-            elif node.kind == "route":
-                srcs = [prev if i == node.index - 1 else cache[i]
-                        for i in node.inputs]
-                if len(srcs) == 1:
-                    out = srcs[0]  # scale/zero ride along, no requantize
-                elif want_q(node) and all(v[0] == "q" for v in srcs):
-                    s, z = tensor_scales[node.index], zof(node.index)
-                    if tensor_zeros:
-                        parts = [_requantize_affine(v[1], v[2], v[3], s, z)
-                                 for v in srcs]
-                    else:
-                        parts = [_quantize_affine(
-                            _dequantize_affine(v[1], v[2], v[3]), s, z)
-                            for v in srcs]
-                    out = ("q", torch.cat(parts, dim=-1), s, z)
-                else:
-                    out = ("f", torch.cat([as_f(v) for v in srcs], dim=-1))
-            elif node.kind == "yolo":
-                if not stop_before_heads:
-                    heads.append(as_f(prev))
-                out = prev
-            else:  # pragma: no cover - lower() already validates kinds
-                raise ValueError(node.kind)
-            if node.index in needed:
-                cache[node.index] = out
-            prev = out
-    if upto is not None:
-        return heads + [as_f(prev)]
-    return heads
+        return walk(graph, ("f", x.to(carrier_dtype)), ops, upto=upto,
+                    stop_before_heads=stop_before_heads)
+
+
+class _Int8FloatOps(NodeOps):
+    """The ops of :func:`forward_features_int8`: NHWC tensors of the
+    carrier type, but a chained conv's output (:func:`chain_targets`),
+    which is int8 in its one consumer's input scale and read as is."""
+
+    def __init__(self, qparams: QParams, scales: Dict[int, float],
+                 x: torch.Tensor, carrier_dtype: torch.dtype,
+                 chains: Dict[int, int], operands: Operands):
+        self.qparams, self.scales, self.x = qparams, scales, x
+        self.carrier_dtype, self.chains = carrier_dtype, chains
+        self.operands = operands
+
+    def conv(self, node, x, cache, end):
+        qp = self.qparams[node.index]
+        if "wq" not in qp:
+            return _conv_bf16(x, node, qp, self.operands), node.index
+        if node.inputs[0] < 0:
+            y = _conv_stem_int8(self.x, node, qp, self.operands)
+        else:
+            y = _conv_int8_core(x, node, qp, self.scales[node.index],
+                                prequantized=x.dtype == torch.int8,
+                                operands=self.operands)
+        y = _activate(y, node.activation)
+        nxt = self.chains.get(node.index)
+        if nxt is not None:
+            # int8 in the consumer's scale; the float tensor of this layer
+            # never exists
+            return _quantize_to(y, self.scales[nxt]), node.index
+        return y.to(self.carrier_dtype), node.index
+
+    def maxpool(self, node, x):
+        return _maxpool_f(x, node)
+
+    def upsample(self, node, x):
+        return _upsample_nearest(x, node.stride)
+
+    def shortcut(self, node, x, other):
+        return _activate(x + other, node.activation)
+
+    def route(self, node, xs):
+        return torch.cat(xs, dim=-1)
+
+    def head(self, x):
+        return x
 
 
 def forward_features_int8(graph: Graph, qparams: QParams,
@@ -677,56 +702,11 @@ def forward_features_int8(graph: Graph, qparams: QParams,
     input scale (:func:`calibrate`). ``chain=True`` lets solely-chained
     convs emit int8 directly (:func:`chain_targets`)."""
     carrier_dtype = _carrier_dtype(precision)
-    operands = operands or Operands(qparams)
-    needed = graph.needed_outputs
-    chains = chain_targets(graph, qparams) if chain else {}
-    cache: Dict[int, torch.Tensor] = {}
-    heads: List[torch.Tensor] = []
-    prev = x.to(carrier_dtype)
-    prev_q = None  # int8 tensor already in THIS node's input scale
+    ops = _Int8FloatOps(qparams, scales, x, carrier_dtype,
+                        chain_targets(graph, qparams) if chain else {},
+                        operands or Operands(qparams))
     with tf32(precision is None):
-        for node in graph.nodes:
-            out_q = None
-            if node.kind == "convolutional":
-                qp = qparams[node.index]
-                if "wq" in qp:
-                    if node.inputs[0] < 0:
-                        y = _conv_stem_int8(x, node, qp, operands)
-                    else:
-                        y = _conv_int8_core(
-                            prev_q if prev_q is not None else prev, node, qp,
-                            scales[node.index],
-                            prequantized=prev_q is not None, operands=operands)
-                    y = _activate(y, node.activation)
-                    if node.index in chains:
-                        # int8 in the consumer's scale; the float tensor of
-                        # this layer never exists
-                        out_q = _quantize_to(y, scales[chains[node.index]])
-                        out = out_q  # placeholder; the consumer reads out_q
-                    else:
-                        out = y.to(carrier_dtype)
-                else:
-                    out = _conv_bf16(prev, node, qp, operands)
-            elif node.kind == "maxpool":
-                out = _maxpool_f(prev, node)
-            elif node.kind == "upsample":
-                out = _upsample_nearest(prev, node.stride)
-            elif node.kind == "shortcut":
-                out = _activate(prev + cache[node.inputs[1]], node.activation)
-            elif node.kind == "route":
-                srcs = [prev if i == node.index - 1 else cache[i]
-                        for i in node.inputs]
-                out = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=-1)
-            elif node.kind == "yolo":
-                heads.append(prev)
-                out = prev
-            else:  # pragma: no cover - lower() already validates kinds
-                raise ValueError(node.kind)
-            if node.index in needed:
-                cache[node.index] = out
-            prev = out
-            prev_q = out_q
-    return heads
+        return walk(graph, x.to(carrier_dtype), ops)
 
 
 def _int8_heads(graph, qparams, scales, x, precision, carrier, block_impl,
@@ -875,33 +855,8 @@ def _calibration_walk(graph: Graph, params: TorchParams, x: torch.Tensor,
     output, which IS the conv input for conv nodes), ``out`` its own output,
     both as NCHW views (channels on dim 1) of channels_last tensors."""
     _carrier_dtype(precision)
-    needed = graph.needed_outputs
-    cache: Dict[int, torch.Tensor] = {}
-    prev = x.permute(0, 3, 1, 2)
-    if precision == "bf16":
-        prev = prev.to(torch.bfloat16)
     with tf32(precision is None):
-        for node in graph.nodes:
-            if node.kind == "convolutional":
-                p = params[node.index]
-                out = _conv(prev, p["w"], p["b"], node)
-            elif node.kind == "maxpool":
-                out = _maxpool(prev, node)
-            elif node.kind == "upsample":
-                out = F.interpolate(prev, scale_factor=node.stride,
-                                    mode="nearest")
-            elif node.kind == "shortcut":
-                out = _activate(prev + cache[node.inputs[1]], node.activation)
-            elif node.kind == "route":
-                srcs = [prev if i == node.index - 1 else cache[i]
-                        for i in node.inputs]
-                out = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-            else:
-                out = prev
-            visit(node, prev, out)
-            if node.index in needed:
-                cache[node.index] = out
-            prev = out
+        walk(graph, _float_input(x, precision), FloatOps(params), visit=visit)
 
 
 def _as_batch(x, params: TorchParams) -> torch.Tensor:

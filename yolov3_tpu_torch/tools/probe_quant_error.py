@@ -30,7 +30,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .eval_coco import evaluate
 from .gen_eval_golden import CFG, NET_HW, SEED, detections_to_dicts, make_frames
@@ -67,7 +66,7 @@ def calibrate_minmax(graph, params, batches) -> Dict[int, Tuple[float, float]]:
 def fake_quant_forward(graph, params, x, mode, minmax, qparams):
     """float32 compact forward with ONE factor fake-quantized per eligible
     conv: (boxes, scores, classes) of the plain compact decode."""
-    from ..model import _activate, _conv, _head_spec, _maxpool
+    from ..model import FloatOps, _float_input, _head_spec, walk
     from ..ops.decode import decode_compact
     from ..precision import tf32
     from ..quant import eligible
@@ -95,34 +94,16 @@ def fake_quant_forward(graph, params, x, mode, minmax, qparams):
         s = max(hi - lo, 1e-6) / 255.0
         return torch.clamp(torch.round((f - lo) / s), 0, 255) * s + lo
 
-    # graph walk mirroring model.forward_features at precision "highest",
-    # with the conv-input fake-quant hook
-    needed = graph.needed_outputs
-    cache, heads, prev = {}, [], x.permute(0, 3, 1, 2)
+    class FakeQuantOps(FloatOps):
+        """The float walk at precision "highest" with the conv-input
+        fake-quant hook."""
+
+        def conv(self, node, x, cache, end):
+            return super().conv(node, maybe_fq(node, x), cache, end)
+
     with tf32(False):
-        for node in graph.nodes:
-            if node.kind == "convolutional":
-                p = fq_params[node.index]
-                out = _conv(maybe_fq(node, prev), p["w"], p["b"], node)
-            elif node.kind == "maxpool":
-                out = _maxpool(prev, node)
-            elif node.kind == "upsample":
-                out = F.interpolate(prev, scale_factor=node.stride,
-                                    mode="nearest")
-            elif node.kind == "shortcut":
-                out = _activate(prev + cache[node.inputs[1]], node.activation)
-            elif node.kind == "route":
-                srcs = [prev if i == node.index - 1 else cache[i]
-                        for i in node.inputs]
-                out = srcs[0] if len(srcs) == 1 else torch.cat(srcs, dim=1)
-            elif node.kind == "yolo":
-                heads.append(prev.permute(0, 2, 3, 1).float())
-                out = prev
-            else:
-                raise ValueError(node.kind)
-            if node.index in needed:
-                cache[node.index] = out
-            prev = out
+        heads = walk(graph, _float_input(x, "highest"),
+                     FakeQuantOps(fq_params))
     return decode_compact(heads, *_head_spec(graph),
                           scales=graph.head_scales())
 
